@@ -1,0 +1,406 @@
+"""Fused mixed loss: rendering loss + l1_weight * SVBRDF L1 in one kernel.
+
+Counterpart of the mixed-loss path of svbrdf_tpu/ops/render_pallas.py
+(`mixed_loss_fused_planes` at fold=1). Two CUDA kernels from one source,
+csrc/mixed_loss.cu, replace the two TPU kernels on the training path:
+
+- `mixed_loss_fwdgrad_cuda` (the training step): the pre-normalized loss
+  partials AND the combined gradient d(mixed)/d(pred planes) from a single
+  shade of each side per scene;
+- `mixed_loss_fwd_cuda` (the validation step): the value only.
+
+Each has a plain torch version here (`mixed_loss_fwdgrad_plain`,
+`mixed_loss_fwd_plain`): a whole-image, vectorized translation of the same
+hand-VJP math. The CPU tests hold the plain versions against JAX, and the
+chip smoke test holds the kernels against the plain versions. The
+dispatching wrappers use the plain version only for CPU tensors; for CUDA
+tensors they launch the kernel or raise.
+
+`_FusedMixed` (a torch.autograd.Function) launches the value+gradient kernel
+in forward and saves dpred; backward is a scalar scale, so no separate
+backward kernel exists. Outside autograd the value-only kernel runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from svbrdf_tpu_torch.ops import _build
+from svbrdf_tpu_torch.scene import Scene
+
+EPSILON_RENDER = 0.1  # log-space epsilon of the renders
+EPSILON_L1 = 0.01     # log-space epsilon of diffuse/specular in the L1 term
+_EPS = 0.001
+_PI = math.pi
+
+
+def pack_scenes(scenes: Scene) -> torch.Tensor:
+    """Scene with (B, S, 3) fields -> packed (B, S, 9) [cam|light|color]."""
+    return torch.cat([scenes.camera_pos, scenes.light_pos,
+                      scenes.light_color], dim=-1).float().contiguous()
+
+
+def _normalizers(batch, n_scenes, height, width, global_height, l1_weight):
+    """(inv_render, l1_coef): the render term is a mean over B*S*H*W*3
+    elements, each L1 map term a mean over B*H*W*3; sharded callers
+    normalize by the GLOBAL height."""
+    full_height = global_height or height
+    inv_render = 1.0 / (batch * n_scenes * full_height * width * 3)
+    l1_coef = l1_weight * (1.0 / (batch * full_height * width * 3))
+    return inv_render, l1_coef
+
+
+def _patch_xy(height, width, row_offset, full_height, device):
+    """Patch coordinates of every pixel, the TPU kernel's formula
+    x = -1 + 2 col / (W - 1), y = 1 - 2 row / (H - 1) with global rows."""
+    col = torch.arange(width, dtype=torch.float32, device=device)
+    row = (torch.arange(height, dtype=torch.float32, device=device)
+           + float(row_offset))
+    x = -1.0 + 2.0 * col / (width - 1)
+    y = 1.0 - 2.0 * row / (full_height - 1)
+    return x[None, :].expand(height, width), y[:, None].expand(height, width)
+
+
+# --- Plain versions ----------------------------------------------------------
+#
+# Per-plane tensors are (B, H, W); scene scalars are (B, 1, 1). Derivative
+# conventions at the clamps follow autodiff of the same expressions:
+# d max(x, k)/dx = [x >= k], chi+ factors are constants.
+
+
+def _scene_geometry(sc, x, y):
+    """View, light and half vectors, d^2 and (1 - VH)^5 of one scene."""
+    vx, vy = sc[0] - x, sc[1] - y
+    vz = sc[2].expand_as(vx)
+    inv_v = torch.rsqrt(vx * vx + vy * vy + vz * vz)
+    vx, vy, vz = vx * inv_v, vy * inv_v, vz * inv_v
+    lx, ly = sc[3] - x, sc[4] - y
+    lz = sc[5].expand_as(lx)
+    dist_sq = lx * lx + ly * ly + lz * lz
+    inv_l = torch.rsqrt(dist_sq)
+    lx, ly, lz = lx * inv_l, ly * inv_l, lz * inv_l
+    hx, hy, hz = (vx + lx) * 0.5, (vy + ly) * 0.5, (vz + lz) * 0.5
+    inv_h = torch.rsqrt(hx * hx + hy * hy + hz * hz)
+    hx, hy, hz = hx * inv_h, hy * inv_h, hz * inv_h
+    VH = torch.clamp(vx * hx + vy * hy + vz * hz, min=_EPS)
+    o = 1.0 - VH
+    return dict(v=(vx, vy, vz), l=(lx, ly, lz), h=(hx, hy, hz),
+                dist_sq=dist_sq, omv5=o * o * o * o * o)
+
+
+def _shade_side(p, g, color):
+    """One side's radiance per channel plus what its VJP needs."""
+    (vx, vy, vz), (lx, ly, lz), (hx, hy, hz) = g["v"], g["l"], g["h"]
+    nx, ny, nz = p[:, 0], p[:, 1], p[:, 2]
+    nh_raw = nx * hx + ny * hy + nz * hz
+    vn_raw = vx * nx + vy * ny + vz * nz
+    ln_raw = lx * nx + ly * ny + lz * nz
+    NH = torch.clamp(nh_raw, min=_EPS)
+    VN = torch.clamp(vn_raw, min=_EPS)
+    LN = torch.clamp(ln_raw, min=_EPS)
+    NH_sq = NH * NH
+    scale = torch.clamp(ln_raw, min=0.0) / g["dist_sq"]
+    tv = (1.0 - VN * VN) / (VN * VN)
+    tl = (1.0 - LN * LN) / (LN * LN)
+    shared = dict(NH=NH, VN=VN, LN=LN, NH_sq=NH_sq, scale=scale, tv=tv,
+                  tl=tl, raw=(nh_raw, vn_raw, ln_raw))
+    chans = []
+    for c in range(3):
+        albedo, rough_raw, spec = p[:, 3 + c], p[:, 6 + c], p[:, 9 + c]
+        rough = torch.clamp(rough_raw, min=_EPS)
+        r2 = rough * rough
+        a = r2 * r2
+        denom_raw = NH_sq * (a + (1.0 - NH_sq) / NH_sq)
+        denom = torch.clamp(denom_raw, min=_EPS)
+        chi = (NH > 0.0).float()
+        D = a * chi / (_PI * denom * denom)
+        sv = torch.sqrt(1.0 + a * tv)
+        g1v = 2.0 / (1.0 + sv)
+        sl = torch.sqrt(1.0 + a * tl)
+        g1l = 2.0 / (1.0 + sl)
+        G = g1v * g1l
+        inv_4vnln = 1.0 / (4.0 * VN * LN)
+        spec_base = G * D * inv_4vnln
+        F = spec + (1.0 - spec) * g["omv5"]
+        f = (1.0 - F) * albedo / _PI + F * spec_base
+        chans.append(dict(
+            albedo=albedo, rough_raw=rough_raw, rough=rough, a=a,
+            denom_raw=denom_raw, denom=denom, chi=chi, D=D, sv=sv, g1v=g1v,
+            sl=sl, g1l=g1l, G=G, inv_4vnln=inv_4vnln, spec_base=spec_base,
+            F=F, f=f, out=f * color[c] * scale))
+    return shared, chans
+
+
+def _side_bwd(g, color, shared, chans, u):
+    """Gradient of sum_c u[c] * out_c wrt one side's 12 planes, (B, 12, H, W)."""
+    (vx, vy, vz), (lx, ly, lz), (hx, hy, hz) = g["v"], g["l"], g["h"]
+    NH, VN, LN, NH_sq = shared["NH"], shared["VN"], shared["LN"], shared["NH_sq"]
+    tv, tl, scale = shared["tv"], shared["tl"], shared["scale"]
+    dalbedo, drough, dspec = [], [], []
+    A_NH = A_VN = A_LN = A_lp = 0.0
+    for c in range(3):
+        k = chans[c]
+        a, sv, sl, D, G = k["a"], k["sv"], k["sl"], k["D"], k["G"]
+        w = u[c] * color[c]
+        ws = w * scale
+        wsF = ws * k["F"]
+        dalbedo.append(ws * (1.0 - k["F"]) / _PI)
+        dspec.append(ws * (1.0 - g["omv5"]) * (k["spec_base"]
+                                               - k["albedo"] / _PI))
+        mask_denom = (k["denom_raw"] >= _EPS).float()
+        inv_denom = 1.0 / k["denom"]
+        inv_denom3 = inv_denom * inv_denom * inv_denom
+        dD_da = (k["chi"] * (k["denom"] - 2.0 * a * NH_sq * mask_denom)
+                 * inv_denom3 / _PI)
+        dg1v_da = -tv / (sv * (1.0 + sv) * (1.0 + sv))
+        dg1l_da = -tl / (sl * (1.0 + sl) * (1.0 + sl))
+        dG_da = dg1v_da * k["g1l"] + k["g1v"] * dg1l_da
+        dsb_da = (dG_da * D + G * dD_da) * k["inv_4vnln"]
+        mask_r = (k["rough_raw"] >= _EPS).float()
+        rough = k["rough"]
+        drough.append(wsF * dsb_da * 4.0 * rough * rough * rough * mask_r)
+        dsb_dNH = ((G * k["inv_4vnln"])
+                   * (-2.0 * a * k["chi"] * inv_denom3 / _PI)
+                   * 2.0 * NH * (a - 1.0) * mask_denom)
+        dg1v_dVN = 2.0 * a / ((1.0 + sv) * (1.0 + sv) * sv * VN * VN * VN)
+        dsb_dVN = (dg1v_dVN * k["g1l"] * D - G * D / VN) * k["inv_4vnln"]
+        dg1l_dLN = 2.0 * a / ((1.0 + sl) * (1.0 + sl) * sl * LN * LN * LN)
+        dsb_dLN = (k["g1v"] * dg1l_dLN * D - G * D / LN) * k["inv_4vnln"]
+        A_NH = A_NH + wsF * dsb_dNH
+        A_VN = A_VN + wsF * dsb_dVN
+        A_LN = A_LN + wsF * dsb_dLN
+        A_lp = A_lp + w * k["f"] / g["dist_sq"]
+    nh_raw, vn_raw, ln_raw = shared["raw"]
+    cn = A_NH * (nh_raw >= _EPS).float()
+    cv = A_VN * (vn_raw >= _EPS).float()
+    cl = A_LN * (ln_raw >= _EPS).float() + A_lp * (ln_raw >= 0.0).float()
+    dn = [cn * hx + cv * vx + cl * lx, cn * hy + cv * vy + cl * ly,
+          cn * hz + cv * vz + cl * lz]
+    return torch.stack(dn + dalbedo + drough + dspec, dim=1)
+
+
+def _l1_terms(pred_t, gt_t):
+    """SVBRDF L1 sum over all elements and its gradient wrt pred: plain
+    L1 on normals and roughness, L1 of log(x + 0.01) on diffuse/specular."""
+    dn = pred_t[:, 0:3] - gt_t[:, 0:3]
+    dr = pred_t[:, 6:9] - gt_t[:, 6:9]
+    pd = pred_t[:, 3:6] + EPSILON_L1
+    ps = pred_t[:, 9:12] + EPSILON_L1
+    dd = torch.log(pd) - torch.log(gt_t[:, 3:6] + EPSILON_L1)
+    ds = torch.log(ps) - torch.log(gt_t[:, 9:12] + EPSILON_L1)
+    l1 = (torch.sum(torch.abs(dn)) + torch.sum(torch.abs(dd))
+          + torch.sum(torch.abs(dr)) + torch.sum(torch.abs(ds)))
+    grad = torch.cat([torch.sign(dn), torch.sign(dd) / pd, torch.sign(dr),
+                      torch.sign(ds) / ps], dim=1)
+    return l1, grad
+
+
+def _mixed_plain(pred_t, gt_t, scenes9, row_offset, global_height,
+                 l1_weight, with_grad):
+    batch, _, height, width = pred_t.shape
+    n_scenes = scenes9.shape[1]
+    inv_render, l1_coef = _normalizers(batch, n_scenes, height, width,
+                                       global_height, l1_weight)
+    x, y = _patch_xy(height, width, row_offset, global_height or height,
+                     pred_t.device)
+    total = torch.zeros((), dtype=torch.float32, device=pred_t.device)
+    dpred = torch.zeros_like(pred_t) if with_grad else None
+    for s in range(n_scenes):
+        sc = [scenes9[:, s, k, None, None] for k in range(9)]
+        color = sc[6:9]
+        g = _scene_geometry(sc, x, y)
+        shr_p, ch_p = _shade_side(pred_t, g, color)
+        _, ch_t = _shade_side(gt_t, g, color)
+        u = []
+        for c in range(3):
+            rp = ch_p[c]["out"] + EPSILON_RENDER
+            diff = torch.log(rp) - torch.log(ch_t[c]["out"] + EPSILON_RENDER)
+            total = total + torch.sum(torch.abs(diff))
+            u.append(torch.sign(diff) / rp)
+        if with_grad:
+            dpred = dpred + _side_bwd(g, color, shr_p, ch_p, u)
+    l1, dl1 = _l1_terms(pred_t, gt_t)
+    loss = total * inv_render + l1_coef * l1
+    if not with_grad:
+        return loss
+    return loss, dpred * inv_render + l1_coef * dl1
+
+
+def mixed_loss_fwdgrad_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
+                             global_height: int = 0, l1_weight: float = 0.1):
+    """Plain version of the value+gradient kernel: (loss, dpred)."""
+    return _mixed_plain(pred_t, gt_t, scenes9, row_offset, global_height,
+                        l1_weight, with_grad=True)
+
+
+def mixed_loss_fwd_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
+                         global_height: int = 0, l1_weight: float = 0.1):
+    """Plain version of the value-only kernel: loss."""
+    return _mixed_plain(pred_t, gt_t, scenes9, row_offset, global_height,
+                        l1_weight, with_grad=False)
+
+
+# --- CUDA kernels ------------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    """The compiled mixed-loss library with its C signatures declared."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("mixed_loss")
+        common = [ctypes.c_void_p] * 4  # pred, gt, scenes, partials
+        ints = [ctypes.c_int] * 6        # B, H, W, S, row_offset, full_height
+        tail = [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        lib.svbrdf_mixed_loss_fwdgrad.argtypes = (
+            common + [ctypes.c_void_p] + ints + tail)
+        lib.svbrdf_mixed_loss_fwd.argtypes = common + ints + tail
+        lib.svbrdf_mixed_loss_fwdgrad.restype = ctypes.c_int
+        lib.svbrdf_mixed_loss_fwd.restype = ctypes.c_int
+        lib.svbrdf_mixed_loss_threads.argtypes = []
+        lib.svbrdf_mixed_loss_threads.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(pred_t, gt_t, scenes9):
+    if pred_t.dim() != 4 or pred_t.shape[1] != 12:
+        raise ValueError(f"pred planes must be (B, 12, H, W), got "
+                         f"{tuple(pred_t.shape)}")
+    if gt_t.shape != pred_t.shape:
+        raise ValueError(f"gt planes {tuple(gt_t.shape)} do not match pred "
+                         f"{tuple(pred_t.shape)}")
+    if scenes9.dim() != 3 or scenes9.shape[0] != pred_t.shape[0] \
+            or scenes9.shape[2] != 9:
+        raise ValueError(f"scenes must be (B, S, 9), got "
+                         f"{tuple(scenes9.shape)}")
+    for name, t in (("pred", pred_t), ("gt", gt_t), ("scenes", scenes9)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != pred_t.device:
+            raise ValueError(f"{name} is on {t.device}, pred on "
+                             f"{pred_t.device}")
+
+
+def _launch(with_grad, pred_t, gt_t, scenes9, row_offset, global_height,
+            l1_weight):
+    if pred_t.device.type != "cuda":
+        raise RuntimeError(f"the mixed-loss kernel needs CUDA tensors, got "
+                           f"{pred_t.device}")
+    lib = _lib()
+    batch, _, height, width = pred_t.shape
+    n_scenes = scenes9.shape[1]
+    inv_render, l1_coef = _normalizers(batch, n_scenes, height, width,
+                                       global_height, l1_weight)
+    threads = lib.svbrdf_mixed_loss_threads()
+    blocks = -(-(height * width) // threads)
+    partials = torch.empty(batch * blocks, dtype=torch.float32,
+                           device=pred_t.device)
+    args = [pred_t.data_ptr(), gt_t.data_ptr(), scenes9.data_ptr(),
+            partials.data_ptr()]
+    dpred = None
+    if with_grad:
+        dpred = torch.empty_like(pred_t)
+        args.append(dpred.data_ptr())
+    args += [batch, height, width, n_scenes, int(row_offset),
+             int(global_height or height), inv_render, l1_coef]
+    with torch.cuda.device(pred_t.device):
+        args.append(torch.cuda.current_stream().cuda_stream)
+        fn = (lib.svbrdf_mixed_loss_fwdgrad if with_grad
+              else lib.svbrdf_mixed_loss_fwd)
+        rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"mixed-loss kernel launch failed: CUDA error {rc}")
+    return partials, dpred
+
+
+def mixed_loss_fwdgrad_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
+                            global_height: int = 0, l1_weight: float = 0.1):
+    """Launch the value+gradient kernel: (loss, dpred). The loss is the sum
+    of one pre-normalized partial per thread block."""
+    _check(pred_t, gt_t, scenes9)
+    partials, dpred = _launch(True, pred_t, gt_t, scenes9, row_offset,
+                              global_height, l1_weight)
+    mixed_loss_fwdgrad_cuda.launches += 1
+    return torch.sum(partials), dpred
+
+
+def mixed_loss_fwd_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
+                        global_height: int = 0, l1_weight: float = 0.1):
+    """Launch the value-only kernel: loss."""
+    _check(pred_t, gt_t, scenes9)
+    partials, _ = _launch(False, pred_t, gt_t, scenes9, row_offset,
+                          global_height, l1_weight)
+    mixed_loss_fwd_cuda.launches += 1
+    return torch.sum(partials)
+
+
+mixed_loss_fwdgrad_cuda.launches = 0
+mixed_loss_fwd_cuda.launches = 0
+
+
+def mixed_loss_fwdgrad(pred_t, gt_t, scenes9, row_offset: int = 0,
+                       global_height: int = 0, l1_weight: float = 0.1):
+    """(loss, dpred): the plain version for CPU tensors, else the kernel."""
+    if pred_t.device.type == "cpu":
+        _check(pred_t, gt_t, scenes9)
+        return mixed_loss_fwdgrad_plain(pred_t, gt_t, scenes9, row_offset,
+                                        global_height, l1_weight)
+    return mixed_loss_fwdgrad_cuda(pred_t, gt_t, scenes9, row_offset,
+                                   global_height, l1_weight)
+
+
+def mixed_loss_fwd(pred_t, gt_t, scenes9, row_offset: int = 0,
+                   global_height: int = 0, l1_weight: float = 0.1):
+    """loss: the plain version for CPU tensors, else the kernel."""
+    if pred_t.device.type == "cpu":
+        _check(pred_t, gt_t, scenes9)
+        return mixed_loss_fwd_plain(pred_t, gt_t, scenes9, row_offset,
+                                    global_height, l1_weight)
+    return mixed_loss_fwd_cuda(pred_t, gt_t, scenes9, row_offset,
+                               global_height, l1_weight)
+
+
+class _FusedMixed(torch.autograd.Function):
+    """Forward runs the value+gradient kernel and keeps dpred; backward
+    scales it by the upstream scalar. The target gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, pred_t, gt_t, scenes9, row_offset, global_height,
+                l1_weight):
+        loss, dpred = mixed_loss_fwdgrad(pred_t, gt_t, scenes9, row_offset,
+                                         global_height, l1_weight)
+        ctx.save_for_backward(dpred)
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        dpred, = ctx.saved_tensors
+        return grad_output * dpred, None, None, None, None, None
+
+
+def mixed_loss_fused_planes(pred_t: torch.Tensor, gt_t: torch.Tensor,
+                            scenes: Scene, l1_weight: float = 0.1,
+                            row_offset: int = 0,
+                            global_height: int = 0) -> torch.Tensor:
+    """Mixed loss l1_weight * svbrdf_l1 + rendering loss on (B, 12, H, W)
+    f32 channel planes, for per-item scene sets `scenes` ((B, S, 3) fields).
+
+    A sharded caller that holds rows [row_offset, row_offset + H) of an
+    image `global_height` rows tall passes both: the patch coordinates and
+    the normalizers are then the global ones, so the shards' values sum to
+    the whole image's loss. The target is treated as data (no gradient).
+    """
+    gt_t = gt_t.detach()
+    scenes9 = pack_scenes(scenes)
+    args = (pred_t, gt_t, scenes9, int(row_offset), int(global_height),
+            float(l1_weight))
+    if torch.is_grad_enabled() and pred_t.requires_grad:
+        return _FusedMixed.apply(*args)
+    return mixed_loss_fwd(*args)

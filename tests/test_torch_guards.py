@@ -1,0 +1,64 @@
+"""Guards of the port: it imports nothing of JAX or of the JAX package, and
+its entry points never quietly run on the CPU."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from svbrdf_tpu_torch.device import resolve_device
+from svbrdf_tpu_torch.models import SingleViewModel
+from svbrdf_tpu_torch.utils import bench_setup
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "svbrdf_tpu", "PIL"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import importlib, pkgutil
+import svbrdf_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(svbrdf_tpu_torch.__path__,
+                                               "svbrdf_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(len(names))
+"""
+
+
+def test_imports_without_jax_or_the_jax_package():
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 14  # every module was imported
+
+
+def _needs_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: resolve_device(),
+    lambda: resolve_device("cuda:0"),
+    lambda: SingleViewModel(8, 5),
+    lambda: bench_setup.build_main_program(2, 32, 5, 8),
+])
+def test_entry_points_raise_without_a_card(entry):
+    _needs_no_card()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def test_cpu_is_used_only_when_asked():
+    assert resolve_device("cpu") == torch.device("cpu")
+    model = SingleViewModel(8, 5, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
