@@ -1,8 +1,8 @@
 """Carry weights from the JAX package's Flax parameter trees into the port.
 
 `params_from_jax` takes the Flax param tree as nested mappings of numpy
-arrays and returns a state_dict that SingleViewModel.load_state_dict(...,
-strict=True) accepts. The port's modules carry the PyTorch reference's key
+arrays and returns a state_dict that SingleViewModel's or MultiViewModel's
+load_state_dict(..., strict=True) accepts. The port's modules carry the PyTorch reference's key
 names, so the same state_dict layout also loads reference checkpoints.
 
 The key translation and layout transposes are a copy of

@@ -65,9 +65,10 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
 
     pred/target are NHWC (B, H, W, 12). The rendering terms draw 3 random
     and 6 specular scenes per item from `generator` unless `scenes` is
-    given. kind "mixed" goes through the fused mixed loss: the CUDA kernels
-    for CUDA tensors, their plain versions for CPU tensors. kind "l1" is
-    plain. kind "rendering" is not ported yet.
+    given. kinds "mixed" and "rendering" go through the fused kernels
+    (ops/render_fused): the CUDA kernels for CUDA tensors, their plain
+    versions for CPU tensors; the target gets no gradient. kind "l1" is
+    plain.
     """
     if renderer != "local":
         raise NotImplementedError(
@@ -77,20 +78,26 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
             return svbrdf_l1_loss(pred, target)
 
         return l1_fn
+
+    def draw(pred, generator, scenes):
+        if scenes is not None:
+            return scenes
+        return sampling.generate_loss_scenes(
+            pred.shape[0], N_RANDOM_SCENES, N_SPECULAR_SCENES,
+            generator=generator, device=pred.device)
+
     if kind == "rendering":
-        raise NotImplementedError(
-            "loss kind 'rendering' needs the rendering-only kernels "
-            "(_fwdgrad_kernel / _fwd_kernel of svbrdf_tpu/ops/"
-            "render_pallas.py), which a later slice of the port brings; "
-            "use 'mixed' or 'l1'")
+        def rendering_fn(pred, target, generator=None, scenes=None):
+            return render_fused.rendering_loss_fused_planes(
+                to_planes(pred), to_planes(target),
+                draw(pred, generator, scenes))
+
+        return rendering_fn
     if kind == "mixed":
         def mixed_fn(pred, target, generator=None, scenes=None):
-            if scenes is None:
-                scenes = sampling.generate_loss_scenes(
-                    pred.shape[0], N_RANDOM_SCENES, N_SPECULAR_SCENES,
-                    generator=generator, device=pred.device)
             return render_fused.mixed_loss_fused_planes(
-                to_planes(pred), to_planes(target), scenes, l1_weight)
+                to_planes(pred), to_planes(target),
+                draw(pred, generator, scenes), l1_weight)
 
         return mixed_fn
     raise ValueError(f"unknown loss kind {kind!r}")

@@ -5,7 +5,9 @@ blocks (ngf * min(2^i, 8) features), `depth` decoder blocks with skip
 concats, InstanceNorm everywhere except the first and last encoder block and
 the last decoder block, dropout 0.5 on the first three decoder blocks, and
 an FC + SELU global track fed by pre-norm channel means and merged back by
-broadcast-add. depth=8 is the reference layer for layer.
+broadcast-add. With `use_coords` two coordinate channels (layers.append_coords)
+join the input before the first block and its global-track means.
+depth=8 is the reference layer for layer.
 """
 
 from __future__ import annotations
@@ -25,10 +27,12 @@ class Generator(nn.Module):
     """(B, 3, H, W) -> (spatial map (B, out, H, W), global (B, out))."""
 
     def __init__(self, output_channels: int, num_filters: int = 64,
-                 depth: int = 8):
+                 depth: int = 8, use_coords: bool = False):
         super().__init__()
         d = depth
         self.depth = d
+        self.use_coords = use_coords
+        in_channels = 5 if use_coords else 3
         enc = encoder_features(num_filters, d)
         dec = [output_channels if i == d - 1 else enc[d - 2 - i]
                for i in range(d)]
@@ -37,10 +41,10 @@ class Generator(nn.Module):
 
         for i in range(d):
             self.add_module(f"enc{i + 1}", L.EncodingBlock(
-                3 if i == 0 else enc[i - 1], enc[i],
+                in_channels if i == 0 else enc[i - 1], enc[i],
                 use_norm=0 < i < d - 1, use_activation=i > 0))
         # gte1 reads the input means; gte{i+1} concat(global, enc{i+1} means).
-        self.gte1 = L.GlobalTrack(3, gte_out[0])
+        self.gte1 = L.GlobalTrack(in_channels, gte_out[0])
         for i in range(1, d):
             self.add_module(f"gte{i + 1}", L.GlobalTrack(
                 gte_out[i - 1] + enc[i], gte_out[i]))
@@ -55,6 +59,8 @@ class Generator(nn.Module):
 
     def forward(self, x):
         d = self.depth
+        if self.use_coords:
+            x = L.append_coords(x)
         g = self.gte1(torch.mean(x, dim=(2, 3)), None)
         h, _ = self.enc1(x, None)
         skips = [h]

@@ -75,27 +75,31 @@ def _spatial_mean(x):
     return torch.mean(x, dim=(2, 3))
 
 
-class _EncodingUnit(nn.Module):
-    """The reference's InterconnectedConvLayer: 4x4 stride-2 pad-1 conv,
+class _ConvUnit(nn.Module):
+    """The reference's InterconnectedConvLayer: a conv without bias,
     optional InstanceNorm, merge."""
 
-    def __init__(self, in_features, features, use_norm):
+    def __init__(self, in_features, features, use_norm, kernel_size, stride,
+                 padding):
         super().__init__()
-        self.conv = nn.Conv2d(in_features, features, 4, stride=2, padding=1,
-                              bias=False)
+        self.conv = nn.Conv2d(in_features, features, kernel_size,
+                              stride=stride, padding=padding, bias=False)
         self.norm = InstanceNorm(features) if use_norm else None
         self.merge = Merge(features)
 
 
 class EncodingBlock(nn.Module):
-    """Pre-LeakyReLU(0.2) + stride-2 4x4 conv + pre-norm mean tap + IN +
-    merge. Returns (features, channel_mean)."""
+    """Pre-LeakyReLU(0.2) + stride-2 4x4 pad-1 conv + pre-norm mean tap + IN
+    + merge. Returns (features, channel_mean)."""
+
+    conv_geometry = (4, 2, 1)  # kernel size, stride, padding
 
     def __init__(self, in_features, features, use_norm=True,
                  use_activation=True):
         super().__init__()
         self.use_activation = use_activation
-        self.conv = _EncodingUnit(in_features, features, use_norm)
+        self.conv = _ConvUnit(in_features, features, use_norm,
+                              *self.conv_geometry)
 
     def forward(self, x, global_track):
         if self.use_activation:
@@ -106,6 +110,24 @@ class EncodingBlock(nn.Module):
         if u.norm is not None:
             x = u.norm(x)
         return u.merge(x, global_track), mean
+
+
+class ConvFeatureBlock(EncodingBlock):
+    """EncodingBlock with a 3x3 stride-1 pad-1 conv (the multi-view fusion
+    head's layer; the reference's ConvFeatureLayer). Returns (features,
+    channel_mean)."""
+
+    conv_geometry = (3, 1, 1)
+
+
+def append_coords(x):
+    """Append x / y coordinate channels in [-1, 1] to NCHW `x`: x runs over
+    the width, y from +1 at row 0 down to -1 (the renderer's patch grid)."""
+    b, _, h, w = x.shape
+    xs = torch.linspace(-1.0, 1.0, w, dtype=x.dtype, device=x.device)
+    ys = -torch.linspace(-1.0, 1.0, h, dtype=x.dtype, device=x.device)
+    coords = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)])
+    return torch.cat([x, coords[None].expand(b, 2, h, w)], dim=1)
 
 
 def upsample_nearest_2x(x):

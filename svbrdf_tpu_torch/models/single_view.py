@@ -4,6 +4,7 @@ Counterpart of svbrdf_tpu/models/single_view.py: Generator(9 channels) ->
 tanh -> decode to a 12-channel SVBRDF (normal z reconstruction, roughness
 replication) -> diffuse/roughness/specular remapped [-1, 1] -> [0, 1],
 normals kept in [-1, 1]. Given (B, N, H, W, 3) inputs, only view 0 is used.
+`use_coords` appends coordinate channels to the input (Generator).
 """
 
 from __future__ import annotations
@@ -33,13 +34,13 @@ class SingleViewModel(nn.Module):
     the CPU) and drawn from a generator seeded with `seed`.
     """
 
-    def __init__(self, num_filters: int = 64, depth: int = 8, *,
-                 device="cuda", seed: int = 0):
+    def __init__(self, num_filters: int = 64, depth: int = 8,
+                 use_coords: bool = False, *, device="cuda", seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         with dev:
             self.generator = Generator(9, num_filters=num_filters,
-                                       depth=depth)
+                                       depth=depth, use_coords=use_coords)
         L.init_params(self, torch.Generator(device=dev).manual_seed(seed))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

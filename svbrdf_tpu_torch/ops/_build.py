@@ -2,9 +2,10 @@
 
 Each source in csrc/ exposes a plain C interface, so it compiles in seconds
 without PyTorch's headers. Libraries go into svbrdf_tpu_torch/_build/ (not
-committed), named after a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. Nothing is built
-when the package is imported: the first call that needs a kernel builds it.
+committed), named after a hash of the source, every header in csrc/ and
+the flags, so an edited source or shared header is rebuilt and a stale
+library is never loaded. Nothing is built when the package is imported:
+the first call that needs a kernel builds it.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mixed_loss",)
+SOURCES = ("mixed_loss", "rendering_loss")
 
 # No --use_fast_math: it changes logf, sqrtf and division, and the kernels
 # are held against their plain torch versions. -fmad=false: no FMA
@@ -41,11 +42,15 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of csrc/<name>.cu lives: named after a hash of the
+    source, of every csrc/*.cuh (a source may include any of them) and of
+    the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict:

@@ -1,24 +1,30 @@
-"""Fused mixed loss: rendering loss + l1_weight * SVBRDF L1 in one kernel.
+"""Fused loss kernels: the mixed loss (rendering loss + l1_weight * SVBRDF
+L1) and the rendering-only loss, each value and gradient in one kernel.
 
-Counterpart of the mixed-loss path of svbrdf_tpu/ops/render_pallas.py
-(`mixed_loss_fused_planes` at fold=1). Two CUDA kernels from one source,
-csrc/mixed_loss.cu, replace the two TPU kernels on the training path:
+Counterpart of svbrdf_tpu/ops/render_pallas.py at fold=1. Five CUDA
+kernels from two sources replace its five TPU kernels:
 
-- `mixed_loss_fwdgrad_cuda` (the training step): the pre-normalized loss
+- csrc/mixed_loss.cu (`mixed_loss_fused_planes`, the single-view main
+  path): `mixed_loss_fwdgrad_cuda` (training: the pre-normalized loss
   partials AND the combined gradient d(mixed)/d(pred planes) from a single
-  shade of each side per scene;
-- `mixed_loss_fwd_cuda` (the validation step): the value only.
+  shade of each side per scene) and `mixed_loss_fwd_cuda` (validation: the
+  value only);
+- csrc/rendering_loss.cu (`rendering_loss_fused_planes`,
+  `rendering_loss_fused`): `rendering_loss_fwdgrad_cuda` (value + dpred),
+  `rendering_loss_fwd_cuda` (value only) and
+  `rendering_loss_fwdgrad_both_cuda` (value + dpred + dgt, for callers that
+  differentiate with respect to the target too).
 
-Each has a plain torch version here (`mixed_loss_fwdgrad_plain`,
-`mixed_loss_fwd_plain`): a whole-image, vectorized translation of the same
-hand-VJP math. The CPU tests hold the plain versions against JAX, and the
-chip smoke test holds the kernels against the plain versions. The
-dispatching wrappers use the plain version only for CPU tensors; for CUDA
-tensors they launch the kernel or raise.
+Each has a plain torch version here (`*_plain`): a whole-image, vectorized
+translation of the same hand-VJP math. The CPU tests hold the plain
+versions against JAX, and the chip smoke test holds the kernels against
+the plain versions. The dispatching wrappers use the plain version only
+for CPU tensors; for CUDA tensors they launch the kernel or raise.
 
-`_FusedMixed` (a torch.autograd.Function) launches the value+gradient kernel
-in forward and saves dpred; backward is a scalar scale, so no separate
-backward kernel exists. Outside autograd the value-only kernel runs.
+`_FusedMixed` and `_FusedRendering` (torch.autograd.Functions) launch the
+value+gradient kernel in forward and save the gradients; backward is a
+scalar scale, so no separate backward kernel exists. Outside autograd the
+value-only kernel runs.
 """
 
 from __future__ import annotations
@@ -243,28 +249,111 @@ def mixed_loss_fwd_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
                         l1_weight, with_grad=False)
 
 
+def _count(batch, n_scenes, height, width, global_height):
+    """The rendering loss's normalizer, B*S*H*W*3 with the GLOBAL height:
+    a sharded caller's local values over the global count sum to the
+    whole image's loss."""
+    return batch * n_scenes * (global_height or height) * width * 3
+
+
+def _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
+                     with_grad, target_grad):
+    """_scene_loss_and_grads over every scene: the loss and, as asked,
+    dpred and dgt scaled by 1/count."""
+    batch, _, height, width = pred_t.shape
+    n_scenes = scenes9.shape[1]
+    count = _count(batch, n_scenes, height, width, global_height)
+    x, y = _patch_xy(height, width, row_offset, global_height or height,
+                     pred_t.device)
+    total = torch.zeros((), dtype=torch.float32, device=pred_t.device)
+    dpred = torch.zeros_like(pred_t) if with_grad else None
+    dgt = torch.zeros_like(gt_t) if target_grad else None
+    for s in range(n_scenes):
+        sc = [scenes9[:, s, k, None, None] for k in range(9)]
+        color = sc[6:9]
+        g = _scene_geometry(sc, x, y)
+        shr_p, ch_p = _shade_side(pred_t, g, color)
+        shr_t, ch_t = _shade_side(gt_t, g, color)
+        u_pred, u_gt = [], []
+        for c in range(3):
+            rp = ch_p[c]["out"] + EPSILON_RENDER
+            rt = ch_t[c]["out"] + EPSILON_RENDER
+            diff = torch.log(rp) - torch.log(rt)
+            total = total + torch.sum(torch.abs(diff))
+            sign = torch.sign(diff)
+            u_pred.append(sign / rp)
+            u_gt.append(-sign / rt)
+        if with_grad:
+            dpred = dpred + _side_bwd(g, color, shr_p, ch_p, u_pred)
+        if target_grad:
+            dgt = dgt + _side_bwd(g, color, shr_t, ch_t, u_gt)
+    loss = total / count
+    if not with_grad:
+        return loss
+    inv_count = 1.0 / count
+    if not target_grad:
+        return loss, dpred * inv_count
+    return loss, dpred * inv_count, dgt * inv_count
+
+
+def rendering_loss_fwdgrad_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
+                                 global_height: int = 0):
+    """Plain version of the rendering loss's value+gradient kernel:
+    (loss, dpred)."""
+    return _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
+                            with_grad=True, target_grad=False)
+
+
+def rendering_loss_fwd_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
+                             global_height: int = 0):
+    """Plain version of the rendering loss's value-only kernel: loss."""
+    return _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
+                            with_grad=False, target_grad=False)
+
+
+def rendering_loss_fwdgrad_both_plain(pred_t, gt_t, scenes9,
+                                      row_offset: int = 0,
+                                      global_height: int = 0):
+    """Plain version of the kernel with both gradients: (loss, dpred,
+    dgt)."""
+    return _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
+                            with_grad=True, target_grad=True)
+
+
 # --- CUDA kernels ------------------------------------------------------------
 
-_LIB = None
+# Each kernel's C entry: (source in csrc/, symbol, output planes beside the
+# partials, float arguments after the six ints).
+_ENTRIES = {
+    "mixed_fwdgrad": ("mixed_loss", "svbrdf_mixed_loss_fwdgrad", 1, 2),
+    "mixed_fwd": ("mixed_loss", "svbrdf_mixed_loss_fwd", 0, 2),
+    "render_fwdgrad": ("rendering_loss", "svbrdf_rendering_loss_fwdgrad", 1,
+                       1),
+    "render_fwd": ("rendering_loss", "svbrdf_rendering_loss_fwd", 0, 0),
+    "render_fwdgrad_both": ("rendering_loss",
+                            "svbrdf_rendering_loss_fwdgrad_both", 2, 1),
+}
+_FUNCS = {}
 
 
-def _lib():
-    """The compiled mixed-loss library with its C signatures declared."""
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("mixed_loss")
-        common = [ctypes.c_void_p] * 4  # pred, gt, scenes, partials
-        ints = [ctypes.c_int] * 6        # B, H, W, S, row_offset, full_height
-        tail = [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        lib.svbrdf_mixed_loss_fwdgrad.argtypes = (
-            common + [ctypes.c_void_p] + ints + tail)
-        lib.svbrdf_mixed_loss_fwd.argtypes = common + ints + tail
-        lib.svbrdf_mixed_loss_fwdgrad.restype = ctypes.c_int
-        lib.svbrdf_mixed_loss_fwd.restype = ctypes.c_int
-        lib.svbrdf_mixed_loss_threads.argtypes = []
-        lib.svbrdf_mixed_loss_threads.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+def _kernel(name):
+    """(C entry, threads per block) of kernel `name`, its library built and
+    loaded at first use and the signature declared."""
+    if name not in _FUNCS:
+        source, symbol, n_planes, n_floats = _ENTRIES[name]
+        lib = _build.load(source)
+        fn = getattr(lib, symbol)
+        # pred, gt, scenes, partials, planes...; B, H, W, S, row_offset,
+        # full_height; floats...; stream
+        fn.argtypes = ([ctypes.c_void_p] * (4 + n_planes)
+                       + [ctypes.c_int] * 6 + [ctypes.c_float] * n_floats
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        threads = getattr(lib, f"svbrdf_{source}_threads")
+        threads.argtypes = []
+        threads.restype = ctypes.c_int
+        _FUNCS[name] = (fn, threads())
+    return _FUNCS[name]
 
 
 def _check(pred_t, gt_t, scenes9):
@@ -288,83 +377,134 @@ def _check(pred_t, gt_t, scenes9):
                              f"{pred_t.device}")
 
 
-def _launch(with_grad, pred_t, gt_t, scenes9, row_offset, global_height,
-            l1_weight):
+def _launch(name, pred_t, gt_t, scenes9, row_offset, global_height, floats):
+    """Launch kernel `name` on the current stream: (partials, output
+    planes...). `floats` are its float arguments."""
     if pred_t.device.type != "cuda":
-        raise RuntimeError(f"the mixed-loss kernel needs CUDA tensors, got "
+        raise RuntimeError(f"the {name} kernel needs CUDA tensors, got "
                            f"{pred_t.device}")
-    lib = _lib()
+    fn, threads = _kernel(name)
     batch, _, height, width = pred_t.shape
-    n_scenes = scenes9.shape[1]
-    inv_render, l1_coef = _normalizers(batch, n_scenes, height, width,
-                                       global_height, l1_weight)
-    threads = lib.svbrdf_mixed_loss_threads()
     blocks = -(-(height * width) // threads)
     partials = torch.empty(batch * blocks, dtype=torch.float32,
                            device=pred_t.device)
-    args = [pred_t.data_ptr(), gt_t.data_ptr(), scenes9.data_ptr(),
-            partials.data_ptr()]
-    dpred = None
-    if with_grad:
-        dpred = torch.empty_like(pred_t)
-        args.append(dpred.data_ptr())
-    args += [batch, height, width, n_scenes, int(row_offset),
-             int(global_height or height), inv_render, l1_coef]
+    planes = [torch.empty_like(pred_t) for _ in range(_ENTRIES[name][2])]
+    args = ([pred_t.data_ptr(), gt_t.data_ptr(), scenes9.data_ptr(),
+             partials.data_ptr()] + [t.data_ptr() for t in planes]
+            + [batch, height, width, scenes9.shape[1], int(row_offset),
+               int(global_height or height), *floats])
     with torch.cuda.device(pred_t.device):
         args.append(torch.cuda.current_stream().cuda_stream)
-        fn = (lib.svbrdf_mixed_loss_fwdgrad if with_grad
-              else lib.svbrdf_mixed_loss_fwd)
         rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"mixed-loss kernel launch failed: CUDA error {rc}")
-    return partials, dpred
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return (partials, *planes)
+
+
+def _mixed_floats(pred_t, scenes9, global_height, l1_weight):
+    batch, _, height, width = pred_t.shape
+    return _normalizers(batch, scenes9.shape[1], height, width, global_height,
+                        l1_weight)
+
+
+def _rendering_count(pred_t, scenes9, global_height):
+    batch, _, height, width = pred_t.shape
+    return _count(batch, scenes9.shape[1], height, width, global_height)
 
 
 def mixed_loss_fwdgrad_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
                             global_height: int = 0, l1_weight: float = 0.1):
-    """Launch the value+gradient kernel: (loss, dpred). The loss is the sum
-    of one pre-normalized partial per thread block."""
+    """Launch the mixed loss's value+gradient kernel: (loss, dpred). The
+    loss is the sum of one pre-normalized partial per thread block."""
     _check(pred_t, gt_t, scenes9)
-    partials, dpred = _launch(True, pred_t, gt_t, scenes9, row_offset,
-                              global_height, l1_weight)
+    partials, dpred = _launch(
+        "mixed_fwdgrad", pred_t, gt_t, scenes9, row_offset, global_height,
+        _mixed_floats(pred_t, scenes9, global_height, l1_weight))
     mixed_loss_fwdgrad_cuda.launches += 1
     return torch.sum(partials), dpred
 
 
 def mixed_loss_fwd_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
                         global_height: int = 0, l1_weight: float = 0.1):
-    """Launch the value-only kernel: loss."""
+    """Launch the mixed loss's value-only kernel: loss."""
     _check(pred_t, gt_t, scenes9)
-    partials, _ = _launch(False, pred_t, gt_t, scenes9, row_offset,
-                          global_height, l1_weight)
+    partials, = _launch(
+        "mixed_fwd", pred_t, gt_t, scenes9, row_offset, global_height,
+        _mixed_floats(pred_t, scenes9, global_height, l1_weight))
     mixed_loss_fwd_cuda.launches += 1
     return torch.sum(partials)
 
 
-mixed_loss_fwdgrad_cuda.launches = 0
-mixed_loss_fwd_cuda.launches = 0
+def rendering_loss_fwdgrad_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
+                                global_height: int = 0):
+    """Launch the rendering loss's value+gradient kernel: (loss, dpred).
+    The loss is the sum of one raw partial per thread block over count."""
+    _check(pred_t, gt_t, scenes9)
+    count = _rendering_count(pred_t, scenes9, global_height)
+    partials, dpred = _launch("render_fwdgrad", pred_t, gt_t, scenes9,
+                              row_offset, global_height, (1.0 / count,))
+    rendering_loss_fwdgrad_cuda.launches += 1
+    return torch.sum(partials) / count, dpred
 
 
-def mixed_loss_fwdgrad(pred_t, gt_t, scenes9, row_offset: int = 0,
-                       global_height: int = 0, l1_weight: float = 0.1):
-    """(loss, dpred): the plain version for CPU tensors, else the kernel."""
-    if pred_t.device.type == "cpu":
-        _check(pred_t, gt_t, scenes9)
-        return mixed_loss_fwdgrad_plain(pred_t, gt_t, scenes9, row_offset,
-                                        global_height, l1_weight)
-    return mixed_loss_fwdgrad_cuda(pred_t, gt_t, scenes9, row_offset,
-                                   global_height, l1_weight)
+def rendering_loss_fwd_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
+                            global_height: int = 0):
+    """Launch the rendering loss's value-only kernel: loss."""
+    _check(pred_t, gt_t, scenes9)
+    count = _rendering_count(pred_t, scenes9, global_height)
+    partials, = _launch("render_fwd", pred_t, gt_t, scenes9, row_offset,
+                        global_height, ())
+    rendering_loss_fwd_cuda.launches += 1
+    return torch.sum(partials) / count
 
 
-def mixed_loss_fwd(pred_t, gt_t, scenes9, row_offset: int = 0,
-                   global_height: int = 0, l1_weight: float = 0.1):
-    """loss: the plain version for CPU tensors, else the kernel."""
-    if pred_t.device.type == "cpu":
-        _check(pred_t, gt_t, scenes9)
-        return mixed_loss_fwd_plain(pred_t, gt_t, scenes9, row_offset,
-                                    global_height, l1_weight)
-    return mixed_loss_fwd_cuda(pred_t, gt_t, scenes9, row_offset,
-                               global_height, l1_weight)
+def rendering_loss_fwdgrad_both_cuda(pred_t, gt_t, scenes9,
+                                     row_offset: int = 0,
+                                     global_height: int = 0):
+    """Launch the rendering loss's kernel with both gradients: (loss,
+    dpred, dgt)."""
+    _check(pred_t, gt_t, scenes9)
+    count = _rendering_count(pred_t, scenes9, global_height)
+    partials, dpred, dgt = _launch("render_fwdgrad_both", pred_t, gt_t,
+                                   scenes9, row_offset, global_height,
+                                   (1.0 / count,))
+    rendering_loss_fwdgrad_both_cuda.launches += 1
+    return torch.sum(partials) / count, dpred, dgt
+
+
+CUDA_WRAPPERS = {
+    "mixed_fwdgrad": mixed_loss_fwdgrad_cuda,
+    "mixed_fwd": mixed_loss_fwd_cuda,
+    "render_fwdgrad": rendering_loss_fwdgrad_cuda,
+    "render_fwd": rendering_loss_fwd_cuda,
+    "render_fwdgrad_both": rendering_loss_fwdgrad_both_cuda,
+}
+for _wrapper in CUDA_WRAPPERS.values():
+    _wrapper.launches = 0
+
+
+def _dispatch(plain, cuda):
+    """A wrapper that runs `plain` for CPU tensors and `cuda` otherwise."""
+    def fn(pred_t, gt_t, scenes9, *args, **kwargs):
+        if pred_t.device.type == "cpu":
+            _check(pred_t, gt_t, scenes9)
+            return plain(pred_t, gt_t, scenes9, *args, **kwargs)
+        return cuda(pred_t, gt_t, scenes9, *args, **kwargs)
+
+    fn.__doc__ = (f"{cuda.__name__} for CUDA tensors, {plain.__name__} for "
+                  f"CPU tensors.")
+    return fn
+
+
+mixed_loss_fwdgrad = _dispatch(mixed_loss_fwdgrad_plain,
+                               mixed_loss_fwdgrad_cuda)
+mixed_loss_fwd = _dispatch(mixed_loss_fwd_plain, mixed_loss_fwd_cuda)
+rendering_loss_fwdgrad = _dispatch(rendering_loss_fwdgrad_plain,
+                                   rendering_loss_fwdgrad_cuda)
+rendering_loss_fwd = _dispatch(rendering_loss_fwd_plain,
+                               rendering_loss_fwd_cuda)
+rendering_loss_fwdgrad_both = _dispatch(rendering_loss_fwdgrad_both_plain,
+                                        rendering_loss_fwdgrad_both_cuda)
 
 
 class _FusedMixed(torch.autograd.Function):
@@ -404,3 +544,66 @@ def mixed_loss_fused_planes(pred_t: torch.Tensor, gt_t: torch.Tensor,
     if torch.is_grad_enabled() and pred_t.requires_grad:
         return _FusedMixed.apply(*args)
     return mixed_loss_fwd(*args)
+
+
+class _FusedRendering(torch.autograd.Function):
+    """Forward runs the value+gradient kernel (with `want_target_grad` the
+    one that also gives dgt) and keeps the gradients; backward scales them
+    by the upstream scalar."""
+
+    @staticmethod
+    def forward(ctx, pred_t, gt_t, scenes9, row_offset, global_height,
+                want_target_grad):
+        if want_target_grad:
+            loss, *grads = rendering_loss_fwdgrad_both(
+                pred_t, gt_t, scenes9, row_offset, global_height)
+        else:
+            loss, *grads = rendering_loss_fwdgrad(pred_t, gt_t, scenes9,
+                                                  row_offset, global_height)
+        ctx.save_for_backward(*grads)
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad_output):
+        dpred, *dgt = ctx.saved_tensors
+        return (grad_output * dpred,
+                grad_output * dgt[0] if dgt else None,
+                None, None, None, None)
+
+
+def rendering_loss_fused_planes(pred_t: torch.Tensor, gt_t: torch.Tensor,
+                                scenes: Scene, want_target_grad: bool = False,
+                                row_offset: int = 0,
+                                global_height: int = 0) -> torch.Tensor:
+    """Rendering loss, the mean over B*S*H*W*3 of |log(r_p + 0.1) -
+    log(r_t + 0.1)|, on (B, 12, H, W) f32 channel planes, for per-item scene
+    sets `scenes` ((B, S, 3) fields).
+
+    Without `want_target_grad` the target is data: it is detached, as the
+    JAX entry stop-gradients it. With it, the target gets its gradient too.
+    `row_offset` and `global_height` are as for mixed_loss_fused_planes.
+    """
+    if not want_target_grad:
+        gt_t = gt_t.detach()
+    scenes9 = pack_scenes(scenes)
+    args = (pred_t, gt_t, scenes9, int(row_offset), int(global_height))
+    if torch.is_grad_enabled() and (pred_t.requires_grad
+                                    or gt_t.requires_grad):
+        return _FusedRendering.apply(*args, bool(want_target_grad))
+    return rendering_loss_fwd(*args)
+
+
+def rendering_loss_fused(pred: torch.Tensor, target: torch.Tensor,
+                         scenes: Scene,
+                         want_target_grad: bool = False) -> torch.Tensor:
+    """rendering_loss_fused_planes on NHWC (B, H, W, 12) SVBRDFs.
+
+    The JAX entry's `tile_h` / `tile_w` choose its TPU tiles and are not
+    taken here: the kernels have no tile that must divide the image, and
+    the value is the same for any tiling.
+    """
+    def planes(x):
+        return x.float().permute(0, 3, 1, 2).contiguous()
+
+    return rendering_loss_fused_planes(planes(pred), planes(target), scenes,
+                                       want_target_grad)

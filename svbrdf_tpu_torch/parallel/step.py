@@ -47,8 +47,8 @@ def make_optimizer(params, learning_rate: float = 1e-5) -> torch.optim.Adam:
 
 class TrainStep:
     """step(raw_batch) -> loss: prepare, forward (in the model's current
-    mode: training, so dropout on, unless the caller changed it), mixed
-    loss, backward, Adam update. `update(batch, scenes=None)` runs the same
+    mode: training, so dropout on, unless the caller changed it), loss,
+    backward, Adam update. `update(batch, scenes=None)` runs the same
     on a prepared batch, optionally with given loss scenes."""
 
     def __init__(self, model, optimizer, loss_fn: Callable, prep: PrepConfig,

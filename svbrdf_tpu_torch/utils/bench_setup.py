@@ -1,5 +1,7 @@
-"""The main-path program and its inputs: single-view model, mixed loss,
-local renderer, material mixing, augmentation on, f32.
+"""The port's training programs and their inputs: local renderer, material
+mixing, augmentation on, f32, Adam at lr 1e-5, and either the single-view
+model with the mixed loss (the main path) or the multi-view model (3
+views, all synthesized) with the rendering-only loss.
 
 Counterpart of svbrdf_tpu/utils/bench_setup.py (synthetic_raw_batch and
 build_headline_program) for the port: one place that builds what
@@ -16,7 +18,7 @@ import torch
 
 from svbrdf_tpu_torch import losses
 from svbrdf_tpu_torch.device import resolve_device
-from svbrdf_tpu_torch.models import SingleViewModel
+from svbrdf_tpu_torch.models import MultiViewModel, SingleViewModel
 from svbrdf_tpu_torch.parallel.step import (PrepConfig, TrainStep,
                                             make_eval_step, make_optimizer,
                                             make_predict_fn, make_train_step)
@@ -44,10 +46,10 @@ def synthetic_raw_batch(batch: int, size: int, n_views: int = 0,
 
 @dataclass
 class MainProgram:
-    """The main path, ready to drive: train_step(raw), eval_step(raw),
+    """A training program, ready to drive: train_step(raw), eval_step(raw),
     predict(images)."""
 
-    model: SingleViewModel
+    model: torch.nn.Module
     train_step: TrainStep
     eval_step: Callable
     predict: Callable
@@ -56,16 +58,22 @@ class MainProgram:
     generator: torch.Generator
 
 
-def build_main_program(batch: int = 8, size: int = 256, depth: int = 8,
-                       num_filters: int = 64, seed: int = 0,
-                       device="cuda") -> MainProgram:
-    """Build the single-view training program at the given widths, with
-    weights and data made from `seed`, on `device`."""
+def build_program(model_kind: str = "single", loss_kind: str = "mixed",
+                  batch: int = 8, size: int = 256, depth: int = 8,
+                  num_filters: int = 64, seed: int = 0,
+                  device="cuda") -> MainProgram:
+    """Build a training program at the given widths, with weights and data
+    made from `seed`, on `device`: model_kind "single" (one input view) or
+    "multi" (3 views), loss_kind "mixed" or "rendering"."""
+    if model_kind not in ("single", "multi"):
+        raise ValueError(f"unknown model kind {model_kind!r}")
     dev = resolve_device(device)
-    model = SingleViewModel(num_filters, depth, device=dev, seed=seed)
+    n_views = 3 if model_kind == "multi" else 1
+    model_cls = MultiViewModel if model_kind == "multi" else SingleViewModel
+    model = model_cls(num_filters, depth, device=dev, seed=seed)
     optimizer = make_optimizer(model.parameters(), 1e-5)
-    loss_fn = losses.make_loss_fn("mixed", "local")
-    prep = PrepConfig(used_input_image_count=1, use_augmentation=True,
+    loss_fn = losses.make_loss_fn(loss_kind, "local")
+    prep = PrepConfig(used_input_image_count=n_views, use_augmentation=True,
                       is_linear=False, mix_materials=True)
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     raw = {k: torch.from_numpy(v).to(dev)
@@ -77,3 +85,11 @@ def build_main_program(batch: int = 8, size: int = 256, depth: int = 8,
         eval_step=make_eval_step(model, loss_fn, prep, generator),
         predict=make_predict_fn(model), raw=raw, prep=prep,
         generator=generator)
+
+
+def build_main_program(batch: int = 8, size: int = 256, depth: int = 8,
+                       num_filters: int = 64, seed: int = 0,
+                       device="cuda") -> MainProgram:
+    """Build the single-view mixed-loss training program (the main path)."""
+    return build_program("single", "mixed", batch, size, depth, num_filters,
+                         seed, device)

@@ -1,9 +1,12 @@
-"""Where the main path's train step spends its time on the card.
+"""Where a training path's train step spends its time on the card.
 
-    python -m svbrdf_tpu_torch.utils.profile_step [--out FILE]
+    python -m svbrdf_tpu_torch.utils.profile_step [--path PATH] [--out FILE]
 
-Builds the main-path program (bench_setup.build_main_program: depth 8, 64
-filters, 256^2, batch 8, f32, TF32 off) and, after warm-up, reports:
+PATH is single-mixed (the main path: single-view model, mixed loss; the
+default) or multi-rendering (multi-view model with 3 synthesized views,
+rendering-only loss). Builds that program (bench_setup.build_program:
+depth 8, 64 filters, 256^2, batch 8, f32, TF32 off) and, after warm-up,
+reports:
   - phases: CUDA-event medians of one step's parts (prepare, forward, loss,
     backward, Adam) over STEPS steps;
   - kernels: torch.profiler device time per kernel name over STEPS steps
@@ -58,8 +61,12 @@ def _phase_times(program, steps):
 _ANNOTATION = re.compile(r"[\w.]+#[\w.]+")
 
 # Kernel-name patterns of each category; the first match wins.
+PATHS = {"single-mixed": ("single", "mixed"),
+         "multi-rendering": ("multi", "rendering")}
+
 CATEGORIES = (
     ("mixed_loss", ("mixed_loss_kernel",)),
+    ("rendering_loss", ("rendering_loss_kernel",)),
     # cuDNN's implicit-GEMM, FFT and Winograd convolutions; the model's few
     # small Linear layers' GEMMs land here too.
     ("convolution", ("conv", "xmma", "cudnn", "fft", "dgrad", "wgrad",
@@ -112,6 +119,8 @@ def _kernel_times(program, steps):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=sorted(PATHS),
+                        default="single-mixed")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
 
@@ -121,13 +130,13 @@ def main(argv=None) -> None:
         sys.exit("profile_step: needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from svbrdf_tpu_torch.utils.bench_setup import build_main_program
+    from svbrdf_tpu_torch.utils.bench_setup import build_program
 
-    program = build_main_program()
+    program = build_program(*PATHS[args.path])
     for _ in range(3):
         program.train_step(program.raw)
     torch.cuda.synchronize()
-    result = {"device": torch.cuda.get_device_name(0),
+    result = {"path": args.path, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__,
               "phases_ms": _phase_times(program, STEPS),
               "kernels": _kernel_times(program, STEPS)}

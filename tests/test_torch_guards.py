@@ -1,8 +1,10 @@
-"""Guards of the port: it imports nothing of JAX or of the JAX package, and
-its entry points never quietly run on the CPU."""
+"""Guards of the port: it imports nothing of JAX or of the JAX package, its
+entry points never quietly run on the CPU, and a kernel library built from
+older sources is never loaded."""
 
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -10,7 +12,8 @@ import pytest
 import torch
 
 from svbrdf_tpu_torch.device import resolve_device
-from svbrdf_tpu_torch.models import SingleViewModel
+from svbrdf_tpu_torch.models import MultiViewModel, SingleViewModel
+from svbrdf_tpu_torch.ops import _build
 from svbrdf_tpu_torch.utils import bench_setup
 
 torch.set_num_threads(1)
@@ -51,6 +54,8 @@ def _needs_no_card():
     lambda: resolve_device("cuda:0"),
     lambda: SingleViewModel(8, 5),
     lambda: bench_setup.build_main_program(2, 32, 5, 8),
+    lambda: MultiViewModel(8, 5),
+    lambda: bench_setup.build_program("multi", "rendering", 2, 32, 5, 8),
 ])
 def test_entry_points_raise_without_a_card(entry):
     _needs_no_card()
@@ -62,3 +67,28 @@ def test_cpu_is_used_only_when_asked():
     assert resolve_device("cpu") == torch.device("cpu")
     model = SingleViewModel(8, 5, device="cpu")
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_library_path_follows_sources_and_shared_headers(tmp_path):
+    """The library's name hashes its source and every csrc/*.cuh: editing
+    the shared header renames every library, editing one source only its
+    own, and adding a header renames them all."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+
+    def paths():
+        return {n: _build.library_path(n, csrc) for n in _build.SOURCES}
+
+    first = paths()
+    assert first == {n: _build.library_path(n) for n in _build.SOURCES}
+    header = csrc / "shading.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    second = paths()
+    assert all(second[n] != first[n] for n in _build.SOURCES)
+    source = csrc / "rendering_loss.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    third = paths()
+    assert third["rendering_loss"] != second["rendering_loss"]
+    assert third["mixed_loss"] == second["mixed_loss"]
+    (csrc / "other.cuh").write_text("// a new header\n")
+    assert all(p != third[n] for n, p in paths().items())

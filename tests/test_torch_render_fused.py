@@ -177,8 +177,12 @@ def test_make_loss_fn_kinds():
                                rtol=1e-5)
     l1 = losses.make_loss_fn("l1")(pred, gt)
     assert float(l1) == float(losses.svbrdf_l1_loss(pred, gt))
-    with pytest.raises(NotImplementedError, match="_fwdgrad_kernel"):
-        losses.make_loss_fn("rendering")
+    rendering = losses.make_loss_fn("rendering")(pred, gt, scenes=c["ts"])
+    np.testing.assert_allclose(
+        float(rendering), float(losses.rendering_loss(pred, gt, c["ts"])),
+        rtol=1e-5)
+    with pytest.raises(ValueError, match="unknown loss kind"):
+        losses.make_loss_fn("render")
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take():

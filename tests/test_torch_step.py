@@ -24,6 +24,7 @@ import torch
 
 from svbrdf_tpu.data import pipeline as jpipeline
 from svbrdf_tpu.interop.torch_port import export_torch_state_dict
+from svbrdf_tpu.models import MultiViewModel as JaxMultiViewModel
 from svbrdf_tpu.models import SingleViewModel as JaxSingleViewModel
 from svbrdf_tpu.ops import render_pallas
 from svbrdf_tpu.ops import sampling as jsampling
@@ -31,7 +32,7 @@ from svbrdf_tpu.utils import bench_setup as jbench_setup
 from svbrdf_tpu_torch import losses
 from svbrdf_tpu_torch.data import pipeline
 from svbrdf_tpu_torch.interop.jax_params import params_from_jax
-from svbrdf_tpu_torch.models import SingleViewModel
+from svbrdf_tpu_torch.models import MultiViewModel, SingleViewModel
 from svbrdf_tpu_torch.parallel import step as step_lib
 from svbrdf_tpu_torch.scene import Scene
 from svbrdf_tpu_torch.utils import bench_setup
@@ -41,6 +42,7 @@ torch.set_num_threads(1)
 DEPTH, FILTERS, SIZE, BATCH = 5, 8, 32, 2
 PREP = step_lib.PrepConfig(used_input_image_count=1, use_augmentation=True,
                            is_linear=False, mix_materials=True)
+PREP_MULTI = PREP._replace(used_input_image_count=3)
 
 
 def _raw(seed=0, n_views=0):
@@ -84,18 +86,21 @@ def _jax_prep_draws(key, count=1):
                 noise=torch.from_numpy(np.stack(noises)))
 
 
-def test_prepare_batch_matches_jax_with_injected_draws():
+@pytest.mark.parametrize("count", [1, 3])
+def test_prepare_batch_matches_jax_with_injected_draws(count):
+    """Every view synthesized (the strips hold no photos): one for the
+    single-view model, three for the multi-view one."""
     raw = _raw(seed=1)
     key = jax.random.key(7)
     ref = jpipeline.prepare_batch(key, raw["inputs"], raw["svbrdf"],
                                   raw["partner_svbrdf"],
-                                  used_input_image_count=1,
+                                  used_input_image_count=count,
                                   use_augmentation=True)
     t = _torch_raw(raw)
     mine = pipeline.prepare_batch(t["inputs"], t["svbrdf"],
-                                  t["partner_svbrdf"], 1, True,
-                                  **_jax_prep_draws(key))
-    assert mine["inputs"].shape == (BATCH, 1, SIZE, SIZE, 3)
+                                  t["partner_svbrdf"], count, True,
+                                  **_jax_prep_draws(key, count))
+    assert mine["inputs"].shape == (BATCH, count, SIZE, SIZE, 3)
     assert mine["svbrdf"].shape == (BATCH, SIZE, SIZE, 12)
     np.testing.assert_allclose(mine["svbrdf"].numpy(),
                                np.asarray(ref["svbrdf"]), rtol=1e-5,
@@ -154,8 +159,8 @@ def parity():
     return dict(batch=batch, jmodel=jmodel, params=params, scenes=scenes)
 
 
-def _port_model(params):
-    model = SingleViewModel(FILTERS, DEPTH, device="cpu")
+def _port_model(params, model_cls=SingleViewModel):
+    model = model_cls(FILTERS, DEPTH, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)),
                           strict=True)
     for m in model.modules():
@@ -164,15 +169,31 @@ def _port_model(params):
     return model
 
 
-def _jax_loss(jmodel, inputs, target):
+def _jax_loss(jmodel, inputs, target,
+              fused_loss=render_pallas.mixed_loss_fused_planes):
     gt_t = jnp.transpose(jnp.asarray(target), (0, 3, 1, 2))
 
     def loss_of(p, scenes):
         pred = jmodel.apply({"params": p}, inputs, deterministic=True)
-        return render_pallas.mixed_loss_fused_planes(
-            jnp.transpose(pred, (0, 3, 1, 2)), gt_t, scenes)
+        return fused_loss(jnp.transpose(pred, (0, 3, 1, 2)), gt_t, scenes)
 
     return loss_of
+
+
+def _assert_grads_match(model, jax_grads):
+    """Each port gradient within 1e-3 (normwise) of the JAX one; a leaf the
+    forward never reads has no port gradient and a zero JAX one."""
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    ref = export_torch_state_dict(jax_grads)
+    assert set(ref) == set(grads)
+    for key, g_ref in ref.items():
+        if grads[key] is None:
+            # Unused by the forward: the enc1 merge (no global track reaches
+            # it) and, in the single-view model, the last global-track stage.
+            np.testing.assert_array_equal(g_ref, 0.0, err_msg=key)
+            continue
+        diff = np.linalg.norm(grads[key].numpy() - g_ref)
+        assert diff <= 1e-3 * np.linalg.norm(g_ref), key
 
 
 def test_train_step_matches_jax(parity):
@@ -201,17 +222,7 @@ def test_train_step_matches_jax(parity):
         port_losses.append(float(step.update(batch,
                                              scenes=_port_scene(scenes))))
         if i == 0:
-            grads = {k: p.grad for k, p in model.named_parameters()}
-            ref = export_torch_state_dict(jax_grads)
-            assert set(ref) == set(grads)
-            for key, g_ref in ref.items():
-                if grads[key] is None:
-                    # Unused by the forward: the enc1 merge (no global
-                    # track reaches it) and the last global-track stage.
-                    np.testing.assert_array_equal(g_ref, 0.0, err_msg=key)
-                    continue
-                diff = np.linalg.norm(grads[key].numpy() - g_ref)
-                assert diff <= 1e-3 * np.linalg.norm(g_ref), key
+            _assert_grads_match(model, jax_grads)
     np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-4)
     assert len(set(port_losses)) == 3  # the weights moved between steps
 
@@ -233,6 +244,85 @@ def test_eval_step_matches_jax(parity):
     with jax.default_matmul_precision("highest"):
         ref = _jax_loss(parity["jmodel"], jnp.asarray(batch["inputs"].numpy()),
                         batch["svbrdf"].numpy())(parity["params"], scenes)
+    np.testing.assert_allclose(value, float(ref), rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def multi_parity():
+    """A prepared 3-view batch, an eval batch, the JAX MultiViewModel +
+    params, 3 scene sets, and the JAX loss's value and gradient under the
+    rendering-only loss (one jit for every call)."""
+    g = torch.Generator().manual_seed(1)
+    batch = step_lib.prepare(_torch_raw(_raw(seed=4)), PREP_MULTI, g)
+    raw_eval = _torch_raw(_raw(seed=5))
+    eval_batch = step_lib.prepare(raw_eval, PREP_MULTI,
+                                  torch.Generator().manual_seed(9))
+    jmodel = JaxMultiViewModel(use_coords=False, num_filters=FILTERS,
+                               depth=DEPTH)
+    params = jmodel.init(jax.random.key(1),
+                         jnp.zeros((1, 3, SIZE, SIZE, 3)))["params"]
+    scenes = [jsampling.generate_loss_scenes(jax.random.key(20 + i), BATCH,
+                                             3, 6) for i in range(3)]
+
+    def loss_of(p, scenes, inputs, target):
+        return _jax_loss(jmodel, inputs, target,
+                         render_pallas.rendering_loss_fused_planes)(p, scenes)
+
+    return dict(batch=batch, raw_eval=raw_eval, eval_batch=eval_batch,
+                params=params, scenes=scenes,
+                value_and_grad=jax.jit(jax.value_and_grad(loss_of)))
+
+
+def test_multi_view_rendering_train_step_matches_jax(multi_parity):
+    """Three steps of the multi-view model with the rendering-only loss
+    against the JAX model, render_pallas.rendering_loss_fused_planes and
+    optax.adam: loss rtol 1e-4, first-step gradients 1e-3 normwise."""
+    mp = multi_parity
+    batch = mp["batch"]
+    inputs = jnp.asarray(batch["inputs"].numpy())
+    target = batch["svbrdf"].numpy()
+    opt = optax.adam(1e-5)
+    params = mp["params"]
+    opt_state = opt.init(params)
+    jax_losses, jax_grads = [], None
+    with jax.default_matmul_precision("highest"):
+        for scenes in mp["scenes"]:
+            loss, grads = mp["value_and_grad"](params, scenes, inputs, target)
+            jax_grads = jax_grads or grads
+            updates, opt_state = opt.update(grads, opt_state, params)
+            params = optax.apply_updates(params, updates)
+            jax_losses.append(float(loss))
+
+    model = _port_model(mp["params"], MultiViewModel)
+    step = step_lib.make_train_step(
+        model, step_lib.make_optimizer(model.parameters(), 1e-5),
+        losses.make_loss_fn("rendering"), PREP_MULTI, torch.Generator())
+    port_losses = []
+    for i, scenes in enumerate(mp["scenes"]):
+        port_losses.append(float(step.update(batch,
+                                             scenes=_port_scene(scenes))))
+        if i == 0:
+            _assert_grads_match(model, jax_grads)
+    np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-4)
+    assert len(set(port_losses)) == 3  # the weights moved between steps
+
+
+def test_multi_view_rendering_eval_step_matches_jax(multi_parity):
+    """The eval step (dropout off, value-only rendering path) against the
+    JAX forward + rendering_loss_fused_planes on the same batch and
+    scenes."""
+    mp = multi_parity
+    model = _port_model(mp["params"], MultiViewModel)
+    eval_step = step_lib.make_eval_step(
+        model, losses.make_loss_fn("rendering"), PREP_MULTI,
+        torch.Generator().manual_seed(9))
+    scenes = mp["scenes"][0]
+    value = float(eval_step(mp["raw_eval"], scenes=_port_scene(scenes)))
+    eb = mp["eval_batch"]
+    with jax.default_matmul_precision("highest"):
+        ref, _ = mp["value_and_grad"](
+            mp["params"], scenes, jnp.asarray(eb["inputs"].numpy()),
+            eb["svbrdf"].numpy())
     np.testing.assert_allclose(value, float(ref), rtol=1e-4)
 
 
@@ -269,3 +359,24 @@ def test_main_program_builds_on_cpu_when_asked():
                                              device="cpu")
     assert program.raw["svbrdf"].dtype == torch.uint8
     assert math.isfinite(float(program.eval_step(program.raw)))
+
+
+def test_multi_view_rendering_program_builds_on_cpu_when_asked():
+    """build_program("multi", "rendering"): 3 synthesized views, the
+    rendering-only loss; a train step moves the weights and eval and
+    predict give finite values of the right shapes."""
+    program = bench_setup.build_program("multi", "rendering", BATCH, SIZE,
+                                        DEPTH, FILTERS, device="cpu")
+    assert isinstance(program.model, MultiViewModel)
+    assert program.prep.used_input_image_count == 3
+    before = [p.detach().clone() for p in program.model.parameters()]
+    assert math.isfinite(float(program.train_step(program.raw)))
+    assert any(not torch.equal(a, p) for a, p in
+               zip(before, program.model.parameters()))
+    assert math.isfinite(float(program.eval_step(program.raw)))
+    images = step_lib.prepare(program.raw, program.prep,
+                              program.generator)["inputs"]
+    assert images.shape == (BATCH, 3, SIZE, SIZE, 3)
+    assert program.predict(images).shape == (BATCH, SIZE, SIZE, 12)
+    with pytest.raises(ValueError, match="unknown model kind"):
+        bench_setup.build_program("triple", "rendering", device="cpu")
