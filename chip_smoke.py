@@ -22,7 +22,9 @@ Phases, each raising (and so exiting non-zero) on any failure:
          train steps, 1 eval step, predict;
        - the rendering loss with the target's gradient under autograd;
   6. times: CUDA-event medians of each kernel launched alone, its wrapper,
-     its plain version and each path's steps, and each kernel's bound.
+     its plain version and each path's steps, each kernel's bound, and the
+     blocks of each kernel that fit one SM (the occupancy query of the
+     library, beside the ptxas register and spill lines of phase 2).
 The next-to-last line is the JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -170,41 +172,6 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(name: str, inputs, reps: int = 10, runs: int = 20) -> float:
-    """Device time of one raw launch of kernel `name`: the median over
-    `runs` of `reps` back-to-back launches between two CUDA events, divided
-    by reps. A launch queued before the start event keeps the card busy
-    while the host queues the rest, so the events time the kernels alone
-    (no wrapper sum of the partials, no host gaps)."""
-    from svbrdf_tpu_torch.ops import render_fused as rf
-
-    pred_t, _, scenes9 = inputs
-    if name.startswith("mixed"):
-        floats = rf._mixed_floats(pred_t, scenes9, 0, 0.1)
-    else:
-        count = rf._rendering_count(pred_t, scenes9, 0)
-        floats = () if name == "render_fwd" else (1.0 / count,)
-
-    def launch():
-        rf._launch(name, *inputs, 0, 0, floats)
-
-    for _ in range(3):
-        launch()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        launch()
-        start.record()
-        for _ in range(reps):
-            launch()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / reps)
-    return statistics.median(times)
-
-
 def bound(kernel: str, batch: int, height: int, width: int, n_scenes: int,
           rates: dict) -> tuple:
     """(bound_ms, bound_by, parts in us) for one call: the larger of the
@@ -254,38 +221,6 @@ def phase_build() -> None:
     log(f"build phase {time.perf_counter() - start:.1f} s")
 
 
-def loss_inputs(batch: int, size: int, n_scenes: int, seed: int = 0):
-    """Planes and scenes at the main path's shapes: gt and pred decoded
-    from two synthetic raw batches (pred plays an untrained model's
-    output), scenes from the loss sampler."""
-    from svbrdf_tpu_torch.data import pipeline
-    from svbrdf_tpu_torch.losses import to_planes
-    from svbrdf_tpu_torch.ops import render_fused, sampling
-    from svbrdf_tpu_torch.utils.bench_setup import synthetic_raw_batch
-
-    dev = torch.device("cuda")
-
-    def planes(s):
-        raw = synthetic_raw_batch(batch, size, 0, s)["svbrdf"]
-        return to_planes(pipeline._decode_u8_svbrdf(
-            torch.from_numpy(raw).to(dev)))
-
-    g = torch.Generator(device=dev).manual_seed(seed)
-    scenes = sampling.generate_loss_scenes(batch, 3, n_scenes - 3,
-                                           generator=g, device=dev)
-    return planes(seed + 1), planes(seed), render_fused.pack_scenes(scenes)
-
-
-def plain_versions() -> dict:
-    from svbrdf_tpu_torch.ops import render_fused as rf
-
-    return {"mixed_fwdgrad": rf.mixed_loss_fwdgrad_plain,
-            "mixed_fwd": rf.mixed_loss_fwd_plain,
-            "render_fwdgrad": rf.rendering_loss_fwdgrad_plain,
-            "render_fwd": rf.rendering_loss_fwd_plain,
-            "render_fwdgrad_both": rf.rendering_loss_fwdgrad_both_plain}
-
-
 def _outputs(out) -> tuple:
     """(loss, gradients...) of a kernel's wrapper or plain version."""
     return out if isinstance(out, tuple) else (out,)
@@ -299,7 +234,7 @@ def phase_kernels(inputs) -> dict:
 
     pred_t, gt_t, scenes9 = inputs
     errors = {}
-    for name, plain in plain_versions().items():
+    for name, plain in rf.PLAIN_VERSIONS.items():
         out = _outputs(rf.CUDA_WRAPPERS[name](*inputs))
         torch.cuda.synchronize()
         ref = _outputs(plain(*inputs))
@@ -506,23 +441,26 @@ def kernel_times(inputs, rates: dict) -> dict:
     """Each kernel launched alone and through its wrapper, its plain
     version, and its bound at these inputs."""
     from svbrdf_tpu_torch.ops import render_fused as rf
+    from svbrdf_tpu_torch.utils.bench_setup import kernel_ms
 
     batch, _, height, width = inputs[0].shape
     n_scenes = inputs[2].shape[1]
     out = {}
-    for name, plain in plain_versions().items():
+    for name, plain in rf.PLAIN_VERSIONS.items():
         wrapper = rf.CUDA_WRAPPERS[name]
         ms = kernel_ms(name, inputs)
         wrapper_ms = cuda_ms(lambda: wrapper(*inputs))
         plain_ms = cuda_ms(lambda: plain(*inputs))
         bound_ms, bound_by, parts = bound(name, batch, height, width,
                                           n_scenes, rates)
+        per_sm = rf.blocks_per_sm(name, n_scenes)
         out[name] = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bound_parts_us": parts}
+                     "bound_parts_us": parts, "blocks_per_sm": per_sm}
         log(f"{name}: kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} ms), "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + ")")
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+            + f"), {per_sm} blocks per SM")
     return out
 
 
@@ -547,11 +485,11 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     rates = card_rates(name)
     phase_build()
+    from svbrdf_tpu_torch.utils.bench_setup import build_program, loss_inputs
+
     inputs = loss_inputs(MAIN["batch"], MAIN["size"], MAIN["n_scenes"])
     errors = phase_kernels(inputs)
     phase_agreement()
-
-    from svbrdf_tpu_torch.utils.bench_setup import build_program
 
     counts, steps_ms = {}, {}
     for path, (kinds, _) in PATHS.items():
@@ -577,7 +515,8 @@ def main() -> None:
             plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],
             bound_us=times[k]["bound_ms"] * 1e3,
             bound_by=times[k]["bound_by"],
-            bound_parts_us=times[k]["bound_parts_us"], library_ms=None))
+            bound_parts_us=times[k]["bound_parts_us"],
+            blocks_per_sm=times[k]["blocks_per_sm"], library_ms=None))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "steps_ms": steps_ms}))
     print(json.dumps({"ok": True, "device": {

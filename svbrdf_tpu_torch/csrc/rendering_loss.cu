@@ -18,18 +18,22 @@
 // the partials by count = B*S*H_global*W*3, and dpred and dgt are written
 // scaled by inv_count = 1/count.
 //
-// What bounds it on this card: arithmetic, as for the mixed loss
-// (mixed_loss.cu): per pixel and scene it needs about as many FP32 and
+// What bounds it on this card: the instructions it issues, as for the mixed
+// loss (mixed_loss.cu): per pixel and scene it needs about as many FP32 and
 // special-function operations as the mixed kernels without their L1 term,
 // and the `both` variant a second VJP (the count is in chip_smoke.py); it
 // moves 24 (fwd), 36 (fwdgrad) or 48 (both) floats per pixel.
 //
-// What the design does about it: the mixed kernels' design (one thread per
-// pixel, every intermediate in registers, the block's scenes in shared
-// memory, per-block partials without float atomics, built with -fmad=false
-// and every `x / c` by a constant taken as `x * (1/c)`) over one kernel body
-// with two template switches. The `both` variant keeps 24 gradient
-// accumulators per thread beside the 24 inputs.
+// What the design does about it: the mixed kernels' design (shading.cuh's
+// reciprocals, one thread per pixel and one block per 256 pixels, the
+// block's scenes in shared memory, per-block partials without float
+// atomics, built with -fmad=false) over one kernel body with two template
+// switches. The gradient variants keep the pixel's inputs and accumulators
+// in thread-private columns of shared memory: fwdgrad, the training kernel,
+// is held to 80 registers and 3 blocks per SM (36 KB of shared memory a
+// block); `both` keeps 48 columns (48 KB) and fits 2 blocks per SM, where
+// with everything in registers it fitted one. The value-only kernel keeps
+// its inputs in registers.
 
 #include "shading.cuh"
 
@@ -37,8 +41,23 @@ namespace {
 
 using namespace svbrdf;
 
+// Blocks per SM that each variant's registers are held to: fwdgrad, the
+// training kernel, as the mixed one. The others as they compile: the
+// value-only kernel takes 62 registers (4 blocks per SM; held to 64 it took
+// 60 and ran 2 % slower), `both` 115 (2 blocks).
+__host__ __device__ constexpr int min_blocks(bool with_grad,
+                                             bool target_grad) {
+  return with_grad && !target_grad ? kMinBlocks : 1;
+}
+
+__host__ __device__ constexpr int gradients(bool with_grad,
+                                            bool target_grad) {
+  return (with_grad ? 1 : 0) + (target_grad ? 1 : 0);
+}
+
 template <bool kWithGrad, bool kTargetGrad>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads,
+                                  min_blocks(kWithGrad, kTargetGrad))
 rendering_loss_kernel(const float* __restrict__ pred,
                       const float* __restrict__ gt,
                       const float* __restrict__ scenes,
@@ -46,7 +65,9 @@ rendering_loss_kernel(const float* __restrict__ pred,
                       float* __restrict__ dgt, int H, int W, int S,
                       int row_offset, int full_height, float inv_count) {
   static_assert(kWithGrad || !kTargetGrad, "dgt comes with dpred");
-  extern __shared__ float scene_s[];  // S * 9 scalars of this batch item
+  extern __shared__ float smem[];
+  float* scene_s =
+      smem + shared_columns(gradients(kWithGrad, kTargetGrad)) * kThreads;
   load_scenes(scenes, S, scene_s);
 
   const int b = blockIdx.y;
@@ -55,50 +76,23 @@ rendering_loss_kernel(const float* __restrict__ pred,
   float value = 0.f;
   if (p < hw) {
     const size_t base = (size_t)b * 12 * hw + p;
-    float P[12], T[12], dp[12], dt[12];
+    InputValues<kWithGrad> P(smem + threadIdx.x);
+    InputValues<kWithGrad> T(smem + 12 * kThreads + threadIdx.x);
+    SharedValues dp(smem + 24 * kThreads + threadIdx.x);
+    SharedValues dt(smem + 36 * kThreads + threadIdx.x);
 #pragma unroll
     for (int c = 0; c < 12; ++c) {
-      P[c] = pred[base + (size_t)c * hw];
-      T[c] = gt[base + (size_t)c * hw];
-      dp[c] = 0.f;
-      dt[c] = 0.f;
+      P.set(c, pred[base + (size_t)c * hw]);
+      T.set(c, gt[base + (size_t)c * hw]);
+      if (kWithGrad) dp.set(c, 0.f);
+      if (kTargetGrad) dt.set(c, 0.f);
     }
     const int row = p / W;
     const int col = p - row * W;
     const float x = patch_x(col, W);
     const float y = patch_y(row + row_offset, full_height);
-
-    for (int s = 0; s < S; ++s) {
-      const float* sc = scene_s + s * 9;
-      const Geometry g = scene_geometry(sc, x, y);
-      const Side sp = shade_side(P[0], P[1], P[2], g);
-      const Side st = shade_side(T[0], T[1], T[2], g);
-      NormalAcc acc_p, acc_t;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float color = sc[6 + c];
-        const Chan kp = shade_channel(P[3 + c], P[6 + c], P[9 + c], sp, g,
-                                      color);
-        const Chan kt = shade_channel(T[3 + c], T[6 + c], T[9 + c], st, g,
-                                      color);
-        const float rp = kp.out + kEpsRender;
-        const float rt = kt.out + kEpsRender;
-        const float diff = logf(rp) - logf(rt);
-        value += fabsf(diff);
-        if (kWithGrad) {
-          const float sgn = sign0(diff);
-          side_vjp_channel(sgn / rp, color, P[3 + c], P[6 + c], kp, sp, g,
-                           &dp[3 + c], &dp[6 + c], &dp[9 + c], acc_p);
-          if (kTargetGrad) {
-            side_vjp_channel(-sgn / rt, color, T[3 + c], T[6 + c], kt, st, g,
-                             &dt[3 + c], &dt[6 + c], &dt[9 + c], acc_t);
-          }
-        }
-      }
-      if (kWithGrad) side_vjp_normal(acc_p, sp, g, dp);
-      if (kTargetGrad) side_vjp_normal(acc_t, st, g, dt);
-    }
-
+    value = scene_loop<kWithGrad, kTargetGrad>(P, T, scene_s, S, x, y, dp,
+                                               dt);
     if (kWithGrad) {
 #pragma unroll
       for (int c = 0; c < 12; ++c) {
@@ -116,11 +110,20 @@ rendering_loss_kernel(const float* __restrict__ pred,
 }
 
 template <bool kWithGrad, bool kTargetGrad>
+int blocks_per_sm_of(int S) {
+  return blocks_per_sm(rendering_loss_kernel<kWithGrad, kTargetGrad>,
+                       shared_bytes(gradients(kWithGrad, kTargetGrad), S));
+}
+
+template <bool kWithGrad, bool kTargetGrad>
 int launch(const void* pred, const void* gt, const void* scenes,
            void* partials, void* dpred, void* dgt, int B, int H, int W, int S,
            int row_offset, int full_height, float inv_count, void* stream) {
   const dim3 grid((H * W + kThreads - 1) / kThreads, B);
-  const size_t smem = (size_t)S * 9 * sizeof(float);
+  const size_t smem = shared_bytes(gradients(kWithGrad, kTargetGrad), S);
+  const cudaError_t err =
+      allow_shared(rendering_loss_kernel<kWithGrad, kTargetGrad>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   rendering_loss_kernel<kWithGrad, kTargetGrad>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const float*>(pred), static_cast<const float*>(gt),
@@ -136,6 +139,17 @@ extern "C" {
 
 // Threads per block; the caller sizes `partials` as B * ceil(H*W / this).
 int svbrdf_rendering_loss_threads() { return kThreads; }
+
+// Blocks of each kernel that fit one SM at S scenes, or minus a CUDA error.
+int svbrdf_rendering_loss_fwd_blocks_per_sm(int S) {
+  return blocks_per_sm_of<false, false>(S);
+}
+int svbrdf_rendering_loss_fwdgrad_blocks_per_sm(int S) {
+  return blocks_per_sm_of<true, false>(S);
+}
+int svbrdf_rendering_loss_fwdgrad_both_blocks_per_sm(int S) {
+  return blocks_per_sm_of<true, true>(S);
+}
 
 // Loss partials (B * ceil(H*W/threads) raw sums) only.
 int svbrdf_rendering_loss_fwd(const void* pred, const void* gt,

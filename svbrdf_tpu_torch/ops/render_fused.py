@@ -86,6 +86,7 @@ def _scene_geometry(sc, x, y):
     lx, ly = sc[3] - x, sc[4] - y
     lz = sc[5].expand_as(lx)
     dist_sq = lx * lx + ly * ly + lz * lz
+    inv_dsq = torch.reciprocal(dist_sq)
     inv_l = torch.rsqrt(dist_sq)
     lx, ly, lz = lx * inv_l, ly * inv_l, lz * inv_l
     hx, hy, hz = (vx + lx) * 0.5, (vy + ly) * 0.5, (vz + lz) * 0.5
@@ -94,11 +95,13 @@ def _scene_geometry(sc, x, y):
     VH = torch.clamp(vx * hx + vy * hy + vz * hz, min=_EPS)
     o = 1.0 - VH
     return dict(v=(vx, vy, vz), l=(lx, ly, lz), h=(hx, hy, hz),
-                dist_sq=dist_sq, omv5=o * o * o * o * o)
+                inv_dsq=inv_dsq, omv5=o * o * o * o * o)
 
 
 def _shade_side(p, g, color):
-    """One side's radiance per channel plus what its VJP needs."""
+    """One side's radiance per channel plus what its VJP needs. Each
+    quotient is a product with one reciprocal per quantity, as in
+    csrc/shading.cuh: the kernel and this version round alike."""
     (vx, vy, vz), (lx, ly, lz), (hx, hy, hz) = g["v"], g["l"], g["h"]
     nx, ny, nz = p[:, 0], p[:, 1], p[:, 2]
     nh_raw = nx * hx + ny * hy + nz * hz
@@ -108,48 +111,64 @@ def _shade_side(p, g, color):
     VN = torch.clamp(vn_raw, min=_EPS)
     LN = torch.clamp(ln_raw, min=_EPS)
     NH_sq = NH * NH
-    scale = torch.clamp(ln_raw, min=0.0) / g["dist_sq"]
-    tv = (1.0 - VN * VN) / (VN * VN)
-    tl = (1.0 - LN * LN) / (LN * LN)
-    shared = dict(NH=NH, VN=VN, LN=LN, NH_sq=NH_sq, scale=scale, tv=tv,
-                  tl=tl, raw=(nh_raw, vn_raw, ln_raw))
+    inv_VN = torch.reciprocal(VN)
+    inv_LN = torch.reciprocal(LN)
+    inv_NH_sq = torch.reciprocal(NH_sq)
+    scale = torch.clamp(ln_raw, min=0.0) * g["inv_dsq"]
+    tv = (1.0 - VN * VN) * (inv_VN * inv_VN)
+    tl = (1.0 - LN * LN) * (inv_LN * inv_LN)
+    tn = (1.0 - NH_sq) * inv_NH_sq
+    inv_4vnln = inv_VN * inv_LN * 0.25
+    shared = dict(NH=NH, NH_sq=NH_sq, inv_VN=inv_VN, inv_LN=inv_LN,
+                  scale=scale, tv=tv, tl=tl, inv_4vnln=inv_4vnln,
+                  raw=(nh_raw, vn_raw, ln_raw))
     chans = []
     for c in range(3):
         albedo, rough_raw, spec = p[:, 3 + c], p[:, 6 + c], p[:, 9 + c]
         rough = torch.clamp(rough_raw, min=_EPS)
         r2 = rough * rough
         a = r2 * r2
-        denom_raw = NH_sq * (a + (1.0 - NH_sq) / NH_sq)
+        denom_raw = NH_sq * (a + tn)
         denom = torch.clamp(denom_raw, min=_EPS)
+        inv_denom = torch.reciprocal(denom)
         chi = (NH > 0.0).float()
-        D = a * chi / (_PI * denom * denom)
-        sv = torch.sqrt(1.0 + a * tv)
-        g1v = 2.0 / (1.0 + sv)
-        sl = torch.sqrt(1.0 + a * tl)
-        g1l = 2.0 / (1.0 + sl)
+        D = a * chi * (inv_denom * inv_denom) / _PI
+        tv1 = 1.0 + a * tv
+        inv_sv = torch.rsqrt(tv1)
+        rv = torch.reciprocal(1.0 + tv1 * inv_sv)
+        g1v = 2.0 * rv
+        tl1 = 1.0 + a * tl
+        inv_sl = torch.rsqrt(tl1)
+        rl = torch.reciprocal(1.0 + tl1 * inv_sl)
+        g1l = 2.0 * rl
         G = g1v * g1l
-        inv_4vnln = 1.0 / (4.0 * VN * LN)
         spec_base = G * D * inv_4vnln
         F = spec + (1.0 - spec) * g["omv5"]
         f = (1.0 - F) * albedo / _PI + F * spec_base
         chans.append(dict(
             albedo=albedo, rough_raw=rough_raw, rough=rough, a=a,
-            denom_raw=denom_raw, denom=denom, chi=chi, D=D, sv=sv, g1v=g1v,
-            sl=sl, g1l=g1l, G=G, inv_4vnln=inv_4vnln, spec_base=spec_base,
-            F=F, f=f, out=f * color[c] * scale))
+            denom_raw=denom_raw, denom=denom, inv_denom=inv_denom, chi=chi,
+            D=D, inv_sv=inv_sv, rv=rv, g1v=g1v, inv_sl=inv_sl, rl=rl,
+            g1l=g1l, G=G, spec_base=spec_base, F=F, f=f,
+            out=f * color[c] * scale))
     return shared, chans
 
 
 def _side_bwd(g, color, shared, chans, u):
     """Gradient of sum_c u[c] * out_c wrt one side's 12 planes, (B, 12, H, W)."""
     (vx, vy, vz), (lx, ly, lz), (hx, hy, hz) = g["v"], g["l"], g["h"]
-    NH, VN, LN, NH_sq = shared["NH"], shared["VN"], shared["LN"], shared["NH_sq"]
+    NH, NH_sq = shared["NH"], shared["NH_sq"]
+    inv_VN, inv_LN = shared["inv_VN"], shared["inv_LN"]
     tv, tl, scale = shared["tv"], shared["tl"], shared["scale"]
+    inv_4vnln = shared["inv_4vnln"]
+    inv_VN3 = inv_VN * inv_VN * inv_VN
+    inv_LN3 = inv_LN * inv_LN * inv_LN
     dalbedo, drough, dspec = [], [], []
     A_NH = A_VN = A_LN = A_lp = 0.0
     for c in range(3):
         k = chans[c]
-        a, sv, sl, D, G = k["a"], k["sv"], k["sl"], k["D"], k["G"]
+        a, D, G = k["a"], k["D"], k["G"]
+        inv_sv, rv, inv_sl, rl = k["inv_sv"], k["rv"], k["inv_sl"], k["rl"]
         w = u[c] * color[c]
         ws = w * scale
         wsF = ws * k["F"]
@@ -157,28 +176,28 @@ def _side_bwd(g, color, shared, chans, u):
         dspec.append(ws * (1.0 - g["omv5"]) * (k["spec_base"]
                                                - k["albedo"] / _PI))
         mask_denom = (k["denom_raw"] >= _EPS).float()
-        inv_denom = 1.0 / k["denom"]
+        inv_denom = k["inv_denom"]
         inv_denom3 = inv_denom * inv_denom * inv_denom
         dD_da = (k["chi"] * (k["denom"] - 2.0 * a * NH_sq * mask_denom)
                  * inv_denom3 / _PI)
-        dg1v_da = -tv / (sv * (1.0 + sv) * (1.0 + sv))
-        dg1l_da = -tl / (sl * (1.0 + sl) * (1.0 + sl))
+        dg1v_da = -tv * rv * rv * inv_sv
+        dg1l_da = -tl * rl * rl * inv_sl
         dG_da = dg1v_da * k["g1l"] + k["g1v"] * dg1l_da
-        dsb_da = (dG_da * D + G * dD_da) * k["inv_4vnln"]
+        dsb_da = (dG_da * D + G * dD_da) * inv_4vnln
         mask_r = (k["rough_raw"] >= _EPS).float()
         rough = k["rough"]
         drough.append(wsF * dsb_da * 4.0 * rough * rough * rough * mask_r)
-        dsb_dNH = ((G * k["inv_4vnln"])
+        dsb_dNH = ((G * inv_4vnln)
                    * (-2.0 * a * k["chi"] * inv_denom3 / _PI)
                    * 2.0 * NH * (a - 1.0) * mask_denom)
-        dg1v_dVN = 2.0 * a / ((1.0 + sv) * (1.0 + sv) * sv * VN * VN * VN)
-        dsb_dVN = (dg1v_dVN * k["g1l"] * D - G * D / VN) * k["inv_4vnln"]
-        dg1l_dLN = 2.0 * a / ((1.0 + sl) * (1.0 + sl) * sl * LN * LN * LN)
-        dsb_dLN = (k["g1v"] * dg1l_dLN * D - G * D / LN) * k["inv_4vnln"]
+        dg1v_dVN = 2.0 * a * rv * rv * inv_sv * inv_VN3
+        dsb_dVN = (dg1v_dVN * k["g1l"] * D - G * D * inv_VN) * inv_4vnln
+        dg1l_dLN = 2.0 * a * rl * rl * inv_sl * inv_LN3
+        dsb_dLN = (k["g1v"] * dg1l_dLN * D - G * D * inv_LN) * inv_4vnln
         A_NH = A_NH + wsF * dsb_dNH
         A_VN = A_VN + wsF * dsb_dVN
         A_LN = A_LN + wsF * dsb_dLN
-        A_lp = A_lp + w * k["f"] / g["dist_sq"]
+        A_lp = A_lp + w * k["f"] * g["inv_dsq"]
     nh_raw, vn_raw, ln_raw = shared["raw"]
     cn = A_NH * (nh_raw >= _EPS).float()
     cv = A_VN * (vn_raw >= _EPS).float()
@@ -199,8 +218,9 @@ def _l1_terms(pred_t, gt_t):
     ds = torch.log(ps) - torch.log(gt_t[:, 9:12] + EPSILON_L1)
     l1 = (torch.sum(torch.abs(dn)) + torch.sum(torch.abs(dd))
           + torch.sum(torch.abs(dr)) + torch.sum(torch.abs(ds)))
-    grad = torch.cat([torch.sign(dn), torch.sign(dd) / pd, torch.sign(dr),
-                      torch.sign(ds) / ps], dim=1)
+    grad = torch.cat([torch.sign(dn), torch.sign(dd) * torch.reciprocal(pd),
+                      torch.sign(dr), torch.sign(ds) * torch.reciprocal(ps)],
+                     dim=1)
     return l1, grad
 
 
@@ -225,7 +245,7 @@ def _mixed_plain(pred_t, gt_t, scenes9, row_offset, global_height,
             rp = ch_p[c]["out"] + EPSILON_RENDER
             diff = torch.log(rp) - torch.log(ch_t[c]["out"] + EPSILON_RENDER)
             total = total + torch.sum(torch.abs(diff))
-            u.append(torch.sign(diff) / rp)
+            u.append(torch.sign(diff) * torch.reciprocal(rp))
         if with_grad:
             dpred = dpred + _side_bwd(g, color, shr_p, ch_p, u)
     l1, dl1 = _l1_terms(pred_t, gt_t)
@@ -281,8 +301,8 @@ def _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
             diff = torch.log(rp) - torch.log(rt)
             total = total + torch.sum(torch.abs(diff))
             sign = torch.sign(diff)
-            u_pred.append(sign / rp)
-            u_gt.append(-sign / rt)
+            u_pred.append(sign * torch.reciprocal(rp))
+            u_gt.append(-sign * torch.reciprocal(rt))
         if with_grad:
             dpred = dpred + _side_bwd(g, color, shr_p, ch_p, u_pred)
         if target_grad:
@@ -323,7 +343,8 @@ def rendering_loss_fwdgrad_both_plain(pred_t, gt_t, scenes9,
 # --- CUDA kernels ------------------------------------------------------------
 
 # Each kernel's C entry: (source in csrc/, symbol, output planes beside the
-# partials, float arguments after the six ints).
+# partials, float arguments after the six ints). Beside each entry the
+# library exports <symbol>_blocks_per_sm.
 _ENTRIES = {
     "mixed_fwdgrad": ("mixed_loss", "svbrdf_mixed_loss_fwdgrad", 1, 2),
     "mixed_fwd": ("mixed_loss", "svbrdf_mixed_loss_fwd", 0, 2),
@@ -336,24 +357,45 @@ _ENTRIES = {
 _FUNCS = {}
 
 
+def _bind(lib, name):
+    """(C entry, threads per block) of kernel `name` in the loaded library
+    `lib`, the signatures declared."""
+    source, symbol, n_planes, n_floats = _ENTRIES[name]
+    fn = getattr(lib, symbol)
+    # pred, gt, scenes, partials, planes...; B, H, W, S, row_offset,
+    # full_height; floats...; stream
+    fn.argtypes = ([ctypes.c_void_p] * (4 + n_planes)
+                   + [ctypes.c_int] * 6 + [ctypes.c_float] * n_floats
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    threads = getattr(lib, f"svbrdf_{source}_threads")
+    threads.argtypes = []
+    threads.restype = ctypes.c_int
+    return fn, threads()
+
+
 def _kernel(name):
-    """(C entry, threads per block) of kernel `name`, its library built and
-    loaded at first use and the signature declared."""
+    """(C entry, threads per block, blocks-per-SM query) of kernel `name`,
+    its library built and loaded at first use and the signatures
+    declared."""
     if name not in _FUNCS:
-        source, symbol, n_planes, n_floats = _ENTRIES[name]
+        source, symbol = _ENTRIES[name][:2]
         lib = _build.load(source)
-        fn = getattr(lib, symbol)
-        # pred, gt, scenes, partials, planes...; B, H, W, S, row_offset,
-        # full_height; floats...; stream
-        fn.argtypes = ([ctypes.c_void_p] * (4 + n_planes)
-                       + [ctypes.c_int] * 6 + [ctypes.c_float] * n_floats
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        threads = getattr(lib, f"svbrdf_{source}_threads")
-        threads.argtypes = []
-        threads.restype = ctypes.c_int
-        _FUNCS[name] = (fn, threads())
+        per_sm = getattr(lib, f"{symbol}_blocks_per_sm")
+        per_sm.argtypes = [ctypes.c_int]  # S
+        per_sm.restype = ctypes.c_int
+        _FUNCS[name] = (*_bind(lib, name), per_sm)
     return _FUNCS[name]
+
+
+def blocks_per_sm(name: str, n_scenes: int) -> int:
+    """Blocks of kernel `name` that fit one SM of the current CUDA device at
+    `n_scenes` scenes (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = _kernel(name)[2](n_scenes)
+    if n <= 0:
+        raise RuntimeError(f"occupancy query of the {name} kernel failed: "
+                           f"CUDA error {-n}")
+    return n
 
 
 def _check(pred_t, gt_t, scenes9):
@@ -377,13 +419,15 @@ def _check(pred_t, gt_t, scenes9):
                              f"{pred_t.device}")
 
 
-def _launch(name, pred_t, gt_t, scenes9, row_offset, global_height, floats):
+def _launch(name, pred_t, gt_t, scenes9, row_offset, global_height, floats,
+            kernel=None):
     """Launch kernel `name` on the current stream: (partials, output
-    planes...). `floats` are its float arguments."""
+    planes...). `floats` are its float arguments; `kernel` is a (C entry,
+    threads per block) pair from _bind, by default the package's own."""
     if pred_t.device.type != "cuda":
         raise RuntimeError(f"the {name} kernel needs CUDA tensors, got "
                            f"{pred_t.device}")
-    fn, threads = _kernel(name)
+    fn, threads = kernel or _kernel(name)[:2]
     batch, _, height, width = pred_t.shape
     blocks = -(-(height * width) // threads)
     partials = torch.empty(batch * blocks, dtype=torch.float32,
@@ -481,6 +525,24 @@ CUDA_WRAPPERS = {
 }
 for _wrapper in CUDA_WRAPPERS.values():
     _wrapper.launches = 0
+
+PLAIN_VERSIONS = {
+    "mixed_fwdgrad": mixed_loss_fwdgrad_plain,
+    "mixed_fwd": mixed_loss_fwd_plain,
+    "render_fwdgrad": rendering_loss_fwdgrad_plain,
+    "render_fwd": rendering_loss_fwd_plain,
+    "render_fwdgrad_both": rendering_loss_fwdgrad_both_plain,
+}
+
+
+def kernel_floats(name, pred_t, scenes9):
+    """The float arguments the wrapper of kernel `name` passes for a whole
+    image (no row offset) and the default l1_weight."""
+    if name.startswith("mixed"):
+        return _mixed_floats(pred_t, scenes9, 0, 0.1)
+    if name == "render_fwd":
+        return ()
+    return (1.0 / _rendering_count(pred_t, scenes9, 0),)
 
 
 def _dispatch(plain, cuda):

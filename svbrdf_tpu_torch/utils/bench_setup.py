@@ -44,6 +44,61 @@ def synthetic_raw_batch(batch: int, size: int, n_views: int = 0,
     }
 
 
+def loss_inputs(batch: int, size: int, n_scenes: int, seed: int = 0,
+                device="cuda") -> tuple:
+    """(pred planes, gt planes, packed scenes) at the loss kernels' shapes
+    on `device`: gt and pred decoded from two synthetic raw batches (pred
+    plays an untrained model's output), scenes from the loss sampler
+    (3 random, n_scenes - 3 specular per item)."""
+    from svbrdf_tpu_torch.data import pipeline
+    from svbrdf_tpu_torch.ops import render_fused, sampling
+
+    dev = resolve_device(device)
+
+    def planes(s):
+        raw = synthetic_raw_batch(batch, size, 0, s)["svbrdf"]
+        return losses.to_planes(pipeline._decode_u8_svbrdf(
+            torch.from_numpy(raw).to(dev)))
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scenes = sampling.generate_loss_scenes(batch, 3, n_scenes - 3,
+                                           generator=g, device=dev)
+    return planes(seed + 1), planes(seed), render_fused.pack_scenes(scenes)
+
+
+def kernel_ms(name: str, inputs, kernel=None, reps: int = 10,
+              runs: int = 20) -> float:
+    """Device time of one raw launch of loss kernel `name` on `inputs`
+    (loss_inputs on the card): the median over `runs` of `reps`
+    back-to-back launches between two CUDA events, divided by reps. A launch
+    queued before the start event keeps the card busy while the host queues
+    the rest, so the events time the kernels alone (no wrapper sum of the
+    partials, no host gaps). `kernel` is as for render_fused._launch."""
+    from svbrdf_tpu_torch.ops import render_fused as rf
+
+    pred_t, _, scenes9 = inputs
+    floats = rf.kernel_floats(name, pred_t, scenes9)
+
+    def launch():
+        rf._launch(name, *inputs, 0, 0, floats, kernel)
+
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        launch()
+        start.record()
+        for _ in range(reps):
+            launch()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return float(np.median(times))
+
+
 @dataclass
 class MainProgram:
     """A training program, ready to drive: train_step(raw), eval_step(raw),

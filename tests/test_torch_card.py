@@ -261,6 +261,25 @@ def test_rendering_fused_planes_autograd(cuda, want_target_grad):
     _assert_close(value, ref_loss, rtol=1e-5)
 
 
+@pytest.mark.parametrize("batch", [1, 3])
+def test_kernels_on_a_ragged_grid(cuda, batch):
+    """All five kernels against their plain versions on 250 x 243 planes,
+    one block per 256-pixel tile of each item: the image is not square and
+    H*W is no multiple of the block, so each item's last block is ragged
+    and masked. At B=3 the items past the first (grid row blockIdx.y) read,
+    write and index their partials at their own offsets. pred = gt gives
+    exactly 0."""
+    p, g, s9 = _case(cuda, 256, batch=batch, seed=9)
+    p = p[:, :, :250, :243].contiguous()
+    g = g[:, :, :250, :243].contiguous()
+    for name, plain in rf.PLAIN_VERSIONS.items():
+        _assert_matches_plain(rf.CUDA_WRAPPERS[name], plain, p, g, s9)
+        zero = rf.CUDA_WRAPPERS[name](g.clone(), g, s9)
+        zero = zero if isinstance(zero, tuple) else (zero,)
+        assert float(zero[0]) == 0.0
+        assert all(int(torch.count_nonzero(z)) == 0 for z in zero[1:])
+
+
 def test_multi_view_rendering_program_on_card(cuda):
     """A small multi-view rendering-loss program: train steps launch the
     rendering value+gradient kernel once each, the eval step the value-only

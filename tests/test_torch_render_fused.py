@@ -92,6 +92,27 @@ def test_plain_value_matches_float64(size, seed):
     np.testing.assert_allclose(float(value), ref, rtol=1e-6)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("kind", ["mixed", "rendering"])
+def test_plain_dpred_matches_float64(kind, seed):
+    """dpred of the f32 plain versions (one reciprocal per quantity, as the
+    kernels take them) against the same function in float64: normwise
+    ||d32 - d64|| / ||d64|| <= 2e-4. Both the rewritten formula and the
+    one with a division per quotient read 2.2e-5 to 7.3e-5 here; what is
+    left comes from log-differences within rounding of 0, whose sign
+    flips, and from the normals' gradients, which scale an ulp by up to
+    1 / denom^3."""
+    fn = {"mixed": rf.mixed_loss_fwdgrad_plain,
+          "rendering": rf.rendering_loss_fwdgrad_plain}[kind]
+    c = _case(32, seed=seed)
+    s9 = rf.pack_scenes(c["ts"])
+    p, g = torch.from_numpy(c["pred_t"]), torch.from_numpy(c["gt_t"])
+    _, d32 = fn(p.float(), g.float(), s9)
+    _, d64 = fn(p.double(), g.double(), s9.double())
+    err = float((d32.double() - d64).norm() / d64.norm())
+    assert err <= 2e-4, err
+
+
 @pytest.mark.parametrize("l1_weight", [0.1, 0.0, 1.0])
 def test_plain_matches_autograd_composition(l1_weight):
     """Both plain versions equal the port's losses.mixed_loss, and its
