@@ -24,7 +24,23 @@ Phases, each raising (and so exiting non-zero) on any failure:
   6. times: CUDA-event medians of each kernel launched alone, its wrapper,
      its plain version and each path's steps, each kernel's bound, and the
      blocks of each kernel that fit one SM (the occupancy query of the
-     library, beside the ptxas register and spill lines of phase 2).
+     library, beside the ptxas register and spill lines of phase 2);
+  7. the CLI, `svbrdf_tpu_torch.main.main([...])` in process at full width
+     on 101 maps-only 1024 x 256 strips (two strips' maps written with the
+     port's PNG writer, and symlinks; the 1 % split holds one out), each run
+     with the launch counters set to 0 just before and read just after:
+       - single view, mixed loss, 2 epochs (13 steps each, one validation
+         sample each), then resumed to 3 epochs, then test mode on
+         data/test: the counters equal the loop's train steps
+         (mixed_fwdgrad) and validation batches (mixed_fwd), the checkpoint
+         reloads into a fresh model that predicts the same bits, the logs,
+         grid and metrics.json read back;
+       - the same for 1 epoch with --device-data-cache;
+       - multi view (3 synthesized views), rendering loss, 1 epoch with
+         --device-data-cache and 2 without (render_fwdgrad, render_fwd);
+     and the loop's median ms per step against the build_program train
+     step of phase 5, the decode ms of one strip, the checkpoint's save ms
+     and size.
 The next-to-last line is the JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -32,10 +48,16 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -142,6 +164,20 @@ KERNEL_PATH = {"mixed_fwdgrad": ("single_mixed", STEPS),
                "render_fwdgrad": ("multi_rendering", STEPS),
                "render_fwd": ("multi_rendering", 1),
                "render_fwdgrad_both": (TARGET_GRAD_PATH, 1)}
+
+# The CLI phase: full width, 101 maps-only strips (100 train, 1 held out).
+CLI = {"size": 256, "depth": 8, "num_filters": 64, "batch": 8,
+       "samples": 101}
+REPO = pathlib.Path(__file__).resolve().parent
+# The keys of the JAX package's metrics.json (svbrdf_tpu/metrics.py).
+METRIC_KEYS = ("rmse_normals", "rmse_diffuse", "rmse_roughness",
+               "rmse_specular", "log_rmse_diffuse", "log_rmse_specular",
+               "ssim_normals", "ssim_diffuse", "ssim_roughness",
+               "ssim_specular", "rendering_rmse")
+# Printout lines of a CLI run worth echoing.
+CLI_ECHO = ("Training samples", "Validation samples", "Restored epoch",
+            "Training from", "validation loss", "steps:", "Test metrics",
+            "Device data cache")
 
 
 def log(msg: str) -> None:
@@ -476,6 +512,222 @@ def step_times(path: str, program) -> dict:
     return out
 
 
+def _cli_dataset(root: pathlib.Path) -> pathlib.Path:
+    """The four map tiles of each training strip as a 1024 x 256 strip,
+    written with the port's writer, and symlinks to them up to
+    CLI["samples"] files."""
+    from svbrdf_tpu_torch.data import png, strips
+
+    data = root / "maps"
+    data.mkdir()
+    for n, name in enumerate(("toy_train_00.png", "toy_train_01.png")):
+        strip = strips.read_image_u8(str(REPO / "data" / "train" / name))
+        png.write_png_rgb8(str(data / f"maps_{n}.png"), strip[:, 10 * 256:])
+    for n in range(2, CLI["samples"]):
+        (data / f"link_{n:03d}.png").symlink_to(data / f"maps_{n % 2}.png")
+    return data
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host wall time of fn() in ms."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def _cli(name: str, argv: list):
+    """main(argv) with every launch counter set to 0 just before and read
+    just after: (result, printout, counts)."""
+    from svbrdf_tpu_torch.main import main as cli_main
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    start = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = cli_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = _counts()
+    lines = [line for line in out.getvalue().splitlines()
+             if any(key in line for key in CLI_ECHO)]
+    log(f"cli {name} ({seconds:.1f} s): " + " | ".join(lines))
+    log(f"cli {name} launches {counts}")
+    return result, out.getvalue(), counts
+
+
+def _cli_train(name, argv, kernels, steps, validation_batches):
+    """A training run: its launches must be the loop's train steps
+    (kernels[0]) and validation batches (kernels[1]), 0 elsewhere."""
+    run, out, counts = _cli(name, argv)
+    if (run.steps, run.validation_batches) != (steps, validation_batches):
+        raise RuntimeError(f"cli {name}: {run.steps} steps and "
+                           f"{run.validation_batches} validation batches, "
+                           f"expected {steps} and {validation_batches}")
+    _expect(counts, {kernels[0]: run.steps,
+                     kernels[1]: run.validation_batches}, f"cli {name}")
+    if not math.isfinite(run.last_loss):
+        raise RuntimeError(f"cli {name}: last loss {run.last_loss}")
+    return run, out, counts
+
+
+def _adam_steps(model_dir: pathlib.Path) -> int:
+    blob = torch.load(model_dir / "checkpoint.tar", map_location="cpu",
+                      weights_only=True)
+    return int(blob["optimizer_state_dict"]["state"][0]["step"])
+
+
+def phase_cli(build_program_ms: dict) -> dict:
+    """The CLI runs of phase 7; returns their numbers and launches."""
+    from svbrdf_tpu_torch.data import strips
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.parallel.step import make_predict_fn
+    from svbrdf_tpu_torch.training.checkpoint import Checkpoint
+    from svbrdf_tpu_torch.training.tensorboard import read_scalars
+
+    per_epoch = math.ceil(math.ceil(CLI["samples"] * 0.99) / CLI["batch"])
+    width = ["--image-size", str(CLI["size"]), "--model-depth",
+             str(CLI["depth"]), "--num-filters", str(CLI["num_filters"]),
+             "--batch-size", str(CLI["batch"]), "--gpu-id", "0"]
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        data = _cli_dataset(root)
+        out["decode_ms"] = {
+            "repo strip 3584x256, Paeth rows": _host_ms(
+                lambda: strips.read_image_u8(
+                    str(REPO / "data" / "train" / "toy_train_00.png"))),
+            "written strip 1024x256, filter 0 rows": _host_ms(
+                lambda: strips.read_image_u8(str(data / "maps_0.png")))}
+        log(f"cli decode ms per strip (host, median of 5): "
+            f"{out['decode_ms']}")
+
+        def train(model_dir, *extra):
+            return (["--mode", "train", "--input-dir", str(data),
+                     "--image-count", "0", "--save-frequency", "1",
+                     "--validation-frequency", "1", "--model-dir",
+                     str(root / model_dir)] + width + list(extra))
+
+        single = ("mixed_fwdgrad", "mixed_fwd")
+        multi = ("render_fwdgrad", "render_fwd")
+        mixed = ["--used-image-count", "1", "--loss", "mixed"]
+        render = ["--model-type", "multi", "--used-image-count", "3",
+                  "--loss", "render"]
+        model_dir = root / "single"
+        runs = {}
+        runs["single_mixed"] = _cli_train(
+            "single_mixed", train("single", *mixed, "--epochs", "2",
+                                  "--retrain"),
+            single, 2 * per_epoch, 2)
+        first = runs["single_mixed"][0]
+        if _adam_steps(model_dir) != first.steps:
+            raise RuntimeError("cli: the checkpoint's Adam step is not the "
+                               "steps taken")
+        scalars = read_scalars(str(model_dir / "logs"))
+        losses = [v for _, v in scalars["loss"]]
+        if (len(losses) != first.steps or not all(map(math.isfinite, losses))
+                or len(scalars["val_loss"]) != 2):
+            raise RuntimeError(f"cli: logs hold {len(losses)} losses and "
+                               f"{len(scalars['val_loss'])} val_loss")
+        device = next(first.model.parameters()).device
+        fresh = build_model("single", False, CLI["depth"],
+                            CLI["num_filters"], device=device, seed=1)
+        with contextlib.redirect_stdout(io.StringIO()):
+            Checkpoint.load(model_dir).restore_params(fresh)
+        images = torch.rand(2, 1, CLI["size"], CLI["size"], 3,
+                            device=device)
+        if not torch.equal(make_predict_fn(fresh)(images),
+                           make_predict_fn(first.model)(images)):
+            raise RuntimeError("cli: the reloaded checkpoint predicts "
+                               "otherwise than the trained model")
+        log(f"cli single_mixed: checkpoint.tar reloads strictly, predict "
+            f"equal; Adam step {first.steps}; logs {len(losses)} finite "
+            f"losses, 2 val_loss")
+        ckpt_dir = root / "save_timing"
+        ckpt_ms = _host_ms(lambda: Checkpoint.save(
+            ckpt_dir, first.model, first.optimizer, 1, "single", False,
+            model_depth=CLI["depth"], num_filters=CLI["num_filters"]),
+            reps=3)
+        out["checkpoint"] = {
+            "save_ms": ckpt_ms,
+            "bytes": (ckpt_dir / "checkpoint.tar").stat().st_size}
+        shutil.rmtree(ckpt_dir)
+        log(f"cli checkpoint: save {ckpt_ms:.1f} ms (median of 3), "
+            f"{out['checkpoint']['bytes']} bytes")
+        del fresh
+
+        runs["single_mixed_resume"] = _cli_train(
+            "single_mixed_resume", train("single", *mixed, "--epochs", "3"),
+            single, 2 * per_epoch, 2)
+        resumed = runs["single_mixed_resume"][1]
+        if ("Restored epoch 1" not in resumed
+                or "Training from epoch 1 to 3" not in resumed):
+            raise RuntimeError("cli: the resumed run did not continue from "
+                               "epoch 1")
+        if _adam_steps(model_dir) != 4 * per_epoch:
+            raise RuntimeError("cli: after the resume the Adam step is not "
+                               "the steps taken in both runs")
+        written, _, counts = _cli("single_mixed_test", [
+            "--mode", "test", "--input-dir", str(REPO / "data" / "test"),
+            "--image-count", "10", "--model-dir", str(model_dir)] + width)
+        _expect(counts, {}, "cli single_mixed_test")
+        grid = strips.read_image_u8(written[0])
+        summary = json.loads((model_dir / "test_outputs" /
+                              "metrics.json").read_text())
+        bad = [k for k in METRIC_KEYS
+               if not math.isfinite(summary["mean"].get(k, math.nan))]
+        if grid.shape != (2 * CLI["size"], 5 * CLI["size"], 3) or bad:
+            raise RuntimeError(f"cli test: grid {grid.shape}, metrics "
+                               f"missing or not finite: {bad}")
+        log(f"cli single_mixed_test: grid {grid.shape}, metrics.json "
+            f"{summary['mean']}")
+        runs["single_mixed_test"] = (None, None, counts)
+
+        for name, kind, args in (
+                ("single_mixed_cache", single, mixed + [
+                    "--device-data-cache"]),
+                ("multi_rendering_cache", multi, render + [
+                    "--device-data-cache"]),
+                ("multi_rendering", multi, render)):
+            # The host path runs 2 epochs: the first decodes the strips.
+            epochs = 1 if "--device-data-cache" in args else 2
+            runs[name] = _cli_train(
+                name, train(name, *args, "--epochs", str(epochs),
+                            "--retrain"),
+                kind, epochs * per_epoch, epochs)
+            shutil.rmtree(root / name)  # a checkpoint is ~1 GB at full width
+
+    for name, (run, _, counts) in runs.items():
+        entry = {"launches": counts}
+        if run is not None:
+            path = "single_mixed" if name.startswith("single") else \
+                "multi_rendering"
+            base = build_program_ms[path]["train_step"]
+            # Every step is timed (--log-every 1); the first is the
+            # timer's warm-up. An epoch's first pass over the strips
+            # decodes them, later epochs read the dataset's caches.
+            times = run.timer.steady_times() * 1e3
+            epochs = [times[max(0, e * per_epoch - 1):(e + 1) * per_epoch - 1]
+                      for e in range(run.steps // per_epoch)]
+            epoch_ms = [statistics.median(t) for t in epochs]
+            entry.update(steps=run.steps,
+                         validation_batches=run.validation_batches,
+                         step_ms_median=run.timer.median_ms(),
+                         step_ms_mean=run.timer.mean_ms(),
+                         epoch_step_ms_medians=epoch_ms,
+                         build_program_train_step_ms=base)
+            log(f"cli {name}: {run.timer.summary()}; median per epoch "
+                + ", ".join(f"{t:.2f}" for t in epoch_ms)
+                + f" ms; build_program train step {base:.2f} ms, CLI / "
+                f"build_program " + ", ".join(f"{t / base:.3f}"
+                                              for t in epoch_ms))
+        out["runs"][name] = entry
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it "
@@ -502,6 +754,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     counts[TARGET_GRAD_PATH] = phase_target_grad(inputs)
     times = kernel_times(inputs, rates)
+    cli = phase_cli(steps_ms)
     kernels = []
     for k in KERNELS:
         path, calls = KERNEL_PATH[k]
@@ -516,9 +769,12 @@ def main() -> None:
             bound_us=times[k]["bound_ms"] * 1e3,
             bound_by=times[k]["bound_by"],
             bound_parts_us=times[k]["bound_parts_us"],
-            blocks_per_sm=times[k]["blocks_per_sm"], library_ms=None))
+            blocks_per_sm=times[k]["blocks_per_sm"], library_ms=None,
+            cli_launches={run: c["launches"][k]
+                          for run, c in cli["runs"].items()}))
     log(f"total {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": kernels, "steps_ms": steps_ms}))
+    print(json.dumps({"kernels": kernels, "steps_ms": steps_ms,
+                      "cli": cli}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,177 @@
+"""Command-line interface of the port.
+
+Counterpart of svbrdf_tpu/cli.py: the same flags, names, defaults and
+choices, and the same cross-flag checks. Flags that only pick a TPU
+mechanism are accepted and have no effect here (their help says so). Flags
+whose feature is not ported yet raise NotImplementedError naming the
+ROADMAP item that ports it; none is quietly replaced by something else.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+# Unported features: (flag, predicate on its value, ROADMAP Queue 1 item).
+_NOT_PORTED = (
+    ("--dtype bfloat16", lambda a: a.dtype == "bfloat16",
+     "13 (bf16 compute and SR optimizer)"),
+    ("--master-dtype bf16sr", lambda a: a.master_dtype == "bf16sr",
+     "13 (bf16 compute and SR optimizer)"),
+    ("--renderer pathtracing", lambda a: a.renderer == "pathtracing",
+     "12 (path tracer)"),
+    ("--num-devices > 1", lambda a: a.num_devices > 1,
+     "14 (multi-GPU data parallel)"),
+    ("--shard-spatial > 0", lambda a: a.shard_spatial > 0,
+     "15 (spatial H-sharding)"),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="SVBRDF estimation from images (PyTorch / CUDA port)")
+
+    p.add_argument("--mode", "-M", dest="mode", required=True,
+                   choices=["train", "test"],
+                   help="Mode in which the program is executed.")
+    p.add_argument("--renderer", "-R", dest="renderer",
+                   choices=["local", "pathtracing"], default="local",
+                   help="Renderer used by the rendering loss "
+                        "('pathtracing' is not ported yet).")
+    p.add_argument("--input-dir", "-i", dest="input_dir", required=True,
+                   help="Directory containing the input data.")
+    p.add_argument("--image-count", "-c", dest="image_count", required=True,
+                   type=int,
+                   help="Number of photographs per sample strip in the "
+                        "dataset.")
+    p.add_argument("--linear-input", dest="linear_input",
+                   action="store_true", default=False,
+                   help="Input images are already linear RGB.")
+    p.add_argument("--no-svbrdf-input", dest="no_svbrdf_input",
+                   action="store_true", default=False,
+                   help="Samples contain no SVBRDF maps (photos only).")
+    p.add_argument("--used-image-count", "-u", dest="used_image_count",
+                   type=int, default=1,
+                   help="Number of input images fed to the model; missing "
+                        "ones are synthesized on the device.")
+    p.add_argument("--image-size", "-s", dest="image_size", type=int,
+                   default=256,
+                   help="Model input/output resolution.")
+    p.add_argument("--scale-mode", dest="scale_mode",
+                   choices=["crop", "resize"], default="crop",
+                   help="How larger samples are fit to --image-size.")
+    p.add_argument("--use-coords", dest="use_coords", action="store_true",
+                   default=False,
+                   help="Append x/y coordinate channels to the input.")
+    p.add_argument("--omit-optimizer-state-save",
+                   dest="omit_optimizer_state_save", action="store_true",
+                   default=False,
+                   help="Smaller checkpoints; resume quality suffers.")
+    p.add_argument("--model-dir", "-m", dest="model_dir", required=True,
+                   help="Directory for checkpoints and logs.")
+    p.add_argument("--model-type", dest="model_type",
+                   choices=["single", "multi"], default="single",
+                   help="Single-view or multi-view model.")
+    p.add_argument("--gpu-id", "-g", dest="gpu_id", type=int, default=0,
+                   help="CUDA device index (cuda:N); < 0 runs on the CPU.")
+    p.add_argument("--save-frequency", dest="save_frequency", type=int,
+                   choices=range(1, 1000), default=50, metavar="[1-999]",
+                   help="Epochs between checkpoints.")
+    p.add_argument("--validation-frequency", dest="validation_frequency",
+                   type=int, choices=range(1, 1000), default=25,
+                   metavar="[1-999]",
+                   help="Epochs between validation passes.")
+    p.add_argument("--epochs", "-e", dest="epochs", type=int, default=100,
+                   help="Train up to this epoch.")
+    p.add_argument("--retrain", dest="retrain", action="store_true",
+                   default=False,
+                   help="Ignore any checkpoint in the model directory.")
+
+    p.add_argument("--loss", dest="loss", choices=["mixed", "l1", "render"],
+                   default="mixed", help="Training objective.")
+    p.add_argument("--fused-loss", dest="fused_loss",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   help="No effect in the port: on the card the mixed and "
+                        "rendering losses always run through its CUDA "
+                        "kernels (their plain versions on the CPU).")
+    p.add_argument("--batch-size", dest="batch_size", type=int, default=8,
+                   help="Batch size.")
+    p.add_argument("--learning-rate", dest="learning_rate", type=float,
+                   default=1e-5, help="Adam learning rate.")
+    p.add_argument("--dtype", dest="dtype",
+                   choices=["auto", "float32", "bfloat16"], default="auto",
+                   help="Model compute dtype. 'auto' = float32; 'bfloat16' "
+                        "is not ported yet.")
+    p.add_argument("--master-dtype", dest="master_dtype",
+                   choices=["auto", "f32", "bf16sr"], default="auto",
+                   help="Master-parameter storage policy: the port keeps "
+                        "f32 masters ('auto' and 'f32'); 'bf16sr' is not "
+                        "ported yet.")
+    p.add_argument("--upconv", dest="upconv",
+                   choices=["auto", "dilated", "fold", "naive"],
+                   default="auto",
+                   help="No effect in the port: the JAX package's decoder "
+                        "rewrites are TPU layouts of one computation, which "
+                        "the port runs as upsample + pad + conv.")
+    p.add_argument("--num-devices", dest="num_devices", type=int, default=0,
+                   help="Devices to train on (0 = one); more than one is "
+                        "not ported yet.")
+    p.add_argument("--shard-spatial", dest="shard_spatial", type=int,
+                   default=0,
+                   help="Shard the image height over N devices; not ported "
+                        "yet (0 = off).")
+    p.add_argument("--device-data-cache", dest="device_data_cache",
+                   action="store_true", default=False,
+                   help="Decode the whole dataset once and keep it on the "
+                        "device as uint8; every training batch is a gather "
+                        "there (no per-step host assembly or copy). For "
+                        "corpora that fit device memory. Requires "
+                        "scale-mode=crop.")
+    p.add_argument("--model-depth", dest="model_depth", type=int, default=8,
+                   help="U-Net depth (8 = reference architecture; inputs "
+                        "must be at least 2^depth pixels).")
+    p.add_argument("--num-filters", dest="num_filters", type=int, default=64,
+                   help="Base filter count ('ngf'); 64 = reference.")
+    p.add_argument("--steps-per-call", dest="steps_per_call", type=int,
+                   default=0,
+                   help="No effect in the port beyond its check: the JAX "
+                        "package runs N steps per TPU dispatch with losses "
+                        "identical to 1; the port dispatches each step. "
+                        "N > 1 requires --device-data-cache.")
+    p.add_argument("--log-every", dest="log_every", type=int, default=1,
+                   help="Fetch and log the training loss every N steps. "
+                        "Each fetch waits for the device; the NaN guard "
+                        "checks the fetched losses.")
+    p.add_argument("--seed", dest="seed", type=int, default=313,
+                   help="Base seed of the weights, the host RNG and the "
+                        "per-step random streams.")
+    p.add_argument("--profile-dir", dest="profile_dir", default=None,
+                   help="If set, write a torch.profiler Chrome trace of "
+                        "training steps 2-4 here (trace.json).")
+    p.add_argument("--import-torch-checkpoint",
+                   dest="import_torch_checkpoint", default=None,
+                   help="Path to a PyTorch reference checkpoint "
+                        "(checkpoint.tar, legacy model.data, or a "
+                        "directory holding one) to start from instead of "
+                        "--model-dir's.")
+    p.add_argument("--export-torch-checkpoint",
+                   dest="export_torch_checkpoint", default=None,
+                   help="Write the restored model as a PyTorch reference "
+                        "checkpoint.tar at this path (test mode).")
+    return p
+
+
+def parse_args(argv=None):
+    args = build_parser().parse_args(argv)
+
+    if args.no_svbrdf_input:
+        if args.mode == "train":
+            raise RuntimeError(
+                "Cannot train on samples without SVBRDF maps.")
+        if args.image_count == 0:
+            raise RuntimeError(
+                "No SVBRDF and no image input. What are we supposed to do?")
+    for flag, given, item in _NOT_PORTED:
+        if given(args):
+            raise NotImplementedError(
+                f"{flag} is not ported yet: ROADMAP Queue 1 item {item}")
+    return args

@@ -4,7 +4,9 @@ gamma.
 Counterpart of svbrdf_tpu/data/pipeline.py (spatial target only). Every
 random draw comes from the `generator` argument, on the batch's device, and
 each can instead be passed in (alphas, input scenes, noise std, noise) so
-that tests can give both frameworks the same numbers.
+that tests can give both frameworks the same numbers. The scaling functions
+at the end (center crop, bilinear resize, scale_sample) fit samples to the
+model's size on the host, for the dataset's float path.
 """
 
 from __future__ import annotations
@@ -165,3 +167,37 @@ def prepare_batch(raw_inputs: torch.Tensor, raw_svbrdfs: torch.Tensor,
         raw_inputs, raw_svbrdfs, used_input_image_count, use_augmentation,
         is_linear, generator=generator, **draws)
     return {"inputs": inputs, "svbrdf": svbrdfs}
+
+
+def center_crop_to_square(images: torch.Tensor) -> torch.Tensor:
+    """Center crop of (..., H, W, C) to the short side."""
+    h, w = images.shape[-3], images.shape[-2]
+    side = min(h, w)
+    r0 = (h - side) // 2
+    c0 = (w - side) // 2
+    return images[..., r0:r0 + side, c0:c0 + side, :]
+
+
+def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
+    """Bilinear resize of (..., H, W, C) to size x size: half-pixel
+    centres, edge-replicated, no antialiasing on downsampling (the JAX
+    package's separable _resize_axis_bilinear computes the same)."""
+    lead, (h, w, c) = images.shape[:-3], images.shape[-3:]
+    nchw = images.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    out = torch.nn.functional.interpolate(
+        nchw, size=(size, size), mode="bilinear", align_corners=False,
+        antialias=False)
+    return out.permute(0, 2, 3, 1).reshape(*lead, size, size, c)
+
+
+def scale_sample(images: torch.Tensor, svbrdf: torch.Tensor, image_size: int,
+                 scale_mode: str, crop_anchor=(0, 0)):
+    """Fit a sample to image_size by 'crop' (the window at crop_anchor) or
+    'resize' (center crop to square, then bilinear down)."""
+    if scale_mode == "resize":
+        return (resize_bilinear(center_crop_to_square(images), image_size),
+                resize_bilinear(center_crop_to_square(svbrdf), image_size))
+    if scale_mode == "crop":
+        return (codecs.crop_square(images, crop_anchor, image_size),
+                codecs.crop_square(svbrdf, crop_anchor, image_size))
+    raise ValueError(f"unknown scale mode '{scale_mode}'")

@@ -1,0 +1,157 @@
+"""Checkpoint persistence with the reference's restore semantics and its
+on-disk format.
+
+Counterpart of svbrdf_tpu/training/checkpoint.py. One file,
+<model_dir>/checkpoint.tar, written with torch.save: the PyTorch reference's
+dict {model_type, use_coords, epoch, model_state_dict[,
+optimizer_state_dict]} plus model_depth and num_filters. The model's
+state_dict keys are the reference's, so the JAX package's Checkpoint.load
+picks the file up from a model directory and ports the weights. The
+restored architecture arguments override the CLI; loading is optional (a
+missing checkpoint is an error only in test mode). A legacy bare
+`model.data` state dict, with an optional `state.json` holding the epoch,
+is read too.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+from typing import Any, Dict, Optional
+
+import torch
+
+CHECKPOINT_FILE = "checkpoint.tar"
+LEGACY_FILE = "model.data"
+_META_KEYS = ("model_type", "use_coords", "epoch", "model_depth",
+              "num_filters", "master_dtype", "upconv")
+
+
+class Checkpoint:
+    """An in-memory view of a loaded checkpoint (or an invalid one)."""
+
+    def __init__(self, model_state: Optional[Dict] = None,
+                 meta: Optional[Dict] = None,
+                 optimizer_state: Optional[Dict] = None):
+        self._model_state = model_state
+        self._meta = meta or {}
+        self._optimizer_state = optimizer_state
+
+    # -- loading --------------------------------------------------------
+    @classmethod
+    def load(cls, path) -> "Checkpoint":
+        """Load from a model directory (its checkpoint.tar, else a legacy
+        model.data) or from a checkpoint file; an invalid Checkpoint when
+        there is none. A directory holding only the JAX package's Orbax
+        state raises: export it with the JAX CLI first."""
+        p = pathlib.Path(path)
+        if p.is_dir():
+            if (p / CHECKPOINT_FILE).exists():
+                p = p / CHECKPOINT_FILE
+            elif (p / LEGACY_FILE).exists():
+                p = p / LEGACY_FILE
+            elif (p / "state").exists():
+                raise ValueError(
+                    f"'{path}' holds a JAX (Orbax) checkpoint, which the "
+                    f"port does not read; write it as a checkpoint.tar with "
+                    f"the JAX CLI: python -m svbrdf_tpu.main --mode test "
+                    f"--model-dir {path} --export-torch-checkpoint "
+                    f"{p / CHECKPOINT_FILE} ...")
+            else:
+                print(f"No checkpoint found in directory '{path}'")
+                return cls(None)
+        elif not p.exists():
+            print(f"No checkpoint found at '{path}'")
+            return cls(None)
+
+        blob = torch.load(p, map_location="cpu", weights_only=True)
+        meta: Dict[str, Any] = {}
+        if isinstance(blob, dict) and "model_state_dict" in blob:
+            meta = {k: blob[k] for k in _META_KEYS if k in blob}
+            model_state = blob["model_state_dict"]
+            optimizer_state = blob.get("optimizer_state_dict")
+        else:  # legacy: the file is the state dict
+            model_state, optimizer_state = blob, None
+            sidecar = p.parent / "state.json"
+            if sidecar.exists():
+                meta["epoch"] = json.loads(sidecar.read_text())["epoch"]
+                print("Loaded legacy training state")
+            print("Loaded legacy model state")
+        print(f"Loaded checkpoint '{p}'")
+        return cls(model_state, meta, optimizer_state)
+
+    # -- saving ---------------------------------------------------------
+    @staticmethod
+    def save(model_dir, model, optimizer, epoch: int, model_type: str,
+             use_coords: bool, omit_optimizer_state: bool = False,
+             model_depth: int = 8, num_filters: int = 64) -> pathlib.Path:
+        """Write <model_dir>/checkpoint.tar; returns its path."""
+        d = pathlib.Path(model_dir)
+        d.mkdir(parents=True, exist_ok=True)
+        blob = {"model_type": model_type, "use_coords": bool(use_coords),
+                "epoch": int(epoch),
+                "model_state_dict": model.state_dict()}
+        if not omit_optimizer_state and optimizer is not None:
+            blob["optimizer_state_dict"] = optimizer.state_dict()
+        blob["model_depth"] = int(model_depth)
+        blob["num_filters"] = int(num_filters)
+        path = d / CHECKPOINT_FILE
+        # Written beside and renamed, so a run killed mid-save keeps the
+        # previous checkpoint.
+        tmp = path.with_suffix(".tar.tmp")
+        torch.save(blob, tmp)
+        tmp.replace(path)
+        return path
+
+    # -- queries / selective restore ------------------------------------
+    def is_valid(self) -> bool:
+        return self._model_state is not None
+
+    def purge(self) -> None:
+        """Drop the in-memory state."""
+        self._model_state = None
+        self._optimizer_state = None
+
+    def restore_args(self, args):
+        """Architecture arguments in the checkpoint override the CLI."""
+        if "model_type" in self._meta:
+            args.model_type = self._meta["model_type"]
+            print(f"Restored model type '{args.model_type}'")
+        if "use_coords" in self._meta:
+            args.use_coords = self._meta["use_coords"]
+            print(f"Restored use coords flag '{args.use_coords}'")
+        for extra in ("model_depth", "num_filters"):
+            if extra in self._meta:
+                setattr(args, extra, self._meta[extra])
+        # Recorded by the JAX package; they pick TPU mechanisms and change
+        # nothing in the port, but fill in a CLI value left at 'auto' as
+        # there.
+        for knob in ("master_dtype", "upconv"):
+            if (knob in self._meta
+                    and getattr(args, knob, "auto") in ("auto", None)):
+                setattr(args, knob, self._meta[knob])
+                print(f"Restored {knob} '{self._meta[knob]}'")
+        return args
+
+    def restore_params(self, model) -> None:
+        """Load the stored weights into `model`, strictly."""
+        if self._model_state is None:
+            print("Failed to restore model state")
+            return
+        model.load_state_dict(self._model_state, strict=True)
+        print("Restored model state")
+
+    def restore_opt_state(self, optimizer) -> None:
+        """Load the stored Adam state into `optimizer` when there is one."""
+        if self._optimizer_state is None:
+            print("Failed to restore optimizer state")
+            return
+        optimizer.load_state_dict(self._optimizer_state)
+        print("Restored optimizer state")
+
+    def restore_epoch(self, epoch: int) -> int:
+        if "epoch" in self._meta:
+            print(f"Restored epoch {self._meta['epoch']}")
+            return int(self._meta["epoch"])
+        print("Failed to restore epoch")
+        return epoch

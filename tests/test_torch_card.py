@@ -296,3 +296,59 @@ def test_multi_view_rendering_program_on_card(cuda):
         "mixed_fwdgrad": 0, "mixed_fwd": 0, "render_fwdgrad": 2,
         "render_fwd": 1, "render_fwdgrad_both": 0}
     assert out.shape == (2, 32, 32, 12) and bool(torch.isfinite(out).all())
+
+
+def test_cli_trains_resumes_and_tests_on_the_card(cuda, tmp_path):
+    """The CLI at depth 5, 32^2, 8 filters on cuda:0: each train step
+    launches the mixed value+gradient kernel once and nothing else runs a
+    loss kernel (no validation split with 2 samples); resume continues from
+    the saved epoch; test mode writes a grid and metrics.json. The
+    checkpoint written on the card, loaded on the CPU, predicts within 1e-4
+    of the card."""
+    import contextlib
+    import io
+    import json
+    import pathlib
+
+    from svbrdf_tpu_torch.main import main
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.parallel.step import make_predict_fn
+    from svbrdf_tpu_torch.training.checkpoint import Checkpoint
+
+    data = pathlib.Path(__file__).resolve().parents[1] / "data"
+    common = ["--image-count", "10", "--image-size", "32", "--model-depth",
+              "5", "--num-filters", "8", "--batch-size", "2",
+              "--model-dir", str(tmp_path / "m"), "--gpu-id", "0"]
+    train = ["--mode", "train", "--input-dir", str(data / "train"),
+             "--save-frequency", "1", "--validation-frequency", "1"] + common
+    runs = []
+    for extra in (["--epochs", "2", "--retrain"], ["--epochs", "3"]):
+        for fn in rf.CUDA_WRAPPERS.values():
+            fn.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            run = main(train + extra)
+        torch.cuda.synchronize()
+        assert {k: fn.launches for k, fn in rf.CUDA_WRAPPERS.items()} == {
+            "mixed_fwdgrad": run.steps, "mixed_fwd": 0, "render_fwdgrad": 0,
+            "render_fwd": 0, "render_fwdgrad_both": 0}
+        assert run.steps == 2 and math.isfinite(run.last_loss)
+        runs.append((run, out.getvalue()))
+    assert "Restored epoch 1" in runs[1][1]
+    with contextlib.redirect_stdout(io.StringIO()):
+        written = main(["--mode", "test", "--input-dir", str(data / "test")]
+                       + common)
+    summary = json.loads((tmp_path / "m" / "test_outputs" /
+                          "metrics.json").read_text())
+    assert len(written) == 1
+    assert all(math.isfinite(v) for v in summary["mean"].values())
+
+    model = runs[1][0].model
+    cpu_model = build_model("single", False, 5, 8, device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        Checkpoint.load(tmp_path / "m").restore_params(cpu_model)
+    images = torch.rand(2, 1, 32, 32, 3,
+                        generator=torch.Generator().manual_seed(0))
+    on_card = make_predict_fn(model)(images.to(cuda)).cpu()
+    on_cpu = make_predict_fn(cpu_model)(images)
+    torch.testing.assert_close(on_cpu, on_card, rtol=0, atol=1e-4)

@@ -11,6 +11,7 @@ import sys
 import pytest
 import torch
 
+from svbrdf_tpu_torch import main as main_mod
 from svbrdf_tpu_torch.device import resolve_device
 from svbrdf_tpu_torch.models import MultiViewModel, SingleViewModel
 from svbrdf_tpu_torch.ops import _build
@@ -56,6 +57,8 @@ def _needs_no_card():
     lambda: bench_setup.build_main_program(2, 32, 5, 8),
     lambda: MultiViewModel(8, 5),
     lambda: bench_setup.build_program("multi", "rendering", 2, 32, 5, 8),
+    lambda: main_mod.main(["--mode", "train", "--input-dir", "data/train",
+                           "--image-count", "10", "--model-dir", "unused"]),
 ])
 def test_entry_points_raise_without_a_card(entry):
     _needs_no_card()
