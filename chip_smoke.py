@@ -9,8 +9,11 @@ Phases, each raising (and so exiting non-zero) on any failure:
      source, all started together;
   3. kernels: each of the five loss kernels held against its plain torch
      version at the paths' shapes (B=8, 12 x 256 x 256 f32 planes, S=9
-     scenes), and checked to give a loss and gradients of exactly 0 for pred
-     equal to gt;
+     scenes) on two input sets, pred far from gt (bench_setup.loss_inputs)
+     and pred near gt (loss_inputs_near: where validation runs once a model
+     trains), each loss also against the plain version in float64; and
+     checked to give a loss and gradients of exactly 0 for pred equal to
+     gt;
   4. agreement: a small single-view mixed-loss model and a small multi-view
      rendering-loss model: train step, eval loss and prediction on the card
      against the same program on the CPU;
@@ -39,8 +42,8 @@ Phases, each raising (and so exiting non-zero) on any failure:
        - multi view (3 synthesized views), rendering loss, 1 epoch with
          --device-data-cache and 2 without (render_fwdgrad, render_fwd);
      and the loop's median ms per step against the build_program train
-     step of phase 5, the decode ms of one strip, the checkpoint's save ms
-     and size.
+     step of phase 5, each epoch's validation pass ms, the decode ms of one
+     strip, the checkpoint's save ms and size.
 The next-to-last line is the JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -62,43 +65,57 @@ import time
 
 import torch
 
-# The least operations per pixel that the mixed-loss function needs, from
-# the math of svbrdf_tpu_torch/csrc/mixed_loss.cu. Each value is counted
-# once: terms that do not depend on the colour channel once per side, terms
-# that do not depend on the side once per scene. Each quotient is a multiply
-# by a reciprocal, taken once per quantity (1/VN, 1/LN, 1/NH^2, 1/d^2,
-# 1/denom, 1/(1 + sqrt(.)), 1/(r_p + 0.1), 1/(x + 0.01)), its powers being
-# products; a square root and its reciprocal come from one rsqrt and a
-# multiply. log, sqrt, rsqrt and reciprocal count as one special-function
-# operation (SFU) each; add, sub, mul, max and compare-select as one FP32
-# operation; abs and negation are free operand modifiers.
-#   per scene, both kernels: geometry (v, l, h, (1 - VH)^5, 1/d^2) 44 FP /
-#     4 SFU; two sides (dots, clamps, scale, the three tan^2 terms,
-#     1/(4 VN LN)) 68 / 6; six channel shades (D, two G1, F, radiance)
-#     186 / 30; three log-differences 12 / 6 -> 310 FP, 46 SFU;
-#   per scene, fwdgrad adds the pred side's VJP: 3 channels x 72 FP / 1 SFU
-#     and 32 FP for the normal's chain -> 558 FP, 49 SFU in all;
-#   per pixel once: coordinates, the L1 value, the scaling and the block sum
-#     46 FP / 12 SFU; with the L1 gradient and dpred's scaling 112 / 18.
-# The rendering-only kernels (csrc/rendering_loss.cu) do the same per-scene
-# work without the L1 term: fwd 310 / 46 and fwdgrad 558 / 49 per scene;
-# fwdgrad_both adds the gt side's VJP, counted as the pred side's (3 x 72 /
-# 1 and 32 for the normal): 806 / 52. Per pixel once: coordinates and the
-# block sum 7 FP, and one multiply by 1/count per gradient value written
-# (12 for fwdgrad, 24 for both); the division of the partials' sum by count
-# is one operation per call.
+# The least operations per pixel that each kernel's function needs. Each
+# value is counted once: terms that do not depend on the colour channel
+# once per side, terms that do not depend on the side once per scene, terms
+# that do not depend on the scene once per pixel, terms of the scene alone
+# (z^2, colour / pi) not per pixel. log, sqrt, rsqrt and reciprocal count
+# as one special-function operation (SFU) each; add, sub, mul, max and
+# compare-select as one FP32 operation, a fused multiply-add as two; abs
+# and negation are free operand modifiers. All five on the algebra of
+# csrc/value_shading.cuh, which needs the fewest (shading.cuh's, which the
+# gradient kernels run to be bit-exact, takes 310 FP32 / 46 SFU per scene
+# for the value alone):
+#   value, per scene: geometry (v, l, h, w = 1 - (1 - VH)^5, 1/d^2 =
+#     (1/d)^2) 41 FP / 3 SFU; two sides (dots, clamps, NH^2, VN^2, LN^2 and
+#     their complements, scale) 52 / 0; six channel shades (denom, two
+#     sv = sqrt(VN^2 + a (1 - VN^2)) from one rsqrt each, one reciprocal R
+#     of P = denom^2 (VN + sv) (LN + sl), spec = a R, 1 - F, radiance + 0.1)
+#     132 / 18; three |log(r_p / r_t)| 6 / 6 -> 231 FP, 27 SFU;
+#   the pred side's VJP, per scene: 1/r_p for u = sign / r_p and the ratio
+#     both from one reciprocal of r_p r_t (3 FP a channel more than the
+#     quotient, no SFU more); per channel u, t = u * colour_scale, F, the
+#     albedo and 1 - spec terms, d/d spec = t F, then d/dP = -(t F spec) R
+#     taken apart by the products already formed (d/d denom = 2 d/dP
+#     denom (VN + sv) (LN + sl), d/d(VN + sv) = d/dP denom^2 (LN + sl), and
+#     for l), d/d sv^2 from sv's rsqrt, the denominator's clamp, and the
+#     sums over channels of d/da, d/dNH^2, d/dVN, d/dLN and d/d scale: 42
+#     FP, no SFU; the normal's chain (NH, VN and LN through their squares
+#     and clamps, scale's, and three 3-vectors into d/dn) 32 FP -> 158 FP;
+#     so fwdgrad 231 + 9 + 158 = 398 FP / 27 SFU, and fwdgrad_both with the
+#     gt side's VJP (1/r_t from the same reciprocal) 556 / 27;
+#   per pixel once: a = max(rough, eps)^4 and 1 - spec of both sides 24 FP,
+#     coordinates and the block sum 7; for the mixed loss the L1 term (one
+#     log of each log-space ratio) and the scaling 39 FP / 12 SFU; with a
+#     gradient, d/d roughness from d/da per channel (12 FP a side), a - 1
+#     (3 a side), the L1 gradient (1/(p + 0.01) from the ratio's
+#     reciprocal: 4 FP a channel more, no SFU) and dpred's scaling (mixed
+#     fwdgrad 175 FP / 12 SFU), or one multiply by 1/count per gradient
+#     value written (rendering fwdgrad 58, both 85); the division of the
+#     partials' sum by count is one operation per call.
 # The FP32 peak counts a fused multiply-add as two operations, so the FP32
-# time assumes every add pairs with a multiply. The kernels are built with
-# -fmad=false and issue each add and multiply alone, at half that rate:
-# `fp32_nofma_us` in the bound's parts is the built kernels' own FP32 floor.
-FP32_PER_SCENE = {"mixed_fwdgrad": 558, "mixed_fwd": 310,
-                  "render_fwdgrad": 558, "render_fwd": 310,
-                  "render_fwdgrad_both": 806}
-SFU_PER_SCENE = {"mixed_fwdgrad": 49, "mixed_fwd": 46, "render_fwdgrad": 49,
-                 "render_fwd": 46, "render_fwdgrad_both": 52}
-FP32_PER_PIXEL = {"mixed_fwdgrad": 112, "mixed_fwd": 46, "render_fwdgrad": 19,
-                  "render_fwd": 7, "render_fwdgrad_both": 31}
-SFU_PER_PIXEL = {"mixed_fwdgrad": 18, "mixed_fwd": 12, "render_fwdgrad": 0,
+# time assumes every add pairs with a multiply. The gradient kernels are
+# built with -fmad=false and issue each add and multiply alone, at half
+# that rate: `fp32_nofma_us` in the bound's parts is that floor for their
+# counts.
+FP32_PER_SCENE = {"mixed_fwdgrad": 398, "mixed_fwd": 231,
+                  "render_fwdgrad": 398, "render_fwd": 231,
+                  "render_fwdgrad_both": 556}
+SFU_PER_SCENE = {"mixed_fwdgrad": 27, "mixed_fwd": 27, "render_fwdgrad": 27,
+                 "render_fwd": 27, "render_fwdgrad_both": 27}
+FP32_PER_PIXEL = {"mixed_fwdgrad": 175, "mixed_fwd": 70, "render_fwdgrad": 58,
+                  "render_fwd": 31, "render_fwdgrad_both": 85}
+SFU_PER_PIXEL = {"mixed_fwdgrad": 12, "mixed_fwd": 12, "render_fwdgrad": 0,
                  "render_fwd": 0, "render_fwdgrad_both": 0}
 # Floats each kernel must move per pixel: pred and gt in, gradients out.
 FLOATS_PER_PIXEL = {"mixed_fwdgrad": 36, "mixed_fwd": 24,
@@ -262,64 +279,90 @@ def _outputs(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
 
 
-def phase_kernels(inputs) -> dict:
-    """Each kernel against its plain version on the same inputs: loss rel
-    <= 1e-5, every gradient's max abs error <= 1e-6 * its max |value|, and
+def _loss64(name: str, inputs) -> float:
+    """The loss of kernel `name`'s function on `inputs` in float64 (its
+    value-only plain version, whose sum every kernel of the loss shares)."""
+    from svbrdf_tpu_torch.ops import render_fused as rf
+
+    plain = (rf.mixed_loss_fwd_plain if name.startswith("mixed")
+             else rf.rendering_loss_fwd_plain)
+    return float(plain(*(t.double() for t in inputs)))
+
+
+def phase_kernels(input_sets: dict) -> dict:
+    """Each kernel against its plain version on each input set (pred far
+    from gt; pred near gt, as near convergence): loss rel <= 1e-5, every
+    gradient's max abs error <= 1e-6 * its max |value|; the kernel's and the
+    f32 plain version's loss against the plain version in float64; and
     exactly 0 for pred equal to gt."""
     from svbrdf_tpu_torch.ops import render_fused as rf
 
-    pred_t, gt_t, scenes9 = inputs
-    errors = {}
-    for name, plain in rf.PLAIN_VERSIONS.items():
-        out = _outputs(rf.CUDA_WRAPPERS[name](*inputs))
-        torch.cuda.synchronize()
-        ref = _outputs(plain(*inputs))
-        torch.cuda.synchronize()
-        loss, ref_loss = float(out[0]), float(ref[0])
-        rel = abs(loss - ref_loss) / abs(ref_loss)
-        grad_errs, parts = [], []
-        for i, (g, g_ref) in enumerate(zip(out[1:], ref[1:])):
-            if not torch.isfinite(g).all():
-                raise RuntimeError(f"{name} produced non-finite gradient {i}")
-            err = float((g - g_ref).abs().max())
-            scale = float(g_ref.abs().max())
-            grad_errs.append(err)
-            parts.append(f"grad {i}: max |ref| {scale:.3g}, max abs err "
-                         f"{err:.3g} (ratio {err / scale:.3g})")
-            # The kernels round every op as the plain versions do on the
-            # card (no FMA contraction; x / c as x * (1/c), as torch takes
-            # a tensor divided by a Python number), and with torch
-            # BIT_EXACT_TORCH on an H100 the two agree to the last bit. A
-            # kernel that rounds one op otherwise is ~1e-4 * max|grad| away
-            # (9.8e-5 measured with IEEE divisions by pi): a normal's
-            # gradient scales one ulp by up to 1/denom^3 ~ 1e9, and a
-            # log-difference within rounding of 0 flips |x|'s sign. So
-            # another torch that rounds these ops otherwise fails this check
-            # with no fault in the kernel; the message says so.
-            if err > 1e-6 * scale:
-                raise RuntimeError(
-                    f"{name} gradient {i} disagrees with its plain version: "
-                    f"{err:.3g} > 1e-6 * {scale:.3g}; the two agreed to the "
-                    f"last bit with torch {BIT_EXACT_TORCH}, this is torch "
-                    f"{torch.__version__}")
-        log(f"{name}: loss kernel {loss:.9g} plain {ref_loss:.9g} rel "
-            f"{rel:.3g}" + "".join(f"; {p}" for p in parts))
-        if rel > 1e-5:
-            raise RuntimeError(f"{name} loss disagrees with its plain "
-                               f"version: rel {rel:.3g} > 1e-5")
-        # pred equal to gt: both sides must round alike, to a loss and
-        # gradients of exactly 0, as the plain versions and the TPU kernels
-        # give.
+    errors = {name: {} for name in rf.PLAIN_VERSIONS}
+    for label, inputs in input_sets.items():
+        loss64 = {kind: _loss64(kind, inputs) for kind in ("mixed", "render")}
+        for name, plain in rf.PLAIN_VERSIONS.items():
+            out = _outputs(rf.CUDA_WRAPPERS[name](*inputs))
+            torch.cuda.synchronize()
+            ref = _outputs(plain(*inputs))
+            torch.cuda.synchronize()
+            loss, ref_loss = float(out[0]), float(ref[0])
+            rel = abs(loss - ref_loss) / abs(ref_loss)
+            grad_errs, parts = [], []
+            for i, (g, g_ref) in enumerate(zip(out[1:], ref[1:])):
+                if not torch.isfinite(g).all():
+                    raise RuntimeError(f"{name} produced non-finite gradient "
+                                       f"{i} on {label}")
+                err = float((g - g_ref).abs().max())
+                scale = float(g_ref.abs().max())
+                grad_errs.append(err)
+                parts.append(f"grad {i}: max |ref| {scale:.3g}, max abs err "
+                             f"{err:.3g} (ratio {err / scale:.3g})")
+                # The gradient kernels round every op as the plain versions
+                # do on the card (no FMA contraction; x / c as x * (1/c),
+                # as torch takes a tensor divided by a Python number), and
+                # with torch BIT_EXACT_TORCH on an H100 the two agree to the
+                # last bit. A kernel that rounds one op otherwise is ~1e-4 *
+                # max|grad| away (9.8e-5 measured with IEEE divisions by
+                # pi): a normal's gradient scales one ulp by up to
+                # 1/denom^3 ~ 1e9, and a log-difference within rounding of
+                # 0 flips |x|'s sign. So another torch that rounds these ops
+                # otherwise fails this check with no fault in the kernel;
+                # the message says so.
+                if err > 1e-6 * scale:
+                    raise RuntimeError(
+                        f"{name} gradient {i} disagrees with its plain "
+                        f"version on {label}: {err:.3g} > 1e-6 * {scale:.3g}; "
+                        f"the two agreed to the last bit with torch "
+                        f"{BIT_EXACT_TORCH}, this is torch "
+                        f"{torch.__version__}")
+            ref64 = loss64["mixed" if name.startswith("mixed") else "render"]
+            rel64 = abs(loss - ref64) / abs(ref64)
+            plain_rel64 = abs(ref_loss - ref64) / abs(ref64)
+            log(f"{name} [{label}]: loss kernel {loss:.9g} plain "
+                f"{ref_loss:.9g} rel {rel:.3g}; float64 {ref64:.12g}: "
+                f"kernel rel {rel64:.3g}, f32 plain rel {plain_rel64:.3g}"
+                + "".join(f"; {p}" for p in parts))
+            # The value-only kernels round otherwise than their plain
+            # versions (csrc/value_shading.cuh) and are held here, on both
+            # input sets; the gradient kernels also agree to the last bit.
+            if rel > 1e-5:
+                raise RuntimeError(f"{name} loss disagrees with its plain "
+                                   f"version on {label}: rel {rel:.3g} > 1e-5")
+            errors[name][label] = {
+                "max_abs_err": (max(grad_errs) if grad_errs
+                                else abs(loss - ref_loss)),
+                "loss_rel_err": rel, "float64_rel": rel64,
+                "plain_float64_rel": plain_rel64}
+    # pred equal to gt: both sides must round alike, to a loss and gradients
+    # of exactly 0, as the plain versions and the TPU kernels give.
+    _, gt_t, scenes9 = next(iter(input_sets.values()))
+    for name in rf.PLAIN_VERSIONS:
         zero = _outputs(rf.CUDA_WRAPPERS[name](gt_t.clone(), gt_t, scenes9))
         nonzero = [int(torch.count_nonzero(g)) for g in zero[1:]]
         log(f"{name} pred == gt: loss {float(zero[0])!r}, non-zero gradient "
             f"values {nonzero}")
         if float(zero[0]) != 0.0 or any(nonzero):
             raise RuntimeError(f"{name} does not give 0 for pred equal to gt")
-        errors[name] = {
-            "max_abs_err": max(grad_errs) if grad_errs else abs(loss
-                                                                - ref_loss),
-            "loss_rel_err": rel}
     return errors
 
 
@@ -713,17 +756,24 @@ def phase_cli(build_program_ms: dict) -> dict:
             epochs = [times[max(0, e * per_epoch - 1):(e + 1) * per_epoch - 1]
                       for e in range(run.steps // per_epoch)]
             epoch_ms = [statistics.median(t) for t in epochs]
+            # One validation pass per epoch: its batches' decode, copy and
+            # eval steps (the value-only kernel), host clock with syncs.
+            validation_ms = [float(t) for t in
+                             run.validation_timer.steady_times() * 1e3]
             entry.update(steps=run.steps,
                          validation_batches=run.validation_batches,
                          step_ms_median=run.timer.median_ms(),
                          step_ms_mean=run.timer.mean_ms(),
                          epoch_step_ms_medians=epoch_ms,
+                         validation_pass_ms=validation_ms,
                          build_program_train_step_ms=base)
             log(f"cli {name}: {run.timer.summary()}; median per epoch "
                 + ", ".join(f"{t:.2f}" for t in epoch_ms)
                 + f" ms; build_program train step {base:.2f} ms, CLI / "
                 f"build_program " + ", ".join(f"{t / base:.3f}"
-                                              for t in epoch_ms))
+                                              for t in epoch_ms)
+                + "; validation pass per epoch "
+                + ", ".join(f"{t:.2f}" for t in validation_ms) + " ms")
         out["runs"][name] = entry
     return out
 
@@ -737,10 +787,13 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     rates = card_rates(name)
     phase_build()
-    from svbrdf_tpu_torch.utils.bench_setup import build_program, loss_inputs
+    from svbrdf_tpu_torch.utils.bench_setup import (build_program, loss_inputs,
+                                                    loss_inputs_near)
 
-    inputs = loss_inputs(MAIN["batch"], MAIN["size"], MAIN["n_scenes"])
-    errors = phase_kernels(inputs)
+    shape = (MAIN["batch"], MAIN["size"], MAIN["n_scenes"])
+    inputs = loss_inputs(*shape)
+    errors = phase_kernels({"loss_inputs": inputs,
+                            "loss_inputs_near": loss_inputs_near(*shape)})
     phase_agreement()
 
     counts, steps_ms = {}, {}
@@ -762,8 +815,9 @@ def main() -> None:
         kernels.append(dict(
             name=k, **KERNELS[k], path=path, launches=launches,
             launches_per_call=launches / calls,
-            max_abs_err=errors[k]["max_abs_err"],
-            loss_rel_err=errors[k]["loss_rel_err"],
+            max_abs_err=errors[k]["loss_inputs"]["max_abs_err"],
+            loss_rel_err=errors[k]["loss_inputs"]["loss_rel_err"],
+            checks=errors[k],
             ms=times[k]["ms"], wrapper_ms=times[k]["wrapper_ms"],
             plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],
             bound_us=times[k]["bound_ms"] * 1e3,

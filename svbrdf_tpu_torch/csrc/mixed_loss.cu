@@ -3,9 +3,10 @@
 // Replaces the TPU kernels of svbrdf_tpu/ops/render_pallas.py:
 //   _mixed_fwdgrad_kernel  -> svbrdf_mixed_loss_fwdgrad (training step)
 //   _mixed_fwd_kernel      -> svbrdf_mixed_loss_fwd     (validation step)
-// at fold=1 (channel planes (B, 12, H, W), f32). The shading, its VJP, the
-// scene loop and the block reduction are in shading.cuh, shared with
-// rendering_loss.cu.
+// at fold=1 (channel planes (B, 12, H, W), f32). The gradient kernel's
+// shading, its VJP, the scene loop and the block reduction are in
+// shading.cuh, shared with rendering_loss.cu; the value-only kernel and its
+// own shading are in value_shading.cuh, shared with rendering_loss.cu's.
 //
 // What it computes, per pixel of one batch item: for each of S point-light
 // scenes, shade pred and gt once (Cook-Torrance: GGX D with chi+, Schlick F,
@@ -21,59 +22,64 @@
 // What bounds it on this card: the instructions it issues, not memory.
 // fwdgrad moves 36 floats per pixel (24 in, 12 out: ~75 MB at B=8, 256^2)
 // but needs at least ~560 FP32 and ~50 special-function operations (log,
-// rsqrt, reciprocal) per pixel per scene, times S=9 scenes (the count is
-// in chip_smoke.py). The special functions set the least time; built
-// without FMA contraction (below), each add and multiply issues alone, and
-// the FP32 work alone takes longer than that.
+// rsqrt, reciprocal) per pixel per scene, times S=9 scenes; the value-only
+// kernel moves 24 and needs 231 and 27 (the counts are in chip_smoke.py).
 //
 // What the design does about it (measured on an H100 in PERF.md):
-// - one reciprocal per quantity and no IEEE division or sqrtf in the
-//   shading (shading.cuh): the fwdgrad kernel issues a fifth fewer
-//   instructions, half the calls to the division slow path, and runs 1.55x
-//   faster than with a division per quotient;
-// - fwdgrad keeps the pixel's 24 inputs and 12 gradient accumulators in
-//   thread-private columns of shared memory (36 KB a block), which holds it
-//   to 80 registers and 3 blocks (24 warps) per SM where it had 128 and 2;
-//   the value-only kernel has no accumulators and keeps its inputs in
-//   registers, held to 64 (4 blocks per SM);
+// - the gradient kernel: one reciprocal per quantity and no IEEE division
+//   or sqrtf in the shading (shading.cuh): a fifth fewer instructions, half
+//   the calls to the division slow path, and 1.55x faster than with a
+//   division per quotient; the pixel's 24 inputs and 12 gradient
+//   accumulators in thread-private columns of shared memory (36 KB a
+//   block), which holds it to 80 registers and 3 blocks (24 warps) per SM
+//   where it had 128 and 2;
+// - the value-only kernel (value_loss_kernel<true>, value_shading.cuh):
+//   its own shading, with 27 special functions per pixel and scene where
+//   shading.cuh takes 46, single-instruction rsqrt and reciprocal,
+//   explicit FMAs and one log per ratio, its inputs in registers (57, 4
+//   blocks per SM); the L1 term's log-space channels take one log of each
+//   ratio too. 2.5x faster than the same kernel over shading.cuh;
 // - one thread per pixel, one block per 256 pixels of one item: device
 //   memory is touched once per input and output value, neighbouring threads
 //   read neighbouring addresses, and each block masks its own ragged edge,
 //   so any H*W works. A grid of one wave whose blocks walk the tiles ran
 //   6-8 % slower, so the hardware schedules the blocks;
-// - the block loads its item's S*9 scene scalars into shared memory once,
-//   and reduces the loss with warp shuffles into one partial per block; the
+// - the block loads its item's S scenes into shared memory once, and
+//   reduces the loss with warp shuffles into one partial per block; the
 //   caller sums the partials, so the loss needs no float atomics and is the
 //   same from run to run.
 //
-// Rounding: IEEE reciprocal and logf, rsqrtf as torch.rsqrt takes it (no
+// Rounding. The gradient kernel is bit-exact against its plain torch
+// version: IEEE reciprocal and logf, rsqrtf as torch.rsqrt takes it (no
 // fast math), and no contraction of a * b + c into FMAs (built with
 // -fmad=false). With contraction the compiler fuses the pred side, whose
 // terms the VJP shares, differently from the gt side, so equal inputs
 // rendered to different last bits and a pred equal to gt gave a loss of
 // ~6e-9 instead of 0. Without it both sides round alike, and each op
-// rounds as the plain torch version's does.
+// rounds as the plain torch version's does. The value-only kernel rounds
+// otherwise (approximate rsqrt and reciprocal, FMAs written as fmaf, which
+// -fmad=false leaves fused) and is held to its plain version at loss rel
+// 1e-5; both sides run the same explicit instructions, so pred = gt still
+// gives exactly 0 (value_shading.cuh).
 
 #include "shading.cuh"
+#include "value_shading.cuh"
 
 namespace {
 
 using namespace svbrdf;
 
-// Blocks per SM that the value-only kernel is held to: 64 registers.
-// Without the cap it takes 69, fits 3 blocks and ran 5 % slower on an H100.
-constexpr int kMinBlocksValue = 4;
-
-template <bool kWithGrad>
-__global__ void __launch_bounds__(kThreads,
-                                  kWithGrad ? kMinBlocks : kMinBlocksValue)
-mixed_loss_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
-                  const float* __restrict__ scenes,
-                  float* __restrict__ partials, float* __restrict__ dpred,
-                  int H, int W, int S, int row_offset, int full_height,
-                  float inv_render, float l1_coef) {
+// The value + gradient kernel; the value-only kernel is
+// value_loss_kernel<true> (value_shading.cuh).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+mixed_fwdgrad_kernel(const float* __restrict__ pred,
+                     const float* __restrict__ gt,
+                     const float* __restrict__ scenes,
+                     float* __restrict__ partials, float* __restrict__ dpred,
+                     int H, int W, int S, int row_offset, int full_height,
+                     float inv_render, float l1_coef) {
   extern __shared__ float smem[];
-  float* scene_s = smem + shared_columns(kWithGrad) * kThreads;
+  float* scene_s = smem + shared_columns(1) * kThreads;
   load_scenes(scenes, S, scene_s);
 
   const int b = blockIdx.y;
@@ -82,21 +88,20 @@ mixed_loss_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
   float value = 0.f;
   if (p < hw) {
     const size_t base = (size_t)b * 12 * hw + p;
-    InputValues<kWithGrad> P(smem + threadIdx.x);
-    InputValues<kWithGrad> T(smem + 12 * kThreads + threadIdx.x);
+    SharedValues P(smem + threadIdx.x);
+    SharedValues T(smem + 12 * kThreads + threadIdx.x);
     SharedValues dp(smem + 24 * kThreads + threadIdx.x);
 #pragma unroll
     for (int c = 0; c < 12; ++c) {
       P.set(c, pred[base + (size_t)c * hw]);
       T.set(c, gt[base + (size_t)c * hw]);
-      if (kWithGrad) dp.set(c, 0.f);
+      dp.set(c, 0.f);
     }
     const int row = p / W;
     const int col = p - row * W;
     const float x = patch_x(col, W);
     const float y = patch_y(row + row_offset, full_height);
-    const float render_sum =
-        scene_loop<kWithGrad, false>(P, T, scene_s, S, x, y, dp, dp);
+    const float render_sum = scene_loop<false>(P, T, scene_s, S, x, y, dp, dp);
 
     // _l1_tile: plain L1 on normals (0-2) and roughness (6-8), L1 of
     // log(x + 0.01) on diffuse (3-5) and specular (9-11).
@@ -117,32 +122,12 @@ mixed_loss_kernel(const float* __restrict__ pred, const float* __restrict__ gt,
       }
     }
     value = render_sum * inv_render + l1_coef * l1;
-    if (kWithGrad) {
 #pragma unroll
-      for (int c = 0; c < 12; ++c) {
-        dpred[base + (size_t)c * hw] = dp[c] * inv_render + l1_coef * gl1[c];
-      }
+    for (int c = 0; c < 12; ++c) {
+      dpred[base + (size_t)c * hw] = dp[c] * inv_render + l1_coef * gl1[c];
     }
   }
   block_partial(value, partials);
-}
-
-template <bool kWithGrad>
-int launch(const void* pred, const void* gt, const void* scenes,
-           void* partials, void* dpred, int B, int H, int W, int S,
-           int row_offset, int full_height, float inv_render, float l1_coef,
-           void* stream) {
-  const dim3 grid((H * W + kThreads - 1) / kThreads, B);
-  const size_t smem = shared_bytes(kWithGrad, S);
-  const cudaError_t err = allow_shared(mixed_loss_kernel<kWithGrad>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mixed_loss_kernel<kWithGrad>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(pred), static_cast<const float*>(gt),
-          static_cast<const float*>(scenes), static_cast<float*>(partials),
-          static_cast<float*>(dpred), H, W, S, row_offset, full_height,
-          inv_render, l1_coef);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -154,10 +139,10 @@ int svbrdf_mixed_loss_threads() { return kThreads; }
 
 // Blocks of each kernel that fit one SM at S scenes, or minus a CUDA error.
 int svbrdf_mixed_loss_fwdgrad_blocks_per_sm(int S) {
-  return blocks_per_sm(mixed_loss_kernel<true>, shared_bytes(1, S));
+  return blocks_per_sm(mixed_fwdgrad_kernel, shared_bytes(1, S));
 }
 int svbrdf_mixed_loss_fwd_blocks_per_sm(int S) {
-  return blocks_per_sm(mixed_loss_kernel<false>, shared_bytes(0, S));
+  return blocks_per_sm(value_loss_kernel<true>, value_shared_bytes(S));
 }
 
 // Loss partials (B * ceil(H*W/threads) floats) and dpred (B, 12, H, W).
@@ -166,8 +151,9 @@ int svbrdf_mixed_loss_fwdgrad(const void* pred, const void* gt,
                               int B, int H, int W, int S, int row_offset,
                               int full_height, float inv_render, float l1_coef,
                               void* stream) {
-  return launch<true>(pred, gt, scenes, partials, dpred, B, H, W, S,
-                      row_offset, full_height, inv_render, l1_coef, stream);
+  return launch_tiles(mixed_fwdgrad_kernel, shared_bytes(1, S), B, H * W,
+                      stream, pred, gt, scenes, partials, dpred, H, W, S,
+                      row_offset, full_height, inv_render, l1_coef);
 }
 
 // Loss partials only.
@@ -175,8 +161,9 @@ int svbrdf_mixed_loss_fwd(const void* pred, const void* gt, const void* scenes,
                           void* partials, int B, int H, int W, int S,
                           int row_offset, int full_height, float inv_render,
                           float l1_coef, void* stream) {
-  return launch<false>(pred, gt, scenes, partials, nullptr, B, H, W, S,
-                       row_offset, full_height, inv_render, l1_coef, stream);
+  return launch_tiles(value_loss_kernel<true>, value_shared_bytes(S), B,
+                      H * W, stream, pred, gt, scenes, partials, H, W, S,
+                      row_offset, full_height, inv_render, l1_coef);
 }
 
 }  // extern "C"

@@ -24,50 +24,48 @@
 // and the `both` variant a second VJP (the count is in chip_smoke.py); it
 // moves 24 (fwd), 36 (fwdgrad) or 48 (both) floats per pixel.
 //
-// What the design does about it: the mixed kernels' design (shading.cuh's
-// reciprocals, one thread per pixel and one block per 256 pixels, the
-// block's scenes in shared memory, per-block partials without float
-// atomics, built with -fmad=false) over one kernel body with two template
-// switches. The gradient variants keep the pixel's inputs and accumulators
-// in thread-private columns of shared memory: fwdgrad, the training kernel,
-// is held to 80 registers and 3 blocks per SM (36 KB of shared memory a
-// block); `both` keeps 48 columns (48 KB) and fits 2 blocks per SM, where
-// with everything in registers it fitted one. The value-only kernel keeps
-// its inputs in registers.
+// What the design does about it: the gradient variants take the mixed
+// gradient kernel's design (shading.cuh's reciprocals, one thread per pixel
+// and one block per 256 pixels, the block's scenes in shared memory,
+// per-block partials without float atomics, built with -fmad=false) over
+// one kernel template with the target's gradient as its switch, and keep
+// the pixel's inputs and accumulators in thread-private columns of shared
+// memory: fwdgrad, the training kernel, is held to 80 registers and 3
+// blocks per SM (36 KB of shared memory a block); `both` keeps 48 columns
+// (48 KB) and fits 2 blocks per SM, where with everything in registers it
+// fitted one. The value-only kernel is the mixed one's without the L1 term
+// (value_loss_kernel<false>, value_shading.cuh): its own shading, with 27
+// special functions per pixel and scene where shading.cuh takes 46,
+// single-instruction rsqrt and reciprocal, explicit FMAs and one log per
+// ratio, its inputs in registers (48, 5 blocks per SM); 2.5x faster than
+// the same kernel over shading.cuh.
+//
+// Rounding: as in mixed_loss.cu. The two gradient variants are bit-exact
+// against their plain versions; the value-only kernel is held to its plain
+// version at loss rel 1e-5 and gives exactly 0 for pred = gt.
 
 #include "shading.cuh"
+#include "value_shading.cuh"
 
 namespace {
 
 using namespace svbrdf;
 
-// Blocks per SM that each variant's registers are held to: fwdgrad, the
-// training kernel, as the mixed one. The others as they compile: the
-// value-only kernel takes 62 registers (4 blocks per SM; held to 64 it took
-// 60 and ran 2 % slower), `both` 115 (2 blocks).
-__host__ __device__ constexpr int min_blocks(bool with_grad,
-                                             bool target_grad) {
-  return with_grad && !target_grad ? kMinBlocks : 1;
-}
-
-__host__ __device__ constexpr int gradients(bool with_grad,
-                                            bool target_grad) {
-  return (with_grad ? 1 : 0) + (target_grad ? 1 : 0);
-}
-
-template <bool kWithGrad, bool kTargetGrad>
-__global__ void __launch_bounds__(kThreads,
-                                  min_blocks(kWithGrad, kTargetGrad))
-rendering_loss_kernel(const float* __restrict__ pred,
-                      const float* __restrict__ gt,
-                      const float* __restrict__ scenes,
-                      float* __restrict__ partials, float* __restrict__ dpred,
-                      float* __restrict__ dgt, int H, int W, int S,
-                      int row_offset, int full_height, float inv_count) {
-  static_assert(kWithGrad || !kTargetGrad, "dgt comes with dpred");
+// The two gradient variants, value + dpred and (kTargetGrad) + dgt; the
+// value-only kernel is value_loss_kernel<false> (value_shading.cuh).
+// Blocks per SM their registers are held to: fwdgrad, the training kernel,
+// as the mixed one; `both` as it compiles (115 registers, 2 blocks).
+template <bool kTargetGrad>
+__global__ void __launch_bounds__(kThreads, kTargetGrad ? 1 : kMinBlocks)
+rendering_fwdgrad_kernel(const float* __restrict__ pred,
+                         const float* __restrict__ gt,
+                         const float* __restrict__ scenes,
+                         float* __restrict__ partials,
+                         float* __restrict__ dpred, float* __restrict__ dgt,
+                         int H, int W, int S, int row_offset,
+                         int full_height, float inv_count) {
   extern __shared__ float smem[];
-  float* scene_s =
-      smem + shared_columns(gradients(kWithGrad, kTargetGrad)) * kThreads;
+  float* scene_s = smem + shared_columns(kTargetGrad ? 2 : 1) * kThreads;
   load_scenes(scenes, S, scene_s);
 
   const int b = blockIdx.y;
@@ -76,28 +74,25 @@ rendering_loss_kernel(const float* __restrict__ pred,
   float value = 0.f;
   if (p < hw) {
     const size_t base = (size_t)b * 12 * hw + p;
-    InputValues<kWithGrad> P(smem + threadIdx.x);
-    InputValues<kWithGrad> T(smem + 12 * kThreads + threadIdx.x);
+    SharedValues P(smem + threadIdx.x);
+    SharedValues T(smem + 12 * kThreads + threadIdx.x);
     SharedValues dp(smem + 24 * kThreads + threadIdx.x);
     SharedValues dt(smem + 36 * kThreads + threadIdx.x);
 #pragma unroll
     for (int c = 0; c < 12; ++c) {
       P.set(c, pred[base + (size_t)c * hw]);
       T.set(c, gt[base + (size_t)c * hw]);
-      if (kWithGrad) dp.set(c, 0.f);
+      dp.set(c, 0.f);
       if (kTargetGrad) dt.set(c, 0.f);
     }
     const int row = p / W;
     const int col = p - row * W;
     const float x = patch_x(col, W);
     const float y = patch_y(row + row_offset, full_height);
-    value = scene_loop<kWithGrad, kTargetGrad>(P, T, scene_s, S, x, y, dp,
-                                               dt);
-    if (kWithGrad) {
+    value = scene_loop<kTargetGrad>(P, T, scene_s, S, x, y, dp, dt);
 #pragma unroll
-      for (int c = 0; c < 12; ++c) {
-        dpred[base + (size_t)c * hw] = dp[c] * inv_count;
-      }
+    for (int c = 0; c < 12; ++c) {
+      dpred[base + (size_t)c * hw] = dp[c] * inv_count;
     }
     if (kTargetGrad) {
 #pragma unroll
@@ -109,28 +104,9 @@ rendering_loss_kernel(const float* __restrict__ pred,
   block_partial(value, partials);
 }
 
-template <bool kWithGrad, bool kTargetGrad>
-int blocks_per_sm_of(int S) {
-  return blocks_per_sm(rendering_loss_kernel<kWithGrad, kTargetGrad>,
-                       shared_bytes(gradients(kWithGrad, kTargetGrad), S));
-}
-
-template <bool kWithGrad, bool kTargetGrad>
-int launch(const void* pred, const void* gt, const void* scenes,
-           void* partials, void* dpred, void* dgt, int B, int H, int W, int S,
-           int row_offset, int full_height, float inv_count, void* stream) {
-  const dim3 grid((H * W + kThreads - 1) / kThreads, B);
-  const size_t smem = shared_bytes(gradients(kWithGrad, kTargetGrad), S);
-  const cudaError_t err =
-      allow_shared(rendering_loss_kernel<kWithGrad, kTargetGrad>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rendering_loss_kernel<kWithGrad, kTargetGrad>
-      <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(pred), static_cast<const float*>(gt),
-          static_cast<const float*>(scenes), static_cast<float*>(partials),
-          static_cast<float*>(dpred), static_cast<float*>(dgt), H, W, S,
-          row_offset, full_height, inv_count);
-  return static_cast<int>(cudaGetLastError());
+template <bool kTargetGrad>
+size_t fwdgrad_shared_bytes(int S) {
+  return shared_bytes(kTargetGrad ? 2 : 1, S);
 }
 
 }  // namespace
@@ -142,13 +118,15 @@ int svbrdf_rendering_loss_threads() { return kThreads; }
 
 // Blocks of each kernel that fit one SM at S scenes, or minus a CUDA error.
 int svbrdf_rendering_loss_fwd_blocks_per_sm(int S) {
-  return blocks_per_sm_of<false, false>(S);
+  return blocks_per_sm(value_loss_kernel<false>, value_shared_bytes(S));
 }
 int svbrdf_rendering_loss_fwdgrad_blocks_per_sm(int S) {
-  return blocks_per_sm_of<true, false>(S);
+  return blocks_per_sm(rendering_fwdgrad_kernel<false>,
+                       fwdgrad_shared_bytes<false>(S));
 }
 int svbrdf_rendering_loss_fwdgrad_both_blocks_per_sm(int S) {
-  return blocks_per_sm_of<true, true>(S);
+  return blocks_per_sm(rendering_fwdgrad_kernel<true>,
+                       fwdgrad_shared_bytes<true>(S));
 }
 
 // Loss partials (B * ceil(H*W/threads) raw sums) only.
@@ -156,9 +134,9 @@ int svbrdf_rendering_loss_fwd(const void* pred, const void* gt,
                               const void* scenes, void* partials, int B,
                               int H, int W, int S, int row_offset,
                               int full_height, void* stream) {
-  return launch<false, false>(pred, gt, scenes, partials, nullptr, nullptr,
-                              B, H, W, S, row_offset, full_height, 0.f,
-                              stream);
+  return launch_tiles(value_loss_kernel<false>, value_shared_bytes(S), B,
+                      H * W, stream, pred, gt, scenes, partials, H, W, S,
+                      row_offset, full_height, 1.f, 0.f);
 }
 
 // Loss partials and dpred (B, 12, H, W) scaled by inv_count.
@@ -167,9 +145,10 @@ int svbrdf_rendering_loss_fwdgrad(const void* pred, const void* gt,
                                   void* dpred, int B, int H, int W, int S,
                                   int row_offset, int full_height,
                                   float inv_count, void* stream) {
-  return launch<true, false>(pred, gt, scenes, partials, dpred, nullptr, B,
-                             H, W, S, row_offset, full_height, inv_count,
-                             stream);
+  return launch_tiles(rendering_fwdgrad_kernel<false>,
+                      fwdgrad_shared_bytes<false>(S), B, H * W, stream, pred,
+                      gt, scenes, partials, dpred, nullptr, H, W, S,
+                      row_offset, full_height, inv_count);
 }
 
 // Loss partials, dpred and dgt (B, 12, H, W), both scaled by inv_count.
@@ -179,8 +158,10 @@ int svbrdf_rendering_loss_fwdgrad_both(const void* pred, const void* gt,
                                        int W, int S, int row_offset,
                                        int full_height, float inv_count,
                                        void* stream) {
-  return launch<true, true>(pred, gt, scenes, partials, dpred, dgt, B, H, W,
-                            S, row_offset, full_height, inv_count, stream);
+  return launch_tiles(rendering_fwdgrad_kernel<true>,
+                      fwdgrad_shared_bytes<true>(S), B, H * W, stream, pred,
+                      gt, scenes, partials, dpred, dgt, H, W, S, row_offset,
+                      full_height, inv_count);
 }
 
 }  // extern "C"

@@ -1,5 +1,7 @@
 // Per-pixel Cook-Torrance shading and its hand-derived VJP, shared by the
-// loss kernels (mixed_loss.cu, rendering_loss.cu).
+// gradient kernels of mixed_loss.cu and rendering_loss.cu (the value-only
+// kernels have their own shading, value_shading.cuh), with the constants,
+// patch coordinates and block reduction that all the kernels share.
 //
 // Device translation of the in-kernel helpers of
 // svbrdf_tpu/ops/render_pallas.py: _scene_geometry, _shade_side (split here
@@ -9,34 +11,33 @@
 // (scene_loop), the patch coordinates and the block's loss partial. One
 // thread shades one pixel.
 //
-// What bounds the kernels: the instructions they issue. They move 24 to 48
-// floats per pixel but do ~560 FP32 and ~50 special-function operations
-// per pixel and scene, and every add and multiply issues alone (no FMA
-// contraction, below). So the design cuts instructions first:
+// What bounds the gradient kernels: the instructions they issue. They move
+// 36 or 48 floats per pixel but do ~560 FP32 and ~50 special-function
+// operations per pixel and scene, and every add and multiply issues alone
+// (no FMA contraction, below). So the design cuts instructions first:
 // - One reciprocal per quantity (1/d^2, 1/VN, 1/LN, 1/NH^2, 1/denom,
 //   1/(1 + sqrt(.)), 1/(r + 0.1)), its quotients taken as products; a
 //   square root and its reciprocal come from one rsqrtf. Without fast math
 //   an IEEE `a / b` or sqrtf is a MUFU op, a Newton step in FFMAs and a
 //   check that branches to a slow path; a reciprocal is about half that,
 //   and the shading had 55 divisions and 12 square roots per scene.
-// - Registers for occupancy, in the gradient kernels: the pixel's inputs
-//   and gradient accumulators live in thread-private columns of shared
-//   memory (SharedValues), so registers hold one scene's working set and
-//   more blocks fit an SM (mixed_loss.cu and rendering_loss.cu say how
-//   many). The value-only kernels have no accumulators and keep their
-//   inputs in registers (RegisterValues), where they already fit 4 blocks.
+// - Registers for occupancy: the pixel's inputs and gradient accumulators
+//   live in thread-private columns of shared memory (SharedValues), so
+//   registers hold one scene's working set and more blocks fit an SM
+//   (mixed_loss.cu and rendering_loss.cu say how many).
 //
-// Rounding: the kernels are built without FMA contraction (-fmad=false)
-// and without fast math, every `x / c` by a constant is taken as
-// `x * (1/c)` as torch does on the card, and every reciprocal as `1.f / x`
-// as torch.reciprocal takes it, so each op rounds as in the plain torch
-// versions of ops/render_fused.py (see the note in mixed_loss.cu).
+// Rounding: the gradient kernels are bit-exact against their plain torch
+// versions (ops/render_fused.py). The sources are built without FMA
+// contraction (-fmad=false) and without fast math, every `x / c` by a
+// constant is taken as `x * (1/c)` as torch does on the card, and every
+// reciprocal as `1.f / x` as torch.reciprocal takes it, so each op rounds
+// as in the plain versions (see the note in mixed_loss.cu). Any edit here
+// must be made op for op in the plain versions. The value-only kernels are
+// held at loss rel 1e-5 instead, and their shading writes its FMAs out.
 
 #pragma once
 
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace svbrdf {
 
@@ -178,6 +179,23 @@ __device__ __forceinline__ Chan shade_channel(float albedo, float rough_raw,
   return k;
 }
 
+// The 12 values of this thread's pixel (one SVBRDF or its gradient) in a
+// column of shared memory: value c at col[c * kThreads], so the threads of
+// a warp touch 32 consecutive words (no bank conflicts). Volatile: every
+// use reads shared memory, and the compiler cannot hoist the values into
+// registers across the scene loop, which is what frees the registers.
+struct SharedValues {
+  volatile float* col;
+  __device__ __forceinline__ explicit SharedValues(float* c) : col(c) {}
+  __device__ __forceinline__ float operator[](int c) const {
+    return col[c * kThreads];
+  }
+  __device__ __forceinline__ void set(int c, float x) { col[c * kThreads] = x; }
+  __device__ __forceinline__ void add(int c, float x) {
+    col[c * kThreads] = col[c * kThreads] + x;
+  }
+};
+
 // What one side's per-channel VJPs leave for the normal's chain.
 struct NormalAcc {
   float NH = 0.f, VN = 0.f, LN = 0.f, lp = 0.f;
@@ -188,10 +206,10 @@ struct NormalAcc {
 // log-L1 loss +-sign(diff) / (r + 0.1)). Adds d/d(albedo), d/d(roughness)
 // and d/d(specular) of this channel to values 3 + c, 6 + c and 9 + c of
 // `d` and the normal-dependent parts to `acc`.
-template <class Values>
 __device__ __forceinline__ void side_vjp_channel(
     float u, float color, float albedo, float rough_raw, const Chan& k,
-    const Side& s, const Geometry& g, Values& d, int c, NormalAcc& acc) {
+    const Side& s, const Geometry& g, SharedValues& d, int c,
+    NormalAcc& acc) {
   const float w = u * color;
   const float ws = w * s.scale;
   const float wsF = ws * k.F;
@@ -227,11 +245,10 @@ __device__ __forceinline__ void side_vjp_channel(
 
 // _side_bwd's normal chain, after the three channels: adds d/d(normal) of
 // the side to values 0..2 of `d`.
-template <class Values>
 __device__ __forceinline__ void side_vjp_normal(const NormalAcc& acc,
                                                 const Side& s,
                                                 const Geometry& g,
-                                                Values& d) {
+                                                SharedValues& d) {
   const float cn = acc.NH * ge(s.nh_raw, kEps);
   const float cv = acc.VN * ge(s.vn_raw, kEps);
   const float cl = acc.LN * ge(s.ln_raw, kEps) + acc.lp * ge(s.ln_raw, 0.f);
@@ -240,44 +257,11 @@ __device__ __forceinline__ void side_vjp_normal(const NormalAcc& acc,
   d.add(2, cn * g.hz + cv * g.vz + cl * g.lz);
 }
 
-// The 12 values of this thread's pixel (one SVBRDF or its gradient) in a
-// column of shared memory: value c at col[c * kThreads], so the threads of
-// a warp touch 32 consecutive words (no bank conflicts). Volatile: every
-// use reads shared memory, and the compiler cannot hoist the values into
-// registers across the scene loop, which is what frees the registers.
-struct SharedValues {
-  volatile float* col;
-  __device__ __forceinline__ explicit SharedValues(float* c) : col(c) {}
-  __device__ __forceinline__ float operator[](int c) const {
-    return col[c * kThreads];
-  }
-  __device__ __forceinline__ void set(int c, float x) { col[c * kThreads] = x; }
-  __device__ __forceinline__ void add(int c, float x) {
-    col[c * kThreads] = col[c * kThreads] + x;
-  }
-};
-
-// The same 12 values in registers (the pointer is not used).
-struct RegisterValues {
-  float v[12];
-  __device__ __forceinline__ explicit RegisterValues(float*) {}
-  __device__ __forceinline__ float operator[](int c) const { return v[c]; }
-  __device__ __forceinline__ void set(int c, float x) { v[c] = x; }
-  __device__ __forceinline__ void add(int c, float x) { v[c] += x; }
-};
-
-// Where a kernel keeps its pixel's pred and gt values: in shared memory in
-// the gradient kernels, in registers in the value-only ones.
-template <bool kWithGrad>
-using InputValues =
-    std::conditional_t<kWithGrad, SharedValues, RegisterValues>;
-
-// Dynamic shared memory of a kernel with `gradients` gradients (0, 1 or
-// 2): the columns of pred, gt and each gradient where it has any, then the
-// item's S * 9 scene scalars, which start at float shared_columns(.) *
-// kThreads.
+// Dynamic shared memory of a gradient kernel with `gradients` gradients (1
+// or 2): the columns of pred, gt and each gradient, then the item's S * 9
+// scene scalars, which start at float shared_columns(.) * kThreads.
 __host__ __device__ constexpr int shared_columns(int gradients) {
-  return gradients > 0 ? 24 + 12 * gradients : 0;
+  return 24 + 12 * gradients;
 }
 
 inline size_t shared_bytes(int gradients, int S) {
@@ -287,10 +271,11 @@ inline size_t shared_bytes(int gradients, int S) {
 
 // _scene_loss_and_grads over the S scenes of the block's item at patch
 // point (x, y): returns sum |log(r_p + 0.1) - log(r_t + 0.1)| over scenes
-// and channels; with kWithGrad adds the pred side's VJP to dp and with
-// kTargetGrad the gt side's to dt.
-template <bool kWithGrad, bool kTargetGrad, class Inputs>
-__device__ __forceinline__ float scene_loop(const Inputs& P, const Inputs& T,
+// and channels, adds the pred side's VJP to dp and, with kTargetGrad, the
+// gt side's to dt.
+template <bool kTargetGrad>
+__device__ __forceinline__ float scene_loop(const SharedValues& P,
+                                            const SharedValues& T,
                                             const float* scene_s, int S,
                                             float x, float y,
                                             SharedValues& dp,
@@ -313,17 +298,15 @@ __device__ __forceinline__ float scene_loop(const Inputs& P, const Inputs& T,
       const float rt = kt.out + kEpsRender;
       const float diff = logf(rp) - logf(rt);
       sum += fabsf(diff);
-      if (kWithGrad) {
-        const float sgn = sign0(diff);
-        side_vjp_channel(sgn * (1.f / rp), color, P[3 + c], P[6 + c], kp, sp,
-                         g, dp, c, acc_p);
-        if (kTargetGrad) {
-          side_vjp_channel(-sgn * (1.f / rt), color, T[3 + c], T[6 + c], kt,
-                           st, g, dt, c, acc_t);
-        }
+      const float sgn = sign0(diff);
+      side_vjp_channel(sgn * (1.f / rp), color, P[3 + c], P[6 + c], kp, sp, g,
+                       dp, c, acc_p);
+      if (kTargetGrad) {
+        side_vjp_channel(-sgn * (1.f / rt), color, T[3 + c], T[6 + c], kt, st,
+                         g, dt, c, acc_t);
       }
     }
-    if (kWithGrad) side_vjp_normal(acc_p, sp, g, dp);
+    side_vjp_normal(acc_p, sp, g, dp);
     if (kTargetGrad) side_vjp_normal(acc_t, st, g, dt);
   }
   return sum;
@@ -385,6 +368,20 @@ int blocks_per_sm(Kernel kernel, size_t smem) {
                                                         smem);
   }
   return err == cudaSuccess ? n : -(int)err;
+}
+
+// Launches `kernel` with one block per kThreads pixels of each of B items
+// (grid ceil(hw / kThreads) x B) and `smem` bytes of dynamic shared memory,
+// each argument cast to the kernel's parameter type; returns the CUDA error
+// code.
+template <class... Params, class... Args>
+int launch_tiles(void (*kernel)(Params...), size_t smem, int B, int hw,
+                 void* stream, Args... args) {
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((hw + kThreads - 1) / kThreads, B), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(static_cast<Params>(args)...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace svbrdf

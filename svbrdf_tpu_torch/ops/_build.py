@@ -23,10 +23,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("mixed_loss", "rendering_loss")
 
-# No --use_fast_math: it changes logf, sqrtf and division, and the kernels
-# are held against their plain torch versions. -fmad=false: no FMA
-# contraction, so the pred and gt sides of a loss round alike (see the note
-# in csrc/mixed_loss.cu).
+# No --use_fast_math and -fmad=false, for the gradient kernels: they are
+# bit-exact against their plain torch versions, which needs IEEE logf and
+# reciprocals and no FMA contraction (with contraction the pred and gt
+# sides of a loss rounded otherwise; see the note in csrc/mixed_loss.cu).
+# The value-only kernels choose their own roundings in the source
+# (approximate rsqrt and reciprocal as inline PTX, FMAs written as fmaf,
+# which -fmad=false leaves fused; csrc/value_shading.cuh), so the flags
+# stay per file and no kernel of the two files changes the other's.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

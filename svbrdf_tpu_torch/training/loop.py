@@ -63,13 +63,15 @@ def stream_seed(*words: int) -> int:
 @dataclass
 class TrainingRun:
     """What run_training did: the last fetched loss, the train steps and
-    validation batches it ran, its step times, and the model and optimizer
-    it trained."""
+    validation batches it ran, its step times, the times of its validation
+    passes (one per validating epoch), and the model and optimizer it
+    trained."""
 
     last_loss: float
     steps: int
     validation_batches: int
     timer: StepTimer
+    validation_timer: StepTimer
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
 
@@ -194,8 +196,9 @@ def run_training(args, device="cuda") -> TrainingRun:
                         num_filters=args.num_filters)
 
     print(f"Training from epoch {epoch_start} to {args.epochs}")
-    timer = StepTimer(warmup=1, sync=(torch.cuda.synchronize
-                                      if device.type == "cuda" else None))
+    sync = torch.cuda.synchronize if device.type == "cuda" else None
+    timer = StepTimer(warmup=1, sync=sync)
+    validation_timer = StepTimer(warmup=0, sync=sync)
     log_every = max(1, args.log_every)
     last_loss = float("nan")
     steps = validation_batches = 0
@@ -246,9 +249,10 @@ def run_training(args, device="cuda") -> TrainingRun:
             if epoch % args.save_frequency == 0:
                 save(epoch)
             if epoch % args.validation_frequency == 0 and len(val_idx) > 0:
-                total, count, batches = _validation_sums(
-                    eval_step, generator, data, val_idx, batch_size,
-                    args.seed, epoch, device)
+                with validation_timer.measure():
+                    total, count, batches = _validation_sums(
+                        eval_step, generator, data, val_idx, batch_size,
+                        args.seed, epoch, device)
                 validation_batches += batches
                 val_loss = total / count
                 print(f"Epoch {epoch}, validation loss: {val_loss:f}")
@@ -258,8 +262,8 @@ def run_training(args, device="cuda") -> TrainingRun:
     writer.close()
     if timer.count:
         print(timer.summary())
-    return TrainingRun(last_loss, steps, validation_batches, timer, model,
-                       optimizer)
+    return TrainingRun(last_loss, steps, validation_batches, timer,
+                       validation_timer, model, optimizer)
 
 
 def run_test(args, device="cuda", out_dir: Optional[str] = None,

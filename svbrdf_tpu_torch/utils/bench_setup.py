@@ -66,6 +66,24 @@ def loss_inputs(batch: int, size: int, n_scenes: int, seed: int = 0,
     return planes(seed + 1), planes(seed), render_fused.pack_scenes(scenes)
 
 
+def loss_inputs_near(batch: int, size: int, n_scenes: int,
+                     sigma: float = 1e-3, seed: int = 0,
+                     device="cuda") -> tuple:
+    """loss_inputs with pred near gt, as a model near convergence gives it
+    in validation: gt and the scenes as in loss_inputs, pred = gt + sigma *
+    N(0, 1) from a generator seeded with `seed`, its normal re-normalized
+    (the model's head outputs unit normals; the decoded gt's are within
+    u8 rounding of unit) and its other maps clamped to [0, 1], the range of
+    the decoded maps."""
+    _, gt, scenes9 = loss_inputs(batch, size, n_scenes, seed, device)
+    g = torch.Generator(device=gt.device).manual_seed(seed)
+    pred = gt + sigma * torch.randn(gt.shape, generator=g, device=gt.device)
+    normal = pred[:, :3] * torch.rsqrt(torch.sum(pred[:, :3] ** 2, dim=1,
+                                                 keepdim=True))
+    return (torch.cat([normal, pred[:, 3:].clamp(0.0, 1.0)], dim=1),
+            gt, scenes9)
+
+
 def kernel_ms(name: str, inputs, kernel=None, reps: int = 10,
               runs: int = 20) -> float:
     """Device time of one raw launch of loss kernel `name` on `inputs`

@@ -17,9 +17,10 @@ started together, and for each of the five kernels it reports:
     slow paths are calls), shared and local memory loads and stores;
   - blocks per SM, where the tree exports <symbol>_blocks_per_sm;
   - loss rel and max |gradient error| / max |gradient| against the
-    package's plain versions on the same inputs, and whether pred = gt
-    gives exactly 0. Printed, not held: an older tree may compute the same
-    function with other roundings;
+    package's plain versions on the same inputs (bench_setup.loss_inputs),
+    loss rel on inputs near convergence (bench_setup.loss_inputs_near),
+    and whether pred = gt gives exactly 0. Printed, not held: an older tree
+    may compute the same function with other roundings;
   - device time at the main path's shapes (B=8, 256^2, S=9): 10
     back-to-back launches between CUDA events, median of 20
     (bench_setup.kernel_ms), in ROUNDS rounds that alternate the order of the trees; the median of the rounds
@@ -43,13 +44,18 @@ import time
 from pathlib import Path
 
 SOURCES = ("mixed_loss", "rendering_loss")
-# The mangled name of each kernel's template instance in the SASS.
+# A part of each kernel's mangled name in the SASS: the current sources',
+# then the template instances of the trees before the value-only kernels
+# had a template of their own (2c5e8e1 and older).
 SASS_NAMES = {
-    "mixed_fwdgrad": "mixed_loss_kernelILb1E",
-    "mixed_fwd": "mixed_loss_kernelILb0E",
-    "render_fwdgrad": "rendering_loss_kernelILb1ELb0E",
-    "render_fwd": "rendering_loss_kernelILb0ELb0E",
-    "render_fwdgrad_both": "rendering_loss_kernelILb1ELb1E",
+    "mixed_fwdgrad": ("mixed_fwdgrad_kernel", "mixed_loss_kernelILb1E"),
+    "mixed_fwd": ("value_loss_kernelILb1E", "mixed_loss_kernelILb0E"),
+    "render_fwdgrad": ("rendering_fwdgrad_kernelILb0E",
+                       "rendering_loss_kernelILb1ELb0E"),
+    "render_fwd": ("value_loss_kernelILb0E",
+                   "rendering_loss_kernelILb0ELb0E"),
+    "render_fwdgrad_both": ("rendering_fwdgrad_kernelILb1E",
+                            "rendering_loss_kernelILb1ELb1E"),
 }
 SASS_OPS = ("FADD", "FMUL", "FFMA", "MUFU.RCP", "MUFU.RSQ", "MUFU.LG2",
             "MUFU.EX2", "MUFU.SQRT", "BRA", "CALL", "LDS", "STS", "LDL",
@@ -88,8 +94,8 @@ def build(trees: dict) -> dict:
 
 
 def _kernel_of(mangled: str):
-    for kernel, pattern in SASS_NAMES.items():
-        if pattern in mangled:
+    for kernel, patterns in SASS_NAMES.items():
+        if any(pattern in mangled for pattern in patterns):
             return kernel
     return None
 
@@ -181,7 +187,9 @@ class Tree:
                           self.kernels[name])
 
 
-def against_plain(tree: Tree, name: str, inputs) -> dict:
+def _loss_rel(tree: Tree, name: str, inputs) -> tuple:
+    """(loss rel against the plain version, kernel outputs, plain
+    outputs) of one launch."""
     from svbrdf_tpu_torch.ops import render_fused as rf
 
     import torch
@@ -194,10 +202,18 @@ def against_plain(tree: Tree, name: str, inputs) -> dict:
     loss = float(torch.sum(partials))
     if not name.startswith("mixed"):
         loss /= rf._rendering_count(pred, scenes9, 0)
+    return abs(loss - float(ref[0])) / abs(float(ref[0])), planes, ref[1:]
+
+
+def against_plain(tree: Tree, name: str, inputs, near) -> dict:
+    import torch
+
+    rel, planes, ref_planes = _loss_rel(tree, name, inputs)
     errs = [float((g - r).abs().max() / r.abs().max())
-            for g, r in zip(planes, ref[1:])]
+            for g, r in zip(planes, ref_planes)]
+    _, gt, scenes9 = inputs
     zero = tree.launch(name, gt.clone(), gt, scenes9)
-    return {"loss_rel": abs(loss - float(ref[0])) / abs(float(ref[0])),
+    return {"loss_rel": rel, "loss_rel_near": _loss_rel(tree, name, near)[0],
             "grad_err_ratio": max(errs) if errs else None,
             "zero_for_equal": all(int(torch.count_nonzero(z)) == 0
                                   for z in zero)}
@@ -214,7 +230,8 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("compare_builds: needs a CUDA device")
     from svbrdf_tpu_torch.ops import _build, render_fused as rf
-    from svbrdf_tpu_torch.utils.bench_setup import kernel_ms, loss_inputs
+    from svbrdf_tpu_torch.utils.bench_setup import (kernel_ms, loss_inputs,
+                                                    loss_inputs_near)
 
     trees = {}
     for item in args.trees:
@@ -239,6 +256,7 @@ def main(argv=None) -> None:
     result = {"card": card, "torch": torch.__version__, "trees": {}}
     logs = build(trees)
     inputs = loss_inputs(8, 256, 9)
+    near = loss_inputs_near(8, 256, 9)
     built = {}
     for name, csrc in trees.items():
         regs = ptxas_lines(logs[name])
@@ -251,7 +269,7 @@ def main(argv=None) -> None:
             per_kernel[kernel] = {
                 "ptxas": regs.get(kernel), "sass": mix.get(kernel),
                 "blocks_per_sm": built[name].blocks_per_sm(kernel, 9),
-                **against_plain(built[name], kernel, inputs)}
+                **against_plain(built[name], kernel, inputs, near)}
             log(f"{name} {kernel}: {json.dumps(per_kernel[kernel])}")
         result["trees"][name] = per_kernel
     names = list(trees)

@@ -65,8 +65,9 @@ PATHS = {"single-mixed": ("single", "mixed"),
          "multi-rendering": ("multi", "rendering")}
 
 CATEGORIES = (
-    ("mixed_loss", ("mixed_loss_kernel",)),
-    ("rendering_loss", ("rendering_loss_kernel",)),
+    ("mixed_loss", ("mixed_fwdgrad_kernel", "value_loss_kernel<true>")),
+    ("rendering_loss", ("rendering_fwdgrad_kernel",
+                        "value_loss_kernel<false>")),
     # cuDNN's implicit-GEMM, FFT and Winograd convolutions; the model's few
     # small Linear layers' GEMMs land here too.
     ("convolution", ("conv", "xmma", "cudnn", "fft", "dgrad", "wgrad",

@@ -8,13 +8,15 @@ on its own, without the repo's conftest.py (which sets JAX up):
     python -m pytest --noconftest tests/test_torch_card.py -q
 
 Tolerances: loss rtol 1e-5 (the kernel sums one partial per block, the
-plain version over the whole image). dpred and dgt rtol 2e-4 with an absolute floor
-of 1e-3 * max|dpred|. The kernels round every op as the plain versions do
-on the card, and on an H100 the two agree to the last bit (chip_smoke.py
-holds that at the main path's shapes); the floor keeps these tests true
-under a torch that rounds some op otherwise, where an ulp grows large: a
-normal's gradient sums 27 terms per pixel, some scaled by 1 / denom^3 (up
-to 1e9 near the clamp). TF32 is off for every test.
+plain version over the whole image; the value-only kernels also shade with
+other roundings, csrc/value_shading.cuh). dpred and dgt rtol 2e-4 with an
+absolute floor of 1e-3 * max|dpred|. The gradient kernels round every op
+as the plain versions do on the card, and on an H100 the two agree to the
+last bit (chip_smoke.py holds that at the main path's shapes); the floor
+keeps these tests true under a torch that rounds some op otherwise, where
+an ulp grows large: a normal's gradient sums 27 terms per pixel, some
+scaled by 1 / denom^3 (up to 1e9 near the clamp). TF32 is off for every
+test.
 """
 
 import math
@@ -278,6 +280,37 @@ def test_kernels_on_a_ragged_grid(cuda, batch):
         zero = zero if isinstance(zero, tuple) else (zero,)
         assert float(zero[0]) == 0.0
         assert all(int(torch.count_nonzero(z)) == 0 for z in zero[1:])
+
+
+@pytest.mark.parametrize("name", ["mixed_fwd", "render_fwd"])
+def test_value_kernels_near_convergence(cuda, name):
+    """The value-only kernels, which shade with their own roundings, on
+    pred near gt (bench_setup.loss_inputs_near), where a loss term is
+    ~1e-2 and a bias that near-equal sides do not cancel would show: loss
+    rtol 1e-5 against the plain version on a ragged grid (20^2 = 400: two
+    blocks, the second masked), and exactly 0 for pred = gt."""
+    p, g, s9 = bench_setup.loss_inputs_near(2, 20, 9, seed=1, device=cuda)
+    value = rf.CUDA_WRAPPERS[name](p, g, s9)
+    _assert_close(value, rf.PLAIN_VERSIONS[name](p, g, s9), rtol=1e-5)
+    assert float(rf.CUDA_WRAPPERS[name](g.clone(), g, s9)) == 0.0
+    assert float(rf.CUDA_WRAPPERS[name](p, p.clone(), s9)) == 0.0
+
+
+@pytest.mark.parametrize("name", ["mixed_fwd", "render_fwd"])
+def test_value_kernels_propagate_non_finite_predictions(cuda, name):
+    """A NaN or an infinite value in one pixel of pred (its diffuse red,
+    which the rendering term and the mixed loss's log-space L1 term both
+    read) gives a non-finite loss, as the plain version does, and a NaN
+    gives NaN: a model that diverged logs a non-finite validation loss."""
+    p, g, s9 = _case(cuda, 20, seed=10)
+    for bad in (math.nan, math.inf):
+        q = p.clone()
+        q[1, 3, 7, 5] = bad
+        value = float(rf.CUDA_WRAPPERS[name](q, g, s9))
+        plain = float(rf.PLAIN_VERSIONS[name](q, g, s9))
+        assert not math.isfinite(value) and not math.isfinite(plain)
+        if math.isnan(bad):
+            assert math.isnan(value) and math.isnan(plain)
 
 
 def test_multi_view_rendering_program_on_card(cuda):

@@ -90,6 +90,7 @@ def test_train_and_resume(trained):
     # epoch.
     assert "Training samples: 2." in out1 and "Validation samples: 0." in out1
     assert (first.steps, first.validation_batches) == (2, 0)
+    assert first.validation_timer.count == 0
     assert math.isfinite(first.last_loss) and math.isfinite(
         resumed.last_loss)
     assert "Restored epoch 1" in out2
@@ -168,6 +169,9 @@ def test_validation_holds_one_sample_out(tmp_path):
     assert "Training samples: 100." in out
     assert "Validation samples: 1." in out
     assert (run.steps, run.validation_batches) == (13, 1)
+    # One timed validation pass per validating epoch.
+    assert run.validation_timer.count == 1
+    assert float(run.validation_timer.steady_times()[0]) > 0.0
     scalars = read_scalars(str(model_dir / "logs"))
     assert [s for s, _ in scalars["loss"]] == list(range(13))
     ((step, val_loss),) = scalars["val_loss"]

@@ -2,10 +2,11 @@
 the CUDA 12.8 toolkit prints them) and the loss inputs it and chip_smoke.py
 share, on the CPU. The tool itself needs a card and nvcc."""
 
+import pytest
 import torch
 
 from svbrdf_tpu_torch.utils import compare_builds
-from svbrdf_tpu_torch.utils.bench_setup import loss_inputs
+from svbrdf_tpu_torch.utils.bench_setup import loss_inputs, loss_inputs_near
 
 torch.set_num_threads(1)
 
@@ -54,6 +55,28 @@ def test_parse_sass_counts_each_kernel():
         "render_fwd": {"total": 2, "FMUL": 1}}
 
 
+@pytest.mark.parametrize("mangled, kernel", [
+    ("_ZN46_GLOBAL__N__593e2bb0_13_mixed_loss_cu_5433b71220mixed_fwdgrad_"
+     "kernelEPKfS1_S1_PfS2_iiiiiff", "mixed_fwdgrad"),
+    ("_ZN6svbrdf17value_loss_kernelILb1EEEvPKfS2_S2_Pfiiiiiff", "mixed_fwd"),
+    ("_ZN50_GLOBAL__N__42a2314e_17_rendering_loss_cu_f412259924rendering_"
+     "fwdgrad_kernelILb0EEEvPKfS2_S2_PfS3_S3_iiiiif", "render_fwdgrad"),
+    ("_ZN6svbrdf17value_loss_kernelILb0EEEvPKfS2_S2_Pfiiiiiff", "render_fwd"),
+    ("_ZN50_GLOBAL__N__42a2314e_17_rendering_loss_cu_f412259924rendering_"
+     "fwdgrad_kernelILb1EEEvPKfS2_S2_PfS3_S3_iiiiif", "render_fwdgrad_both"),
+])
+def test_current_kernel_names(mangled, kernel):
+    """The kernels of the current sources (one gradient kernel per loss,
+    the two value-only kernels one template) are found by their names in
+    cuobjdump's and ptxas's output, as the older trees' are above."""
+    sass = f"\t\tFunction : {mangled}\n        /*0000*/    FMUL R1, R2, R3 ;\n"
+    assert compare_builds.parse_sass(sass) == {
+        kernel: {"total": 1, "FMUL": 1}}
+    ptxas = (f"ptxas info    : Compiling entry function '{mangled}' for "
+             "'sm_90a'\nptxas info    : Used 61 registers, used 1 barriers\n")
+    assert compare_builds.ptxas_lines(ptxas) == {kernel: {"registers": 61}}
+
+
 def test_loss_inputs_on_cpu():
     """The kernels' inputs at a small size: (B, 12, H, W) planes with
     normals of unit length up to their 8-bit quantization (each component
@@ -69,6 +92,31 @@ def test_loss_inputs_on_cpu():
         assert float(planes[:, 3:].min()) >= 0.0
         assert float(planes[:, 3:].max()) <= 1.0
     assert not torch.equal(pred, gt)
+
+
+def test_loss_inputs_near_on_cpu():
+    """pred near gt: gt and the scenes those of loss_inputs, pred's normals
+    of unit length, its maps in [0, 1] and within sigma-sized noise of gt's
+    (6 sigma, or the normal's renormalization: gt's normals are unit only
+    up to their 8-bit quantization), and the same tensors for the same
+    seed."""
+    pred, gt, scenes9 = loss_inputs_near(2, 16, 9, sigma=1e-3, device="cpu")
+    _, gt_far, scenes_far = loss_inputs(2, 16, 9, device="cpu")
+    assert pred.shape == gt.shape == (2, 12, 16, 16)
+    assert pred.dtype == torch.float32 and pred.is_contiguous()
+    assert torch.equal(gt, gt_far) and torch.equal(scenes9, scenes_far)
+    norms = pred[:, 0:3].norm(dim=1)
+    assert float((norms - 1.0).abs().max()) < 1e-6
+    assert float(pred[:, 3:].min()) >= 0.0
+    assert float(pred[:, 3:].max()) <= 1.0
+    diff = (pred - gt).abs()
+    assert float(diff[:, 3:].max()) <= 6e-3
+    assert float(diff[:, :3].max()) <= 2e-2
+    assert float(diff.mean()) < 2e-3 and not torch.equal(pred, gt)
+    again = loss_inputs_near(2, 16, 9, sigma=1e-3, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(again, (pred, gt, scenes9)))
+    other = loss_inputs_near(2, 16, 9, sigma=1e-3, seed=1, device="cpu")
+    assert not torch.equal(other[0], pred)
 
 
 def test_kernel_tables_name_the_same_kernels():
