@@ -8,12 +8,14 @@ Phases, each raising (and so exiting non-zero) on any failure:
   2. build: every CUDA kernel compiled from csrc/ with nvcc, one process per
      source, all started together;
   3. kernels: each of the five loss kernels held against its plain torch
-     version at the paths' shapes (B=8, 12 x 256 x 256 f32 planes, S=9
-     scenes) on two input sets, pred far from gt (bench_setup.loss_inputs)
-     and pred near gt (loss_inputs_near: where validation runs once a model
-     trains), each loss also against the plain version in float64; and
-     checked to give a loss and gradients of exactly 0 for pred equal to
-     gt;
+     version at the paths' shapes (B=8, 12 x 256 x 256 planes, S=9 scenes)
+     on two input sets, pred far from gt (bench_setup.loss_inputs) and pred
+     near gt (loss_inputs_near: where validation runs once a model trains),
+     each in f32 and in bf16, each loss also against the plain version in
+     float64, the gradients of `both` (which shades on another algebra than
+     the training kernels) against it in float64; each bf16 instantiation
+     against the f32 one on the upcast planes; and checked to give a loss
+     and gradients of exactly 0 for pred equal to gt;
   4. agreement: a small single-view mixed-loss model and a small multi-view
      rendering-loss model: train step, eval loss and prediction on the card
      against the same program on the CPU;
@@ -24,10 +26,14 @@ Phases, each raising (and so exiting non-zero) on any failure:
        - multi-view model (3 synthesized views), rendering-only loss: 5
          train steps, 1 eval step, predict;
        - the rendering loss with the target's gradient under autograd;
-  6. times: CUDA-event medians of each kernel launched alone, its wrapper,
-     its plain version and each path's steps, each kernel's bound, and the
-     blocks of each kernel that fit one SM (the occupancy query of the
-     library, beside the ptxas register and spill lines of phase 2);
+       - one call each of the mixed loss and of the rendering loss with the
+         target's gradient on bf16 planes under autograd;
+  6. times: CUDA-event medians of each kernel launched alone (f32, and its
+     bf16 instantiation on the same planes in bf16), its wrapper, its plain
+     version and each path's steps, each kernel's bound for f32 and bf16
+     planes, and the blocks of each kernel that fit one SM (the occupancy
+     query of the library, beside the ptxas register and spill lines of
+     phase 2);
   7. the CLI, `svbrdf_tpu_torch.main.main([...])` in process at full width
      on 101 maps-only 1024 x 256 strips (two strips' maps written with the
      port's PNG writer, and symlinks; the 1 % split holds one out), each run
@@ -73,9 +79,9 @@ import torch
 # as one special-function operation (SFU) each; add, sub, mul, max and
 # compare-select as one FP32 operation, a fused multiply-add as two; abs
 # and negation are free operand modifiers. All five on the algebra of
-# csrc/value_shading.cuh, which needs the fewest (shading.cuh's, which the
-# gradient kernels run to be bit-exact, takes 310 FP32 / 46 SFU per scene
-# for the value alone):
+# csrc/value_shading.cuh, which needs the fewest and which the value
+# kernels and `both` run (shading.cuh's, which the two training kernels run
+# to be bit-exact, takes 310 FP32 / 46 SFU per scene for the value alone):
 #   value, per scene: geometry (v, l, h, w = 1 - (1 - VH)^5, 1/d^2 =
 #     (1/d)^2) 41 FP / 3 SFU; two sides (dots, clamps, NH^2, VN^2, LN^2 and
 #     their complements, scale) 52 / 0; six channel shades (denom, two
@@ -104,10 +110,10 @@ import torch
 #     value written (rendering fwdgrad 58, both 85); the division of the
 #     partials' sum by count is one operation per call.
 # The FP32 peak counts a fused multiply-add as two operations, so the FP32
-# time assumes every add pairs with a multiply. The gradient kernels are
-# built with -fmad=false and issue each add and multiply alone, at half
+# time assumes every add pairs with a multiply. The two training kernels
+# are built with -fmad=false and issue each add and multiply alone, at half
 # that rate: `fp32_nofma_us` in the bound's parts is that floor for their
-# counts.
+# counts (the value kernels and `both` write their FMAs out).
 FP32_PER_SCENE = {"mixed_fwdgrad": 398, "mixed_fwd": 231,
                   "render_fwdgrad": 398, "render_fwd": 231,
                   "render_fwdgrad_both": 556}
@@ -117,7 +123,9 @@ FP32_PER_PIXEL = {"mixed_fwdgrad": 175, "mixed_fwd": 70, "render_fwdgrad": 58,
                   "render_fwd": 31, "render_fwdgrad_both": 85}
 SFU_PER_PIXEL = {"mixed_fwdgrad": 12, "mixed_fwd": 12, "render_fwdgrad": 0,
                  "render_fwd": 0, "render_fwdgrad_both": 0}
-# Floats each kernel must move per pixel: pred and gt in, gradients out.
+# Plane values each kernel must move per pixel: pred and gt in, gradients
+# out; 4 bytes each for f32 planes, 2 for bf16 (the compute terms are the
+# same: every kernel shades in f32).
 FLOATS_PER_PIXEL = {"mixed_fwdgrad": 36, "mixed_fwd": 24,
                     "render_fwdgrad": 36, "render_fwd": 24,
                     "render_fwdgrad_both": 48}
@@ -226,12 +234,12 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
 
 
 def bound(kernel: str, batch: int, height: int, width: int, n_scenes: int,
-          rates: dict) -> tuple:
-    """(bound_ms, bound_by, parts in us) for one call: the larger of the
-    bytes it must move over the memory rate and its operations over the
-    peak rates."""
+          rates: dict, plane_bytes: int = 4) -> tuple:
+    """(bound_ms, bound_by, parts in us) for one call on planes of
+    `plane_bytes` bytes a value: the larger of the bytes it must move over
+    the memory rate and its operations over the peak rates."""
     pixels = batch * height * width
-    bytes_moved = (pixels * FLOATS_PER_PIXEL[kernel] * 4
+    bytes_moved = (pixels * FLOATS_PER_PIXEL[kernel] * plane_bytes
                    + batch * n_scenes * 9 * 4)
     fp32 = pixels * (n_scenes * FP32_PER_SCENE[kernel]
                      + FP32_PER_PIXEL[kernel])
@@ -289,16 +297,75 @@ def _loss64(name: str, inputs) -> float:
     return float(plain(*(t.double() for t in inputs)))
 
 
+def _normwise(actual, expected, keep=None) -> float:
+    """||actual - expected|| / ||expected|| in float64, over the pixels
+    where `keep` ((B, H, W)) is true, or all."""
+    actual, expected = actual.double(), expected.double()
+    if keep is not None:
+        actual, expected = actual * keep[:, None], expected * keep[:, None]
+    return float((actual - expected).norm() / expected.norm())
+
+
+def _hold_both(label, out, ref, inputs) -> dict:
+    """The kernel with both gradients (csrc/value_vjp.cuh) at its
+    tolerance, against the plain version in float64 on the same planes:
+    dpred and dgt each normwise no further than 2x the f32 (for bf16
+    planes: the bf16) plain version's own distance, and for f32 planes
+    <= 2e-4, over the pixels at least render_fused.KINK_MARGIN from a
+    point where the loss is not differentiable (render_fused.kink_distance,
+    in float64). Closer, an f32 evaluation may take either one-sided
+    derivative, and one such pixel can put the plain version itself 1e-2
+    from float64 over the whole image; those distances are printed."""
+    from svbrdf_tpu_torch.ops import render_fused as rf
+
+    inputs64 = [t.double() for t in inputs]
+    ref64 = rf.rendering_loss_fwdgrad_both_plain(*inputs64)
+    keep = rf.kink_distance(*inputs64) >= rf.KINK_MARGIN
+    errs = {"kink_pixels": 1.0 - float(keep.double().mean())}
+    for grad_name, grad, plain, grad64 in zip(("dpred", "dgt"), out[1:],
+                                              ref[1:], ref64[1:]):
+        kernel_err = _normwise(grad, grad64, keep)
+        plain_err = _normwise(plain, grad64, keep)
+        errs[grad_name] = {
+            "float64_normwise": kernel_err,
+            "plain_float64_normwise": plain_err,
+            "float64_normwise_all": _normwise(grad, grad64),
+            "plain_float64_normwise_all": _normwise(plain, grad64),
+            "plain_normwise": _normwise(grad, plain)}
+        limit = 2.0 * plain_err
+        if inputs[0].dtype == torch.float32:
+            limit = min(limit, 2e-4)
+        e = errs[grad_name]
+        log(f"render_fwdgrad_both [{label}] {grad_name}: float64 normwise "
+            f"kernel {kernel_err:.3g}, plain {plain_err:.3g} (limit "
+            f"{limit:.3g}) away from the kinks "
+            f"({errs['kink_pixels']:.3%} of pixels set apart); over all "
+            f"pixels kernel {e['float64_normwise_all']:.3g}, plain "
+            f"{e['plain_float64_normwise_all']:.3g}; kernel vs plain "
+            f"{e['plain_normwise']:.3g}")
+        if kernel_err > limit:
+            raise RuntimeError(f"render_fwdgrad_both {grad_name} on {label}: "
+                               f"float64 normwise {kernel_err:.3g} > "
+                               f"{limit:.3g}")
+    return errs
+
+
 def phase_kernels(input_sets: dict) -> dict:
     """Each kernel against its plain version on each input set (pred far
-    from gt; pred near gt, as near convergence): loss rel <= 1e-5, every
-    gradient's max abs error <= 1e-6 * its max |value|; the kernel's and the
-    f32 plain version's loss against the plain version in float64; and
-    exactly 0 for pred equal to gt."""
+    from gt; pred near gt, as near convergence; each in f32 and, labelled
+    " bf16", as bf16 planes): loss rel <= 1e-5; the two training kernels'
+    gradients bit-exact (f32: every value within 1e-6 * its max |value|,
+    which on an H100 they meet to the last bit); `both` as _hold_both says;
+    each loss against the plain version in float64; each bf16 launch equal
+    to the f32 instantiation's on the upcast planes, the gradients rounded
+    once, and its loss near the f32 loss on the unquantized planes
+    (_hold_bf16); exactly 0 for pred equal to gt; a NaN in pred gives
+    `both` a NaN loss."""
     from svbrdf_tpu_torch.ops import render_fused as rf
 
     errors = {name: {} for name in rf.PLAIN_VERSIONS}
     for label, inputs in input_sets.items():
+        bf16 = inputs[0].dtype == torch.bfloat16
         loss64 = {kind: _loss64(kind, inputs) for kind in ("mixed", "render")}
         for name, plain in rf.PLAIN_VERSIONS.items():
             out = _outputs(rf.CUDA_WRAPPERS[name](*inputs))
@@ -312,26 +379,31 @@ def phase_kernels(input_sets: dict) -> dict:
                 if not torch.isfinite(g).all():
                     raise RuntimeError(f"{name} produced non-finite gradient "
                                        f"{i} on {label}")
-                err = float((g - g_ref).abs().max())
-                scale = float(g_ref.abs().max())
+                if g.dtype != inputs[0].dtype:
+                    raise RuntimeError(f"{name} gradient {i} is {g.dtype}")
+                err = float((g.float() - g_ref.float()).abs().max())
+                scale = float(g_ref.float().abs().max())
                 grad_errs.append(err)
                 parts.append(f"grad {i}: max |ref| {scale:.3g}, max abs err "
                              f"{err:.3g} (ratio {err / scale:.3g})")
-                # The gradient kernels round every op as the plain versions
+                if name == "render_fwdgrad_both":
+                    continue  # held by _hold_both below
+                # The training kernels round every op as the plain versions
                 # do on the card (no FMA contraction; x / c as x * (1/c),
                 # as torch takes a tensor divided by a Python number), and
                 # with torch BIT_EXACT_TORCH on an H100 the two agree to the
-                # last bit. A kernel that rounds one op otherwise is ~1e-4 *
-                # max|grad| away (9.8e-5 measured with IEEE divisions by
-                # pi): a normal's gradient scales one ulp by up to
-                # 1/denom^3 ~ 1e9, and a log-difference within rounding of
-                # 0 flips |x|'s sign. So another torch that rounds these ops
+                # last bit, in f32 and so in bf16 (rounded once each). A
+                # kernel that rounds one op otherwise is ~1e-4 * max|grad|
+                # away (9.8e-5 measured with IEEE divisions by pi): a
+                # normal's gradient scales one ulp by up to 1/denom^3 ~
+                # 1e9, and a log-difference within rounding of 0 flips
+                # |x|'s sign. So another torch that rounds these ops
                 # otherwise fails this check with no fault in the kernel;
                 # the message says so.
-                if err > 1e-6 * scale:
+                if (not torch.equal(g, g_ref)) if bf16 else err > 1e-6 * scale:
                     raise RuntimeError(
                         f"{name} gradient {i} disagrees with its plain "
-                        f"version on {label}: {err:.3g} > 1e-6 * {scale:.3g}; "
+                        f"version on {label}: {err:.3g} vs max {scale:.3g}; "
                         f"the two agreed to the last bit with torch "
                         f"{BIT_EXACT_TORCH}, this is torch "
                         f"{torch.__version__}")
@@ -342,9 +414,9 @@ def phase_kernels(input_sets: dict) -> dict:
                 f"{ref_loss:.9g} rel {rel:.3g}; float64 {ref64:.12g}: "
                 f"kernel rel {rel64:.3g}, f32 plain rel {plain_rel64:.3g}"
                 + "".join(f"; {p}" for p in parts))
-            # The value-only kernels round otherwise than their plain
-            # versions (csrc/value_shading.cuh) and are held here, on both
-            # input sets; the gradient kernels also agree to the last bit.
+            # The value-only kernels and `both` round otherwise than their
+            # plain versions (csrc/value_shading.cuh, csrc/value_vjp.cuh)
+            # and are held here, on every input set.
             if rel > 1e-5:
                 raise RuntimeError(f"{name} loss disagrees with its plain "
                                    f"version on {label}: rel {rel:.3g} > 1e-5")
@@ -353,17 +425,65 @@ def phase_kernels(input_sets: dict) -> dict:
                                 else abs(loss - ref_loss)),
                 "loss_rel_err": rel, "float64_rel": rel64,
                 "plain_float64_rel": plain_rel64}
+            if name == "render_fwdgrad_both":
+                errors[name][label].update(_hold_both(label, out, ref,
+                                                      inputs))
+            if bf16:
+                errors[name][label].update(_hold_bf16(
+                    name, label, out, inputs, input_sets[label[:-5]]))
     # pred equal to gt: both sides must round alike, to a loss and gradients
-    # of exactly 0, as the plain versions and the TPU kernels give.
-    _, gt_t, scenes9 = next(iter(input_sets.values()))
-    for name in rf.PLAIN_VERSIONS:
-        zero = _outputs(rf.CUDA_WRAPPERS[name](gt_t.clone(), gt_t, scenes9))
-        nonzero = [int(torch.count_nonzero(g)) for g in zero[1:]]
-        log(f"{name} pred == gt: loss {float(zero[0])!r}, non-zero gradient "
-            f"values {nonzero}")
-        if float(zero[0]) != 0.0 or any(nonzero):
-            raise RuntimeError(f"{name} does not give 0 for pred equal to gt")
+    # of exactly 0, as the plain versions and the TPU kernels give; and a
+    # NaN in pred gives `both` a NaN loss, as the value kernels.
+    for label, (pred_t, gt_t, scenes9) in input_sets.items():
+        if "near" in label:
+            continue
+        for name in rf.PLAIN_VERSIONS:
+            zero = _outputs(rf.CUDA_WRAPPERS[name](gt_t.clone(), gt_t,
+                                                   scenes9))
+            nonzero = [int(torch.count_nonzero(g)) for g in zero[1:]]
+            log(f"{name} [{label}] pred == gt: loss {float(zero[0])!r}, "
+                f"non-zero gradient values {nonzero}")
+            if float(zero[0]) != 0.0 or any(nonzero):
+                raise RuntimeError(f"{name} does not give 0 for pred equal "
+                                   f"to gt on {label}")
+        bad = pred_t.clone()
+        bad[1, 3, 7, 5] = math.nan
+        nan_loss = float(rf.rendering_loss_fwdgrad_both_cuda(bad, gt_t,
+                                                            scenes9)[0])
+        log(f"render_fwdgrad_both [{label}] NaN in pred: loss {nan_loss!r}")
+        if not math.isnan(nan_loss):
+            raise RuntimeError("render_fwdgrad_both: a NaN in pred gives a "
+                               "loss that is not NaN")
     return errors
+
+
+def _hold_bf16(name, label, out, inputs, inputs32) -> dict:
+    """A bf16 launch of kernel `name` against its f32 instantiation on the
+    upcast planes (the same loss, each gradient that one rounded once to
+    bf16) and its loss against the f32 loss on the unquantized planes
+    `inputs32`: rel <= 2e-2 with pred far from gt, as the JAX package's
+    bf16 test holds it. Near gt the rel is printed only: rounding each side
+    to bf16 (~2e-3) moves it further than the 1e-3 that separates them."""
+    from svbrdf_tpu_torch.ops import render_fused as rf
+
+    pred_t, gt_t, scenes9 = inputs
+    wrapper = rf.CUDA_WRAPPERS[name]
+    out32 = _outputs(wrapper(pred_t.float(), gt_t.float(), scenes9))
+    same = torch.equal(out[0], out32[0]) and all(
+        torch.equal(g, g32.to(torch.bfloat16))
+        for g, g32 in zip(out[1:], out32[1:]))
+    loss32 = float(_outputs(wrapper(*inputs32))[0])
+    rel32 = abs(float(out[0]) - loss32) / abs(loss32)
+    log(f"{name} [{label}]: f32 instantiation on the upcast planes, "
+        f"rounded: {'equal' if same else 'DIFFERENT'}; loss against f32 "
+        f"on the unquantized planes rel {rel32:.3g}")
+    if not same:
+        raise RuntimeError(f"{name} on {label}: the bf16 instantiation "
+                           f"differs from the f32 one on the upcast planes")
+    if rel32 > 2e-2 and "near" not in label:
+        raise RuntimeError(f"{name} on {label}: bf16 loss rel {rel32:.3g} "
+                           f"from the f32 loss > 2e-2")
+    return {"f32_loss_rel": rel32}
 
 
 def _agreement(model_cls, loss_kind: str, n_views: int) -> None:
@@ -516,9 +636,59 @@ def phase_target_grad(inputs) -> dict:
     return counts
 
 
-def kernel_times(inputs, rates: dict) -> dict:
+BF16_PATHS = {
+    "bf16_mixed": ("mixed_loss_fused_planes", {}, "mixed_fwdgrad"),
+    "bf16_rendering_target_grad": ("rendering_loss_fused_planes",
+                                   {"want_target_grad": True},
+                                   "render_fwdgrad_both"),
+}
+
+
+def phase_bf16_calls(inputs) -> dict:
+    """One call each through the planes entries on bf16 planes under
+    autograd (the mixed loss; the rendering loss with the target's
+    gradient), both inputs requiring grad, every launch counter set to 0
+    just before and read just after: one launch of the value+gradient
+    kernel and none of any other; each .grad is bf16 and equals that
+    kernel's gradient times the upstream scalar in f32, rounded once."""
+    from svbrdf_tpu_torch.ops import render_fused as rf
+    from svbrdf_tpu_torch.scene import Scene
+
+    p, g, s9 = inputs
+    scenes = Scene(s9[..., 0:3], s9[..., 3:6], s9[..., 6:9])
+    upstream = 3.1  # not a bf16 value
+    counts = {}
+    for path, (entry, kw, kernel) in BF16_PATHS.items():
+        pred, gt = p.clone().requires_grad_(), g.clone().requires_grad_()
+        torch.cuda.synchronize()
+        _zero_counts()
+        loss = getattr(rf, entry)(pred, gt, scenes, **kw)
+        (upstream * loss).backward()
+        torch.cuda.synchronize()
+        counts[path] = _counts()
+        log(f"{path}: loss {float(loss.detach())!r}; launches {counts[path]}")
+        _expect(counts[path], {kernel: 1}, path)
+        # The comparison's own launch, after the counts are read.
+        ref_loss, *grads = rf.CUDA_WRAPPERS[kernel](p, g, s9)
+        # Without the target's gradient the target is detached.
+        have = [pred.grad, gt.grad] if len(grads) == 2 else [pred.grad]
+        ok = torch.equal(loss.detach(), ref_loss) and (
+            len(grads) == 2 or gt.grad is None)
+        for grad, d in zip(have, grads):
+            ok = ok and grad.dtype == torch.bfloat16 and torch.equal(
+                grad, (d.float() * upstream).to(torch.bfloat16))
+        if not ok:
+            raise RuntimeError(f"{path}: the gradients are not the kernel's "
+                               f"times {upstream}, rounded once to bf16")
+        log(f"{path}: .grad bf16, equal to (d.float() * {upstream})"
+            f".to(bf16)")
+    return counts
+
+
+def kernel_times(inputs, inputs_bf16, rates: dict) -> dict:
     """Each kernel launched alone and through its wrapper, its plain
-    version, and its bound at these inputs."""
+    version, and its bound at these inputs; and its bf16 instantiation
+    launched alone on the same planes in bf16, with that call's bound."""
     from svbrdf_tpu_torch.ops import render_fused as rf
     from svbrdf_tpu_torch.utils.bench_setup import kernel_ms
 
@@ -533,13 +703,22 @@ def kernel_times(inputs, rates: dict) -> dict:
         bound_ms, bound_by, parts = bound(name, batch, height, width,
                                           n_scenes, rates)
         per_sm = rf.blocks_per_sm(name, n_scenes)
+        bf16_ms = kernel_ms(name, inputs_bf16)
+        bf16_bound, bf16_by, bf16_parts = bound(name, batch, height, width,
+                                                n_scenes, rates, 2)
+        bf16_per_sm = rf.blocks_per_sm(name, n_scenes, torch.bfloat16)
         out[name] = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bound_parts_us": parts, "blocks_per_sm": per_sm}
+                     "bound_parts_us": parts, "blocks_per_sm": per_sm,
+                     "bf16_ms": bf16_ms, "bf16_bound_ms": bf16_bound,
+                     "bf16_bound_by": bf16_by, "bf16_bound_parts_us": bf16_parts,
+                     "bf16_blocks_per_sm": bf16_per_sm}
         log(f"{name}: kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f} ms), "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
             + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
-            + f"), {per_sm} blocks per SM")
+            + f"), {per_sm} blocks per SM; bf16 kernel {bf16_ms:.4f} ms, "
+            f"bound {bf16_bound:.4f} ms ({bf16_by}, bytes "
+            f"{bf16_parts['bytes_us']:.2f} us), {bf16_per_sm} blocks per SM")
     return out
 
 
@@ -791,9 +970,14 @@ def main() -> None:
                                                     loss_inputs_near)
 
     shape = (MAIN["batch"], MAIN["size"], MAIN["n_scenes"])
-    inputs = loss_inputs(*shape)
-    errors = phase_kernels({"loss_inputs": inputs,
-                            "loss_inputs_near": loss_inputs_near(*shape)})
+    input_sets = {}
+    for suffix, dtype in (("", torch.float32), (" bf16", torch.bfloat16)):
+        input_sets["loss_inputs" + suffix] = loss_inputs(*shape, dtype=dtype)
+        input_sets["loss_inputs_near" + suffix] = loss_inputs_near(
+            *shape, dtype=dtype)
+    inputs, inputs_bf16 = input_sets["loss_inputs"], input_sets[
+        "loss_inputs bf16"]
+    errors = phase_kernels(input_sets)
     phase_agreement()
 
     counts, steps_ms = {}, {}
@@ -806,7 +990,8 @@ def main() -> None:
         del program
         torch.cuda.empty_cache()
     counts[TARGET_GRAD_PATH] = phase_target_grad(inputs)
-    times = kernel_times(inputs, rates)
+    counts.update(phase_bf16_calls(inputs_bf16))
+    times = kernel_times(inputs, inputs_bf16, rates)
     cli = phase_cli(steps_ms)
     kernels = []
     for k in KERNELS:
@@ -824,6 +1009,11 @@ def main() -> None:
             bound_by=times[k]["bound_by"],
             bound_parts_us=times[k]["bound_parts_us"],
             blocks_per_sm=times[k]["blocks_per_sm"], library_ms=None,
+            bf16_ms=times[k]["bf16_ms"],
+            bf16_bound_ms=times[k]["bf16_bound_ms"],
+            bf16_bound_by=times[k]["bf16_bound_by"],
+            bf16_blocks_per_sm=times[k]["bf16_blocks_per_sm"],
+            bf16_launches={path: counts[path][k] for path in BF16_PATHS},
             cli_launches={run: c["launches"][k]
                           for run, c in cli["runs"].items()}))
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -3,7 +3,9 @@
 // Replaces the TPU kernels of svbrdf_tpu/ops/render_pallas.py:
 //   _mixed_fwdgrad_kernel  -> svbrdf_mixed_loss_fwdgrad (training step)
 //   _mixed_fwd_kernel      -> svbrdf_mixed_loss_fwd     (validation step)
-// at fold=1 (channel planes (B, 12, H, W), f32). The gradient kernel's
+// at fold=1 (channel planes (B, 12, H, W), f32 or bf16: every kernel loads
+// bf16 into f32, shades in f32 and rounds dpred once to bf16; the C
+// entries with a _bf16 suffix take bf16 planes). The gradient kernel's
 // shading, its VJP, the scene loop and the block reduction are in
 // shading.cuh, shared with rendering_loss.cu; the value-only kernel and its
 // own shading are in value_shading.cuh, shared with rendering_loss.cu's.
@@ -69,17 +71,19 @@ namespace {
 
 using namespace svbrdf;
 
-// The value + gradient kernel; the value-only kernel is
-// value_loss_kernel<true> (value_shading.cuh).
+// The value + gradient kernel for planes of type Plane (float or
+// __nv_bfloat16: loaded into f32, dpred rounded once to Plane); the
+// value-only kernel is value_loss_kernel<true, Plane> (value_shading.cuh).
+template <class Plane>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-mixed_fwdgrad_kernel(const float* __restrict__ pred,
-                     const float* __restrict__ gt,
+mixed_fwdgrad_kernel(const Plane* __restrict__ pred,
+                     const Plane* __restrict__ gt,
                      const float* __restrict__ scenes,
-                     float* __restrict__ partials, float* __restrict__ dpred,
+                     float* __restrict__ partials, Plane* __restrict__ dpred,
                      int H, int W, int S, int row_offset, int full_height,
                      float inv_render, float l1_coef) {
   extern __shared__ float smem[];
-  float* scene_s = smem + shared_columns(1) * kThreads;
+  float* scene_s = smem + kSharedColumns * kThreads;
   load_scenes(scenes, S, scene_s);
 
   const int b = blockIdx.y;
@@ -93,15 +97,15 @@ mixed_fwdgrad_kernel(const float* __restrict__ pred,
     SharedValues dp(smem + 24 * kThreads + threadIdx.x);
 #pragma unroll
     for (int c = 0; c < 12; ++c) {
-      P.set(c, pred[base + (size_t)c * hw]);
-      T.set(c, gt[base + (size_t)c * hw]);
+      P.set(c, to_f32(pred[base + (size_t)c * hw]));
+      T.set(c, to_f32(gt[base + (size_t)c * hw]));
       dp.set(c, 0.f);
     }
     const int row = p / W;
     const int col = p - row * W;
     const float x = patch_x(col, W);
     const float y = patch_y(row + row_offset, full_height);
-    const float render_sum = scene_loop<false>(P, T, scene_s, S, x, y, dp, dp);
+    const float render_sum = scene_loop(P, T, scene_s, S, x, y, dp);
 
     // _l1_tile: plain L1 on normals (0-2) and roughness (6-8), L1 of
     // log(x + 0.01) on diffuse (3-5) and specular (9-11).
@@ -124,10 +128,31 @@ mixed_fwdgrad_kernel(const float* __restrict__ pred,
     value = render_sum * inv_render + l1_coef * l1;
 #pragma unroll
     for (int c = 0; c < 12; ++c) {
-      dpred[base + (size_t)c * hw] = dp[c] * inv_render + l1_coef * gl1[c];
+      dpred[base + (size_t)c * hw] =
+          from_f32<Plane>(dp[c] * inv_render + l1_coef * gl1[c]);
     }
   }
   block_partial(value, partials);
+}
+
+template <class Plane>
+int mixed_fwdgrad(const void* pred, const void* gt, const void* scenes,
+                  void* partials, void* dpred, int B, int H, int W, int S,
+                  int row_offset, int full_height, float inv_render,
+                  float l1_coef, void* stream) {
+  return launch_tiles(mixed_fwdgrad_kernel<Plane>, shared_bytes(S), B, H * W,
+                      stream, pred, gt, scenes, partials, dpred, H, W, S,
+                      row_offset, full_height, inv_render, l1_coef);
+}
+
+template <class Plane>
+int mixed_fwd(const void* pred, const void* gt, const void* scenes,
+              void* partials, int B, int H, int W, int S, int row_offset,
+              int full_height, float inv_render, float l1_coef,
+              void* stream) {
+  return launch_tiles(value_loss_kernel<true, Plane>, value_shared_bytes(S),
+                      B, H * W, stream, pred, gt, scenes, partials, H, W, S,
+                      row_offset, full_height, inv_render, l1_coef);
 }
 
 }  // namespace
@@ -139,21 +164,39 @@ int svbrdf_mixed_loss_threads() { return kThreads; }
 
 // Blocks of each kernel that fit one SM at S scenes, or minus a CUDA error.
 int svbrdf_mixed_loss_fwdgrad_blocks_per_sm(int S) {
-  return blocks_per_sm(mixed_fwdgrad_kernel, shared_bytes(1, S));
+  return blocks_per_sm(mixed_fwdgrad_kernel<float>, shared_bytes(S));
 }
 int svbrdf_mixed_loss_fwd_blocks_per_sm(int S) {
-  return blocks_per_sm(value_loss_kernel<true>, value_shared_bytes(S));
+  return blocks_per_sm(value_loss_kernel<true, float>, value_shared_bytes(S));
+}
+int svbrdf_mixed_loss_fwdgrad_bf16_blocks_per_sm(int S) {
+  return blocks_per_sm(mixed_fwdgrad_kernel<__nv_bfloat16>, shared_bytes(S));
+}
+int svbrdf_mixed_loss_fwd_bf16_blocks_per_sm(int S) {
+  return blocks_per_sm(value_loss_kernel<true, __nv_bfloat16>,
+                       value_shared_bytes(S));
 }
 
-// Loss partials (B * ceil(H*W/threads) floats) and dpred (B, 12, H, W).
+// Loss partials (B * ceil(H*W/threads) floats) and dpred (B, 12, H, W):
+// f32 planes, and (_bf16) bf16 planes with a bf16 dpred.
 int svbrdf_mixed_loss_fwdgrad(const void* pred, const void* gt,
                               const void* scenes, void* partials, void* dpred,
                               int B, int H, int W, int S, int row_offset,
                               int full_height, float inv_render, float l1_coef,
                               void* stream) {
-  return launch_tiles(mixed_fwdgrad_kernel, shared_bytes(1, S), B, H * W,
-                      stream, pred, gt, scenes, partials, dpred, H, W, S,
-                      row_offset, full_height, inv_render, l1_coef);
+  return mixed_fwdgrad<float>(pred, gt, scenes, partials, dpred, B, H, W, S,
+                              row_offset, full_height, inv_render, l1_coef,
+                              stream);
+}
+int svbrdf_mixed_loss_fwdgrad_bf16(const void* pred, const void* gt,
+                                   const void* scenes, void* partials,
+                                   void* dpred, int B, int H, int W, int S,
+                                   int row_offset, int full_height,
+                                   float inv_render, float l1_coef,
+                                   void* stream) {
+  return mixed_fwdgrad<__nv_bfloat16>(pred, gt, scenes, partials, dpred, B, H,
+                                      W, S, row_offset, full_height,
+                                      inv_render, l1_coef, stream);
 }
 
 // Loss partials only.
@@ -161,9 +204,17 @@ int svbrdf_mixed_loss_fwd(const void* pred, const void* gt, const void* scenes,
                           void* partials, int B, int H, int W, int S,
                           int row_offset, int full_height, float inv_render,
                           float l1_coef, void* stream) {
-  return launch_tiles(value_loss_kernel<true>, value_shared_bytes(S), B,
-                      H * W, stream, pred, gt, scenes, partials, H, W, S,
-                      row_offset, full_height, inv_render, l1_coef);
+  return mixed_fwd<float>(pred, gt, scenes, partials, B, H, W, S, row_offset,
+                          full_height, inv_render, l1_coef, stream);
+}
+int svbrdf_mixed_loss_fwd_bf16(const void* pred, const void* gt,
+                               const void* scenes, void* partials, int B,
+                               int H, int W, int S, int row_offset,
+                               int full_height, float inv_render,
+                               float l1_coef, void* stream) {
+  return mixed_fwd<__nv_bfloat16>(pred, gt, scenes, partials, B, H, W, S,
+                                  row_offset, full_height, inv_render,
+                                  l1_coef, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Per-pixel Cook-Torrance shading and its hand-derived VJP, shared by the
-// gradient kernels of mixed_loss.cu and rendering_loss.cu (the value-only
-// kernels have their own shading, value_shading.cuh), with the constants,
+// two training kernels of mixed_loss.cu and rendering_loss.cu (the
+// value-only kernels and the kernel with both gradients have their own,
+// value_shading.cuh and value_vjp.cuh), with the constants, plane types,
 // patch coordinates and block reduction that all the kernels share.
 //
 // Device translation of the in-kernel helpers of
@@ -37,9 +38,29 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace svbrdf {
+
+// The plane types the kernels take: float, or __nv_bfloat16 loaded into
+// f32 (every kernel shades in f32) and stored rounded to nearest even, as
+// torch's .to(torch.bfloat16) rounds.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <class Plane>
+__device__ __forceinline__ Plane from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 constexpr int kThreads = 256;
 constexpr float kPi = 3.14159265358979323846f;
@@ -257,36 +278,30 @@ __device__ __forceinline__ void side_vjp_normal(const NormalAcc& acc,
   d.add(2, cn * g.hz + cv * g.vz + cl * g.lz);
 }
 
-// Dynamic shared memory of a gradient kernel with `gradients` gradients (1
-// or 2): the columns of pred, gt and each gradient, then the item's S * 9
-// scene scalars, which start at float shared_columns(.) * kThreads.
-__host__ __device__ constexpr int shared_columns(int gradients) {
-  return 24 + 12 * gradients;
-}
+// Dynamic shared memory of a gradient kernel: the columns of pred, gt and
+// dpred, then the item's S * 9 scene scalars, which start at float
+// kSharedColumns * kThreads.
+constexpr int kSharedColumns = 36;
 
-inline size_t shared_bytes(int gradients, int S) {
-  return ((size_t)shared_columns(gradients) * kThreads + (size_t)S * 9) *
-         sizeof(float);
+inline size_t shared_bytes(int S) {
+  return ((size_t)kSharedColumns * kThreads + (size_t)S * 9) * sizeof(float);
 }
 
 // _scene_loss_and_grads over the S scenes of the block's item at patch
 // point (x, y): returns sum |log(r_p + 0.1) - log(r_t + 0.1)| over scenes
-// and channels, adds the pred side's VJP to dp and, with kTargetGrad, the
-// gt side's to dt.
-template <bool kTargetGrad>
+// and channels and adds the pred side's VJP to dp.
 __device__ __forceinline__ float scene_loop(const SharedValues& P,
                                             const SharedValues& T,
                                             const float* scene_s, int S,
                                             float x, float y,
-                                            SharedValues& dp,
-                                            SharedValues& dt) {
+                                            SharedValues& dp) {
   float sum = 0.f;
   for (int s = 0; s < S; ++s) {
     const float* sc = scene_s + s * 9;
     const Geometry g = scene_geometry(sc, x, y);
     const Side sp = shade_side(P[0], P[1], P[2], g);
     const Side st = shade_side(T[0], T[1], T[2], g);
-    NormalAcc acc_p, acc_t;
+    NormalAcc acc_p;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const float color = sc[6 + c];
@@ -298,16 +313,10 @@ __device__ __forceinline__ float scene_loop(const SharedValues& P,
       const float rt = kt.out + kEpsRender;
       const float diff = logf(rp) - logf(rt);
       sum += fabsf(diff);
-      const float sgn = sign0(diff);
-      side_vjp_channel(sgn * (1.f / rp), color, P[3 + c], P[6 + c], kp, sp, g,
-                       dp, c, acc_p);
-      if (kTargetGrad) {
-        side_vjp_channel(-sgn * (1.f / rt), color, T[3 + c], T[6 + c], kt, st,
-                         g, dt, c, acc_t);
-      }
+      side_vjp_channel(sign0(diff) * (1.f / rp), color, P[3 + c], P[6 + c],
+                       kp, sp, g, dp, c, acc_p);
     }
     side_vjp_normal(acc_p, sp, g, dp);
-    if (kTargetGrad) side_vjp_normal(acc_t, st, g, dt);
   }
   return sum;
 }
@@ -347,8 +356,8 @@ __device__ __forceinline__ void load_scenes(const float* scenes, int S,
 }
 
 // Lets `kernel` take `smem` bytes of dynamic shared memory: above the
-// default 48 KB a kernel must ask for it (the `both` variant of
-// rendering_loss.cu keeps 48 columns, 48 KB, and its scenes).
+// default 48 KB a kernel must ask for it (a gradient kernel's 36 columns
+// take 36 KB, and many scenes would pass it).
 template <class Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;

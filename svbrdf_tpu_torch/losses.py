@@ -67,8 +67,8 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
     and 6 specular scenes per item from `generator` unless `scenes` is
     given. kinds "mixed" and "rendering" go through the fused kernels
     (ops/render_fused): the CUDA kernels for CUDA tensors, their plain
-    versions for CPU tensors; the target gets no gradient. kind "l1" is
-    plain.
+    versions for CPU tensors; the target is cast to pred's dtype (f32 or
+    bf16 planes) and gets no gradient. kind "l1" is plain.
     """
     if renderer != "local":
         raise NotImplementedError(
@@ -89,14 +89,14 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
     if kind == "rendering":
         def rendering_fn(pred, target, generator=None, scenes=None):
             return render_fused.rendering_loss_fused_planes(
-                to_planes(pred), to_planes(target),
+                to_planes(pred), to_planes(target.to(pred.dtype)),
                 draw(pred, generator, scenes))
 
         return rendering_fn
     if kind == "mixed":
         def mixed_fn(pred, target, generator=None, scenes=None):
             return render_fused.mixed_loss_fused_planes(
-                to_planes(pred), to_planes(target),
+                to_planes(pred), to_planes(target.to(pred.dtype)),
                 draw(pred, generator, scenes), l1_weight)
 
         return mixed_fn

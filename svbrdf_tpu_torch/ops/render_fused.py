@@ -16,10 +16,18 @@ kernels from two sources replace its five TPU kernels:
   differentiate with respect to the target too).
 
 Each has a plain torch version here (`*_plain`): a whole-image, vectorized
-translation of the same hand-VJP math. The CPU tests hold the plain
-versions against JAX, and the chip smoke test holds the kernels against
-the plain versions. The dispatching wrappers use the plain version only
-for CPU tensors; for CUDA tensors they launch the kernel or raise.
+translation of the same hand-VJP math. The two training kernels' follow
+csrc/shading.cuh op for op (the kernels are bit-exact against them);
+`both`'s runs the value algebra of csrc/value_shading.cuh with its VJP
+(csrc/value_vjp.cuh), and it and the value-only kernels are held to their
+plain versions at a tolerance. The CPU tests hold the plain versions
+against JAX, and the chip smoke test holds the kernels against the plain
+versions. The dispatching wrappers use the plain version only for CPU
+tensors; for CUDA tensors they launch the kernel or raise.
+
+Planes are f32 or bf16, pred and gt in one dtype, as the JAX entries take
+them: every kernel and plain version computes in f32, returns the loss in
+f32 and writes dpred and dgt in the planes' dtype.
 
 `_FusedMixed` and `_FusedRendering` (torch.autograd.Functions) launch the
 value+gradient kernel in forward and save the gradients; backward is a
@@ -30,6 +38,7 @@ value-only kernel runs.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -75,6 +84,22 @@ def _patch_xy(height, width, row_offset, full_height, device):
 # Per-plane tensors are (B, H, W); scene scalars are (B, 1, 1). Derivative
 # conventions at the clamps follow autodiff of the same expressions:
 # d max(x, k)/dx = [x >= k], chi+ factors are constants.
+
+
+def _plain_in_f32(plain):
+    """`plain` for planes in any dtype the kernels take: bf16 planes are
+    computed on in f32, as the kernels load them, and the gradients rounded
+    once to bf16, as the kernels store them. The loss stays f32."""
+    @functools.wraps(plain)
+    def fn(pred_t, gt_t, scenes9, *args, **kwargs):
+        if pred_t.dtype != torch.bfloat16:
+            return plain(pred_t, gt_t, scenes9, *args, **kwargs)
+        out = plain(pred_t.float(), gt_t.float(), scenes9, *args, **kwargs)
+        if not isinstance(out, tuple):
+            return out
+        return (out[0], *(d.to(torch.bfloat16) for d in out[1:]))
+
+    return fn
 
 
 def _scene_geometry(sc, x, y):
@@ -255,6 +280,7 @@ def _mixed_plain(pred_t, gt_t, scenes9, row_offset, global_height,
     return loss, dpred * inv_render + l1_coef * dl1
 
 
+@_plain_in_f32
 def mixed_loss_fwdgrad_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
                              global_height: int = 0, l1_weight: float = 0.1):
     """Plain version of the value+gradient kernel: (loss, dpred)."""
@@ -262,6 +288,7 @@ def mixed_loss_fwdgrad_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
                         l1_weight, with_grad=True)
 
 
+@_plain_in_f32
 def mixed_loss_fwd_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
                          global_height: int = 0, l1_weight: float = 0.1):
     """Plain version of the value-only kernel: loss."""
@@ -277,9 +304,9 @@ def _count(batch, n_scenes, height, width, global_height):
 
 
 def _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
-                     with_grad, target_grad):
+                     with_grad):
     """_scene_loss_and_grads over every scene: the loss and, as asked,
-    dpred and dgt scaled by 1/count."""
+    dpred scaled by 1/count."""
     batch, _, height, width = pred_t.shape
     n_scenes = scenes9.shape[1]
     count = _count(batch, n_scenes, height, width, global_height)
@@ -287,64 +314,255 @@ def _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
                      pred_t.device)
     total = torch.zeros((), dtype=torch.float32, device=pred_t.device)
     dpred = torch.zeros_like(pred_t) if with_grad else None
-    dgt = torch.zeros_like(gt_t) if target_grad else None
     for s in range(n_scenes):
         sc = [scenes9[:, s, k, None, None] for k in range(9)]
         color = sc[6:9]
         g = _scene_geometry(sc, x, y)
         shr_p, ch_p = _shade_side(pred_t, g, color)
-        shr_t, ch_t = _shade_side(gt_t, g, color)
-        u_pred, u_gt = [], []
+        _, ch_t = _shade_side(gt_t, g, color)
+        u_pred = []
         for c in range(3):
             rp = ch_p[c]["out"] + EPSILON_RENDER
-            rt = ch_t[c]["out"] + EPSILON_RENDER
-            diff = torch.log(rp) - torch.log(rt)
+            diff = torch.log(rp) - torch.log(ch_t[c]["out"] + EPSILON_RENDER)
             total = total + torch.sum(torch.abs(diff))
-            sign = torch.sign(diff)
-            u_pred.append(sign * torch.reciprocal(rp))
-            u_gt.append(-sign * torch.reciprocal(rt))
+            u_pred.append(torch.sign(diff) * torch.reciprocal(rp))
         if with_grad:
             dpred = dpred + _side_bwd(g, color, shr_p, ch_p, u_pred)
-        if target_grad:
-            dgt = dgt + _side_bwd(g, color, shr_t, ch_t, u_gt)
     loss = total / count
     if not with_grad:
         return loss
+    return loss, dpred * (1.0 / count)
+
+
+# The value algebra of csrc/value_shading.cuh and the VJP on it
+# (csrc/value_vjp.cuh), for the kernel with both gradients. With the clamps
+#   denom = a NH^2 + 1 - NH^2,  pv = VN + sqrt(a (1 - VN^2) + VN^2) (and pl
+#   for l),  P = denom^2 pv pl,  R = 1/P,  S = a R = pi * spec_base,
+#   1 - F = (1 - spec) w,  w = 1 - (1 - VH)^5,
+#   r = ((1 - F)(albedo - S) + S) (colour / pi) scale + 0.1,
+# and the loss term |log(r_p / r_t)|.
+
+
+def _value_geometry(sc, x, y):
+    """Unit v, l and h, 1/d^2 = (1/d)^2 and w of one scene."""
+    vx, vy = sc[0] - x, sc[1] - y
+    inv_v = torch.rsqrt(vx * vx + vy * vy + sc[2] * sc[2])
+    lx, ly = sc[3] - x, sc[4] - y
+    inv_l = torch.rsqrt(lx * lx + ly * ly + sc[5] * sc[5])
+    v = (vx * inv_v, vy * inv_v, sc[2] * inv_v)
+    light = (lx * inv_l, ly * inv_l, sc[5] * inv_l)
+    h = [vk + lk for vk, lk in zip(v, light)]
+    inv_h = torch.rsqrt(h[0] * h[0] + h[1] * h[1] + h[2] * h[2])
+    h = tuple(hk * inv_h for hk in h)
+    o = 1.0 - torch.clamp(v[0] * h[0] + v[1] * h[1] + v[2] * h[2], min=_EPS)
+    o2 = o * o
+    return dict(v=v, l=light, h=h, inv_dsq=inv_l * inv_l, w=1.0 - o2 * o2 * o)
+
+
+def _value_pixel(planes):
+    """One side's scene-independent terms: a = max(roughness, eps)^4 and
+    1 - specular per channel."""
+    rough = torch.clamp(planes[:, 6:9], min=_EPS)
+    r2 = rough * rough
+    return dict(n=planes[:, 0:3], albedo=planes[:, 3:6], a=r2 * r2,
+                oms=1.0 - planes[:, 9:12])
+
+
+def _dot_n(n, vec):
+    return n[:, 0] * vec[0] + n[:, 1] * vec[1] + n[:, 2] * vec[2]
+
+
+def _value_side(px, g):
+    """One side's normal-dependent terms: the raw dots (for the clamps'
+    derivatives), the clamped NH, VN, LN and scale = max(LN, 0) / d^2."""
+    nh, vn, ln = (_dot_n(px["n"], g[k]) for k in ("h", "v", "l"))
+    NH = torch.clamp(nh, min=_EPS)
+    VN = torch.clamp(vn, min=_EPS)
+    LN = torch.clamp(ln, min=_EPS)
+    return dict(nh=nh, vn=vn, ln=ln, NH=NH, NH2=NH * NH, VN=VN, VN2=VN * VN,
+                LN=LN, LN2=LN * LN,
+                scale=torch.clamp(ln, min=0.0) * g["inv_dsq"])
+
+
+def _value_channel(px, c, s, w, color_pi):
+    """Channel c of one side: r and the intermediates its VJP reuses."""
+    a = px["a"][:, c]
+    denom_raw = s["NH2"] * a + (1.0 - s["NH2"])
+    denom = torch.clamp(denom_raw, min=_EPS)
+    sv2 = a * (1.0 - s["VN2"]) + s["VN2"]
+    sl2 = a * (1.0 - s["LN2"]) + s["LN2"]
+    isv, isl = torch.rsqrt(sv2), torch.rsqrt(sl2)
+    pv, pl = sv2 * isv + s["VN"], sl2 * isl + s["LN"]
+    dd, ppl = denom * denom, pv * pl
+    R = torch.reciprocal(dd * ppl)
+    S = a * R
+    omF = px["oms"][:, c] * w
+    m = omF * (px["albedo"][:, c] - S) + S
+    cs = color_pi * s["scale"]
+    return dict(a=a, denom_raw=denom_raw, denom=denom, isv=isv, isl=isl,
+                pv=pv, pl=pl, dd=dd, ppl=ppl, R=R, S=S, omF=omF, m=m, cs=cs,
+                r=m * cs + EPSILON_RENDER)
+
+
+def _value_channel_vjp(u, px, c, s, k, w, color_pi, d, nc):
+    """The VJP of u * r_c of one side: adds d/d albedo, d/da and d/d
+    specular of channel c to d["albedo"][c], d["a"][c] and d["spec"][c],
+    and the cotangents of NH^2, VN, LN and scale to nc."""
+    t = u * k["cs"]
+    d["albedo"][c] = d["albedo"][c] + t * k["omF"]
+    d["spec"][c] = d["spec"][c] - t * (px["albedo"][:, c] - k["S"]) * w
+    dS = t * (1.0 - k["omF"])
+    # d/dP = -dS * S * R, times the products already formed: d/d denom =
+    # 2 d/dP denom pv pl, d/d pv = d/dP denom^2 pl (and pl), with R pv pl =
+    # 1 / denom^2 and R denom^2 = 1 / (pv pl).
+    kk = -(dS * k["S"])
+    d_denom = torch.where(k["denom_raw"] >= _EPS,
+                          2.0 * (kk * (k["R"] * k["ppl"])) * k["denom"], 0.0)
+    qp = kk * (k["R"] * k["dd"])
+    ev = qp * k["pl"] * k["isv"]  # d/d sv^2 = ev / 2
+    el = qp * k["pv"] * k["isl"]
+    d["a"][c] = d["a"][c] + (dS * k["R"] + d_denom * s["NH2"]
+                             + 0.5 * (ev * (1.0 - s["VN2"])
+                                      + el * (1.0 - s["LN2"])))
+    oma = 1.0 - k["a"]
+    nc["NH2"] = nc["NH2"] - d_denom * oma
+    nc["VN"] = nc["VN"] + qp * k["pl"] + s["VN"] * oma * ev
+    nc["LN"] = nc["LN"] + qp * k["pv"] + s["LN"] * oma * el
+    nc["scale"] = nc["scale"] + u * k["m"] * color_pi
+
+
+def _value_normal_vjp(nc, s, g, d):
+    """The normal's chain of one side: through the clamps of NH, VN, LN
+    and scale into d["n"]."""
+    d_nh = torch.where(s["nh"] >= _EPS, nc["NH2"] * 2.0 * s["NH"], 0.0)
+    d_vn = torch.where(s["vn"] >= _EPS, nc["VN"], 0.0)
+    d_ln = (torch.where(s["ln"] >= _EPS, nc["LN"], 0.0)
+            + torch.where(s["ln"] >= 0.0, nc["scale"] * g["inv_dsq"], 0.0))
+    for i in range(3):
+        d["n"][i] = (d["n"][i] + d_nh * g["h"][i] + d_vn * g["v"][i]
+                     + d_ln * g["l"][i])
+
+
+@_plain_in_f32
+def rendering_loss_fwdgrad_both_plain(pred_t, gt_t, scenes9,
+                                      row_offset: int = 0,
+                                      global_height: int = 0):
+    """Plain version of the kernel with both gradients: (loss, dpred,
+    dgt), on the value algebra with its VJP, one log of each ratio."""
+    batch, _, height, width = pred_t.shape
+    n_scenes = scenes9.shape[1]
+    count = _count(batch, n_scenes, height, width, global_height)
+    x, y = _patch_xy(height, width, row_offset, global_height or height,
+                     pred_t.device)
+    pixels = (_value_pixel(pred_t), _value_pixel(gt_t))
+    zero = torch.zeros_like(pred_t[:, 0])
+    grads = [{k: [zero] * 3 for k in ("n", "albedo", "a", "spec")}
+             for _ in pixels]
+    total = torch.zeros((), dtype=torch.float32, device=pred_t.device)
+    for s in range(n_scenes):
+        sc = [scenes9[:, s, k, None, None] for k in range(9)]
+        g = _value_geometry(sc, x, y)
+        sides = [_value_side(px, g) for px in pixels]
+        cots = [dict.fromkeys(("NH2", "VN", "LN", "scale"), zero)
+                for _ in pixels]
+        for c in range(3):
+            color_pi = sc[6 + c] * (1.0 / _PI)
+            kp, kt = (_value_channel(px, c, side, g["w"], color_pi)
+                      for px, side in zip(pixels, sides))
+            # One reciprocal of r_p r_t gives 1/r_p and 1/r_t.
+            inv = torch.reciprocal(kp["r"] * kt["r"])
+            diff = torch.log(kp["r"] / kt["r"])
+            total = total + torch.sum(torch.abs(diff))
+            sign = torch.sign(diff)
+            for u, px, side, k, d, nc in zip(
+                    (sign * (kt["r"] * inv), -sign * (kp["r"] * inv)),
+                    pixels, sides, (kp, kt), grads, cots):
+                _value_channel_vjp(u, px, c, side, k, g["w"], color_pi, d,
+                                   nc)
+        for side, d, nc in zip(sides, grads, cots):
+            _value_normal_vjp(nc, side, g, d)
     inv_count = 1.0 / count
-    if not target_grad:
-        return loss, dpred * inv_count
-    return loss, dpred * inv_count, dgt * inv_count
+    out = []
+    for planes, d in zip((pred_t, gt_t), grads):
+        # d/d roughness = d/da * 4 rough^3 through the clamp.
+        rough = planes[:, 6:9]
+        drough = [torch.where(rough[:, c] >= _EPS,
+                              d["a"][c] * 4.0 * rough[:, c] * rough[:, c]
+                              * rough[:, c], 0.0) for c in range(3)]
+        out.append(torch.stack(d["n"] + d["albedo"] + drough + d["spec"],
+                               dim=1) * inv_count)
+    return (total / count, *out)
 
 
+# The float64 kink distance (kink_distance) from which on the tests hold
+# the kernel with both gradients to float64: ~10x an f32 evaluation's
+# rounding of a log ratio or of a clamp's argument.
+KINK_MARGIN = 1e-5
+
+
+def kink_distance(pred_t, gt_t, scenes9, row_offset: int = 0,
+                  global_height: int = 0):
+    """Per pixel, (B, H, W): how far it lies from the points where the
+    rendering loss is not differentiable, the smallest over both sides and
+    every scene and channel of |log(r_p / r_t)| (unless exactly 0, as where
+    the light reaches neither side: that term is 0 in any precision) and of
+    the clamps' arguments' distances from their kinks: n.h, n.v, n.l, the
+    denominator and the roughness from eps, n.l from 0. Computed on the
+    value algebra in the inputs' dtype. Where a pixel lies closer to one
+    than f32 rounding, an f32 evaluation may take either one-sided
+    derivative, so the tests of the kernel with both gradients hold its
+    gradients to float64 on the pixels at KINK_MARGIN or further (the
+    distance evaluated in float64)."""
+    height, width = pred_t.shape[2:]
+    x, y = _patch_xy(height, width, row_offset, global_height or height,
+                     pred_t.device)
+    pixels = (_value_pixel(pred_t), _value_pixel(gt_t))
+    dist = torch.minimum(*((planes[:, 6:9] - _EPS).abs().amin(dim=1)
+                           for planes in (pred_t, gt_t)))
+    for s in range(scenes9.shape[1]):
+        sc = [scenes9[:, s, k, None, None] for k in range(9)]
+        g = _value_geometry(sc, x, y)
+        sides = [_value_side(px, g) for px in pixels]
+        for side in sides:
+            for arg in (side["nh"] - _EPS, side["vn"] - _EPS,
+                        side["ln"] - _EPS, side["ln"]):
+                dist = torch.minimum(dist, arg.abs())
+        for c in range(3):
+            color_pi = sc[6 + c] * (1.0 / _PI)
+            kp, kt = (_value_channel(px, c, side, g["w"], color_pi)
+                      for px, side in zip(pixels, sides))
+            log_ratio = torch.log(kp["r"] / kt["r"]).abs()
+            dist = torch.minimum(dist, torch.where(
+                log_ratio == 0, math.inf, log_ratio))
+            for k in (kp, kt):
+                dist = torch.minimum(dist, (k["denom_raw"] - _EPS).abs())
+    return dist
+
+
+@_plain_in_f32
 def rendering_loss_fwdgrad_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
                                  global_height: int = 0):
     """Plain version of the rendering loss's value+gradient kernel:
     (loss, dpred)."""
     return _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
-                            with_grad=True, target_grad=False)
+                            with_grad=True)
 
 
+@_plain_in_f32
 def rendering_loss_fwd_plain(pred_t, gt_t, scenes9, row_offset: int = 0,
                              global_height: int = 0):
     """Plain version of the rendering loss's value-only kernel: loss."""
     return _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
-                            with_grad=False, target_grad=False)
-
-
-def rendering_loss_fwdgrad_both_plain(pred_t, gt_t, scenes9,
-                                      row_offset: int = 0,
-                                      global_height: int = 0):
-    """Plain version of the kernel with both gradients: (loss, dpred,
-    dgt)."""
-    return _rendering_plain(pred_t, gt_t, scenes9, row_offset, global_height,
-                            with_grad=True, target_grad=True)
+                            with_grad=False)
 
 
 # --- CUDA kernels ------------------------------------------------------------
 
 # Each kernel's C entry: (source in csrc/, symbol, output planes beside the
-# partials, float arguments after the six ints). Beside each entry the
-# library exports <symbol>_blocks_per_sm.
+# partials, float arguments after the six ints). The symbol takes f32
+# planes; <symbol>_bf16 takes bf16 planes and writes bf16 gradients, with
+# the same arguments. Beside each entry the library exports
+# <symbol>_blocks_per_sm (and <symbol>_bf16_blocks_per_sm).
 _ENTRIES = {
     "mixed_fwdgrad": ("mixed_loss", "svbrdf_mixed_loss_fwdgrad", 1, 2),
     "mixed_fwd": ("mixed_loss", "svbrdf_mixed_loss_fwd", 0, 2),
@@ -354,14 +572,21 @@ _ENTRIES = {
     "render_fwdgrad_both": ("rendering_loss",
                             "svbrdf_rendering_loss_fwdgrad_both", 2, 1),
 }
+# The plane dtypes the kernels take, and the suffix of each one's symbols.
+PLANE_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 _FUNCS = {}
 
 
-def _bind(lib, name):
-    """(C entry, threads per block) of kernel `name` in the loaded library
-    `lib`, the signatures declared."""
-    source, symbol, n_planes, n_floats = _ENTRIES[name]
-    fn = getattr(lib, symbol)
+def symbol(name: str, dtype: torch.dtype = torch.float32) -> str:
+    """The C entry of kernel `name` for planes of `dtype`."""
+    return _ENTRIES[name][1] + PLANE_DTYPES[dtype]
+
+
+def _bind(lib, name, dtype=torch.float32):
+    """(C entry, threads per block) of kernel `name` for planes of `dtype`
+    in the loaded library `lib`, the signatures declared."""
+    source, _, n_planes, n_floats = _ENTRIES[name]
+    fn = getattr(lib, symbol(name, dtype))
     # pred, gt, scenes, partials, planes...; B, H, W, S, row_offset,
     # full_height; floats...; stream
     fn.argtypes = ([ctypes.c_void_p] * (4 + n_planes)
@@ -374,24 +599,25 @@ def _bind(lib, name):
     return fn, threads()
 
 
-def _kernel(name):
-    """(C entry, threads per block, blocks-per-SM query) of kernel `name`,
-    its library built and loaded at first use and the signatures
-    declared."""
-    if name not in _FUNCS:
-        source, symbol = _ENTRIES[name][:2]
-        lib = _build.load(source)
-        per_sm = getattr(lib, f"{symbol}_blocks_per_sm")
+def _kernel(name, dtype=torch.float32):
+    """(C entry, threads per block, blocks-per-SM query) of kernel `name`
+    for planes of `dtype`, its library built and loaded at first use and
+    the signatures declared."""
+    if (name, dtype) not in _FUNCS:
+        lib = _build.load(_ENTRIES[name][0])
+        per_sm = getattr(lib, f"{symbol(name, dtype)}_blocks_per_sm")
         per_sm.argtypes = [ctypes.c_int]  # S
         per_sm.restype = ctypes.c_int
-        _FUNCS[name] = (*_bind(lib, name), per_sm)
-    return _FUNCS[name]
+        _FUNCS[name, dtype] = (*_bind(lib, name, dtype), per_sm)
+    return _FUNCS[name, dtype]
 
 
-def blocks_per_sm(name: str, n_scenes: int) -> int:
-    """Blocks of kernel `name` that fit one SM of the current CUDA device at
-    `n_scenes` scenes (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    n = _kernel(name)[2](n_scenes)
+def blocks_per_sm(name: str, n_scenes: int,
+                  dtype: torch.dtype = torch.float32) -> int:
+    """Blocks of kernel `name` for planes of `dtype` that fit one SM of the
+    current CUDA device at `n_scenes` scenes
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = _kernel(name, dtype)[2](n_scenes)
     if n <= 0:
         raise RuntimeError(f"occupancy query of the {name} kernel failed: "
                            f"CUDA error {-n}")
@@ -409,9 +635,15 @@ def _check(pred_t, gt_t, scenes9):
             or scenes9.shape[2] != 9:
         raise ValueError(f"scenes must be (B, S, 9), got "
                          f"{tuple(scenes9.shape)}")
+    if pred_t.dtype not in PLANE_DTYPES:
+        raise TypeError(f"pred must be float32 or bfloat16, got "
+                        f"{pred_t.dtype}")
+    if gt_t.dtype != pred_t.dtype:
+        raise TypeError(f"gt is {gt_t.dtype} and pred {pred_t.dtype}: the "
+                        f"planes must share one dtype")
+    if scenes9.dtype != torch.float32:
+        raise TypeError(f"scenes must be float32, got {scenes9.dtype}")
     for name, t in (("pred", pred_t), ("gt", gt_t), ("scenes", scenes9)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != pred_t.device:
@@ -422,12 +654,14 @@ def _check(pred_t, gt_t, scenes9):
 def _launch(name, pred_t, gt_t, scenes9, row_offset, global_height, floats,
             kernel=None):
     """Launch kernel `name` on the current stream: (partials, output
-    planes...). `floats` are its float arguments; `kernel` is a (C entry,
-    threads per block) pair from _bind, by default the package's own."""
+    planes...), the partials f32 and the planes in the inputs' dtype.
+    `floats` are its float arguments; `kernel` is a (C entry, threads per
+    block) pair from _bind, by default the package's own for the inputs'
+    dtype."""
     if pred_t.device.type != "cuda":
         raise RuntimeError(f"the {name} kernel needs CUDA tensors, got "
                            f"{pred_t.device}")
-    fn, threads = kernel or _kernel(name)[:2]
+    fn, threads = kernel or _kernel(name, pred_t.dtype)[:2]
     batch, _, height, width = pred_t.shape
     blocks = -(-(height * width) // threads)
     partials = torch.empty(batch * blocks, dtype=torch.float32,
@@ -569,6 +803,14 @@ rendering_loss_fwdgrad_both = _dispatch(rendering_loss_fwdgrad_both_plain,
                                         rendering_loss_fwdgrad_both_cuda)
 
 
+def _scaled(d, grad_output):
+    """A saved gradient times the upstream scalar, multiplied in f32 and
+    rounded once to the gradient's dtype, as the JAX entries' backward
+    (_fused_bwd) takes it: a bf16 gradient is not scaled by a bf16-rounded
+    upstream."""
+    return (d.float() * grad_output).to(d.dtype)
+
+
 class _FusedMixed(torch.autograd.Function):
     """Forward runs the value+gradient kernel and keeps dpred; backward
     scales it by the upstream scalar. The target gets no gradient."""
@@ -584,7 +826,7 @@ class _FusedMixed(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_output):
         dpred, = ctx.saved_tensors
-        return grad_output * dpred, None, None, None, None, None
+        return _scaled(dpred, grad_output), None, None, None, None, None
 
 
 def mixed_loss_fused_planes(pred_t: torch.Tensor, gt_t: torch.Tensor,
@@ -592,7 +834,9 @@ def mixed_loss_fused_planes(pred_t: torch.Tensor, gt_t: torch.Tensor,
                             row_offset: int = 0,
                             global_height: int = 0) -> torch.Tensor:
     """Mixed loss l1_weight * svbrdf_l1 + rendering loss on (B, 12, H, W)
-    f32 channel planes, for per-item scene sets `scenes` ((B, S, 3) fields).
+    f32 or bf16 channel planes (pred and gt in one dtype; the loss f32, the
+    gradient in the planes' dtype), for per-item scene sets `scenes`
+    ((B, S, 3) fields).
 
     A sharded caller that holds rows [row_offset, row_offset + H) of an
     image `global_height` rows tall passes both: the patch coordinates and
@@ -628,8 +872,8 @@ class _FusedRendering(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_output):
         dpred, *dgt = ctx.saved_tensors
-        return (grad_output * dpred,
-                grad_output * dgt[0] if dgt else None,
+        return (_scaled(dpred, grad_output),
+                _scaled(dgt[0], grad_output) if dgt else None,
                 None, None, None, None)
 
 
@@ -638,8 +882,9 @@ def rendering_loss_fused_planes(pred_t: torch.Tensor, gt_t: torch.Tensor,
                                 row_offset: int = 0,
                                 global_height: int = 0) -> torch.Tensor:
     """Rendering loss, the mean over B*S*H*W*3 of |log(r_p + 0.1) -
-    log(r_t + 0.1)|, on (B, 12, H, W) f32 channel planes, for per-item scene
-    sets `scenes` ((B, S, 3) fields).
+    log(r_t + 0.1)|, on (B, 12, H, W) f32 or bf16 channel planes (as for
+    mixed_loss_fused_planes), for per-item scene sets `scenes` ((B, S, 3)
+    fields).
 
     Without `want_target_grad` the target is data: it is detached, as the
     JAX entry stop-gradients it. With it, the target gets its gradient too.

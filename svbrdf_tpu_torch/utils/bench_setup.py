@@ -45,11 +45,11 @@ def synthetic_raw_batch(batch: int, size: int, n_views: int = 0,
 
 
 def loss_inputs(batch: int, size: int, n_scenes: int, seed: int = 0,
-                device="cuda") -> tuple:
+                device="cuda", dtype=torch.float32) -> tuple:
     """(pred planes, gt planes, packed scenes) at the loss kernels' shapes
     on `device`: gt and pred decoded from two synthetic raw batches (pred
-    plays an untrained model's output), scenes from the loss sampler
-    (3 random, n_scenes - 3 specular per item)."""
+    plays an untrained model's output) and cast to `dtype`, scenes (f32)
+    from the loss sampler (3 random, n_scenes - 3 specular per item)."""
     from svbrdf_tpu_torch.data import pipeline
     from svbrdf_tpu_torch.ops import render_fused, sampling
 
@@ -58,7 +58,7 @@ def loss_inputs(batch: int, size: int, n_scenes: int, seed: int = 0,
     def planes(s):
         raw = synthetic_raw_batch(batch, size, 0, s)["svbrdf"]
         return losses.to_planes(pipeline._decode_u8_svbrdf(
-            torch.from_numpy(raw).to(dev)))
+            torch.from_numpy(raw).to(dev))).to(dtype)
 
     g = torch.Generator(device=dev).manual_seed(seed)
     scenes = sampling.generate_loss_scenes(batch, 3, n_scenes - 3,
@@ -68,20 +68,20 @@ def loss_inputs(batch: int, size: int, n_scenes: int, seed: int = 0,
 
 def loss_inputs_near(batch: int, size: int, n_scenes: int,
                      sigma: float = 1e-3, seed: int = 0,
-                     device="cuda") -> tuple:
+                     device="cuda", dtype=torch.float32) -> tuple:
     """loss_inputs with pred near gt, as a model near convergence gives it
     in validation: gt and the scenes as in loss_inputs, pred = gt + sigma *
     N(0, 1) from a generator seeded with `seed`, its normal re-normalized
     (the model's head outputs unit normals; the decoded gt's are within
     u8 rounding of unit) and its other maps clamped to [0, 1], the range of
-    the decoded maps."""
+    the decoded maps. Made in f32, then both planes cast to `dtype`."""
     _, gt, scenes9 = loss_inputs(batch, size, n_scenes, seed, device)
     g = torch.Generator(device=gt.device).manual_seed(seed)
     pred = gt + sigma * torch.randn(gt.shape, generator=g, device=gt.device)
     normal = pred[:, :3] * torch.rsqrt(torch.sum(pred[:, :3] ** 2, dim=1,
                                                  keepdim=True))
-    return (torch.cat([normal, pred[:, 3:].clamp(0.0, 1.0)], dim=1),
-            gt, scenes9)
+    pred = torch.cat([normal, pred[:, 3:].clamp(0.0, 1.0)], dim=1)
+    return pred.to(dtype), gt.to(dtype), scenes9
 
 
 def kernel_ms(name: str, inputs, kernel=None, reps: int = 10,

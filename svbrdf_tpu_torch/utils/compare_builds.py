@@ -10,7 +10,9 @@ interface: the launch entries of ops/render_fused._ENTRIES and
 svbrdf_<source>_threads. The package's own csrc/ is always compared, as
 "csrc". For every tree, both sources are built with the package's nvcc
 flags (ops/_build.NVCC_FLAGS) into DIR/_build, one nvcc per source, all
-started together, and for each of the five kernels it reports:
+started together, and for each of the five kernels, and for each one's
+bf16 instantiation where the tree has one (reported as <kernel>_bf16, on
+the same inputs cast to bf16), it reports:
   - ptxas registers and spill bytes;
   - the SASS instruction mix (cuobjdump -sass): FP32 adds, multiplies and
     FMAs, each MUFU op, branches and calls (the division and square-root
@@ -44,19 +46,26 @@ import time
 from pathlib import Path
 
 SOURCES = ("mixed_loss", "rendering_loss")
-# A part of each kernel's mangled name in the SASS: the current sources',
-# then the template instances of the trees before the value-only kernels
-# had a template of their own (2c5e8e1 and older).
+# A part of each kernel's mangled name in the SASS: the current sources'
+# (each instance for float or __nv_bfloat16 planes), then those of the trees
+# whose kernels took f32 planes only: 3b4bfd6 (rendering_fwdgrad_kernel
+# with the target's gradient as its switch), then the template instances of
+# the trees before the value-only kernels had a template of their own
+# (2c5e8e1 and older).
 SASS_NAMES = {
     "mixed_fwdgrad": ("mixed_fwdgrad_kernel", "mixed_loss_kernelILb1E"),
     "mixed_fwd": ("value_loss_kernelILb1E", "mixed_loss_kernelILb0E"),
-    "render_fwdgrad": ("rendering_fwdgrad_kernelILb0E",
+    "render_fwdgrad": ("rendering_fwdgrad_kernelIf",
+                       "rendering_fwdgrad_kernelI13__nv_bfloat16",
+                       "rendering_fwdgrad_kernelILb0E",
                        "rendering_loss_kernelILb1ELb0E"),
     "render_fwd": ("value_loss_kernelILb0E",
                    "rendering_loss_kernelILb0ELb0E"),
-    "render_fwdgrad_both": ("rendering_fwdgrad_kernelILb1E",
+    "render_fwdgrad_both": ("rendering_both_kernel",
+                            "rendering_fwdgrad_kernelILb1E",
                             "rendering_loss_kernelILb1ELb1E"),
 }
+BF16_MANGLED = "__nv_bfloat16"
 SASS_OPS = ("FADD", "FMUL", "FFMA", "MUFU.RCP", "MUFU.RSQ", "MUFU.LG2",
             "MUFU.EX2", "MUFU.SQRT", "BRA", "CALL", "LDS", "STS", "LDL",
             "STL")
@@ -93,10 +102,18 @@ def build(trees: dict) -> dict:
     return logs
 
 
+def kernel_key(name: str, dtype) -> str:
+    """How kernel `name`'s instance for planes of `dtype` is reported:
+    `name`, or `name`_bf16."""
+    from svbrdf_tpu_torch.ops import render_fused as rf
+
+    return name + rf.PLANE_DTYPES[dtype]
+
+
 def _kernel_of(mangled: str):
     for kernel, patterns in SASS_NAMES.items():
         if any(pattern in mangled for pattern in patterns):
-            return kernel
+            return kernel + ("_bf16" if BF16_MANGLED in mangled else "")
     return None
 
 
@@ -156,8 +173,9 @@ def parse_sass(text: str) -> dict:
 
 
 class Tree:
-    """The five kernels of one built tree, bound as render_fused binds the
-    package's own."""
+    """The kernels of one built tree, bound as render_fused binds the
+    package's own: {(name, plane dtype): (C entry, threads)} for every
+    entry the tree exports (an older tree has no bf16 entries)."""
 
     def __init__(self, csrc: Path):
         from svbrdf_tpu_torch.ops import render_fused as rf
@@ -165,37 +183,46 @@ class Tree:
         libs = {s: ctypes.CDLL(str(csrc / "_build" / f"lib{s}.so"))
                 for s in SOURCES}
         self.kernels, self.per_sm = {}, {}
-        for name, (source, symbol, _, _) in rf._ENTRIES.items():
-            self.kernels[name] = rf._bind(libs[source], name)
-            # An older tree may not export the occupancy query.
-            per_sm = getattr(libs[source], f"{symbol}_blocks_per_sm", None)
-            if per_sm is not None:
-                per_sm.argtypes = [ctypes.c_int]
-                per_sm.restype = ctypes.c_int
-            self.per_sm[name] = per_sm
+        for name, (source, _, _, _) in rf._ENTRIES.items():
+            for dtype in rf.PLANE_DTYPES:
+                symbol = rf.symbol(name, dtype)
+                if not hasattr(libs[source], symbol):
+                    continue
+                self.kernels[name, dtype] = rf._bind(libs[source], name,
+                                                     dtype)
+                # An older tree may not export the occupancy query.
+                per_sm = getattr(libs[source], f"{symbol}_blocks_per_sm",
+                                 None)
+                if per_sm is not None:
+                    per_sm.argtypes = [ctypes.c_int]
+                    per_sm.restype = ctypes.c_int
+                self.per_sm[name, dtype] = per_sm
 
-    def blocks_per_sm(self, name: str, n_scenes: int):
-        per_sm = self.per_sm[name]
+    def blocks_per_sm(self, key, n_scenes: int):
+        per_sm = self.per_sm[key]
         return None if per_sm is None else per_sm(n_scenes)
 
-    def launch(self, name, pred, gt, scenes9):
-        """(partials, output planes...) of one launch on a whole image."""
+    def launch(self, key, pred, gt, scenes9):
+        """(partials, output planes...) of one launch of kernel key = (name,
+        dtype) on a whole image (pred and gt of that dtype)."""
         from svbrdf_tpu_torch.ops import render_fused as rf
 
+        name = key[0]
         return rf._launch(name, pred, gt, scenes9, 0, 0,
                           rf.kernel_floats(name, pred, scenes9),
-                          self.kernels[name])
+                          self.kernels[key])
 
 
-def _loss_rel(tree: Tree, name: str, inputs) -> tuple:
+def _loss_rel(tree: Tree, key, inputs) -> tuple:
     """(loss rel against the plain version, kernel outputs, plain
     outputs) of one launch."""
     from svbrdf_tpu_torch.ops import render_fused as rf
 
     import torch
 
+    name = key[0]
     pred, gt, scenes9 = inputs
-    partials, *planes = tree.launch(name, pred, gt, scenes9)
+    partials, *planes = tree.launch(key, pred, gt, scenes9)
     ref = rf.PLAIN_VERSIONS[name](pred, gt, scenes9)
     ref = ref if isinstance(ref, tuple) else (ref,)
     # The loss from the partials, as the kernel's wrapper takes it.
@@ -205,15 +232,15 @@ def _loss_rel(tree: Tree, name: str, inputs) -> tuple:
     return abs(loss - float(ref[0])) / abs(float(ref[0])), planes, ref[1:]
 
 
-def against_plain(tree: Tree, name: str, inputs, near) -> dict:
+def against_plain(tree: Tree, key, inputs, near) -> dict:
     import torch
 
-    rel, planes, ref_planes = _loss_rel(tree, name, inputs)
-    errs = [float((g - r).abs().max() / r.abs().max())
+    rel, planes, ref_planes = _loss_rel(tree, key, inputs)
+    errs = [float((g.float() - r.float()).abs().max() / r.float().abs().max())
             for g, r in zip(planes, ref_planes)]
     _, gt, scenes9 = inputs
-    zero = tree.launch(name, gt.clone(), gt, scenes9)
-    return {"loss_rel": rel, "loss_rel_near": _loss_rel(tree, name, near)[0],
+    zero = tree.launch(key, gt.clone(), gt, scenes9)
+    return {"loss_rel": rel, "loss_rel_near": _loss_rel(tree, key, near)[0],
             "grad_err_ratio": max(errs) if errs else None,
             "zero_for_equal": all(int(torch.count_nonzero(z)) == 0
                                   for z in zero)}
@@ -255,8 +282,11 @@ def main(argv=None) -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     result = {"card": card, "torch": torch.__version__, "trees": {}}
     logs = build(trees)
-    inputs = loss_inputs(8, 256, 9)
-    near = loss_inputs_near(8, 256, 9)
+    # Far and near inputs per plane dtype; the bf16 ones are the f32 ones
+    # rounded.
+    inputs = {dtype: (loss_inputs(8, 256, 9, dtype=dtype),
+                      loss_inputs_near(8, 256, 9, dtype=dtype))
+              for dtype in rf.PLANE_DTYPES}
     built = {}
     for name, csrc in trees.items():
         regs = ptxas_lines(logs[name])
@@ -265,27 +295,29 @@ def main(argv=None) -> None:
             mix.update(sass_mix(csrc / "_build" / f"lib{source}.so"))
         built[name] = Tree(csrc)
         per_kernel = {}
-        for kernel in rf._ENTRIES:
-            per_kernel[kernel] = {
-                "ptxas": regs.get(kernel), "sass": mix.get(kernel),
-                "blocks_per_sm": built[name].blocks_per_sm(kernel, 9),
-                **against_plain(built[name], kernel, inputs, near)}
-            log(f"{name} {kernel}: {json.dumps(per_kernel[kernel])}")
+        for key in built[name].kernels:
+            k = kernel_key(*key)
+            per_kernel[k] = {
+                "ptxas": regs.get(k), "sass": mix.get(k),
+                "blocks_per_sm": built[name].blocks_per_sm(key, 9),
+                **against_plain(built[name], key, *inputs[key[1]])}
+            log(f"{name} {k}: {json.dumps(per_kernel[k])}")
         result["trees"][name] = per_kernel
     names = list(trees)
-    rounds = {name: {k: [] for k in rf._ENTRIES} for name in names}
+    rounds = {name: {key: [] for key in built[name].kernels}
+              for name in names}
     for r in range(ROUNDS):
         for name in (names if r % 2 == 0 else names[::-1]):
-            for kernel in rf._ENTRIES:
-                rounds[name][kernel].append(
-                    kernel_ms(kernel, inputs, built[name].kernels[kernel]))
+            for key, kernel in built[name].kernels.items():
+                rounds[name][key].append(
+                    kernel_ms(key[0], inputs[key[1]][0], kernel))
     for name in names:
-        for kernel, times in rounds[name].items():
-            entry = result["trees"][name][kernel]
+        for key, times in rounds[name].items():
+            entry = result["trees"][name][kernel_key(*key)]
             entry["ms"] = statistics.median(times)
             entry["ms_rounds"] = times
         log(f"{name} ms: " + ", ".join(
-            f"{k} {result['trees'][name][k]['ms']:.4f}" for k in rf._ENTRIES))
+            f"{k} {v['ms']:.4f}" for k, v in result["trees"][name].items()))
     text = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

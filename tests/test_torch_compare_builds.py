@@ -66,9 +66,10 @@ def test_parse_sass_counts_each_kernel():
      "fwdgrad_kernelILb1EEEvPKfS2_S2_PfS3_S3_iiiiif", "render_fwdgrad_both"),
 ])
 def test_current_kernel_names(mangled, kernel):
-    """The kernels of the current sources (one gradient kernel per loss,
-    the two value-only kernels one template) are found by their names in
-    cuobjdump's and ptxas's output, as the older trees' are above."""
+    """The kernels of the sources at 3b4bfd6 (one gradient kernel per loss,
+    the two value-only kernels one template, f32 planes only) are found by
+    their names in cuobjdump's and ptxas's output, as the older trees' are
+    above."""
     sass = f"\t\tFunction : {mangled}\n        /*0000*/    FMUL R1, R2, R3 ;\n"
     assert compare_builds.parse_sass(sass) == {
         kernel: {"total": 1, "FMUL": 1}}
@@ -77,12 +78,47 @@ def test_current_kernel_names(mangled, kernel):
     assert compare_builds.ptxas_lines(ptxas) == {kernel: {"registers": 61}}
 
 
+@pytest.mark.parametrize("mangled, kernel", [
+    ("_ZN46_GLOBAL__N__593e2bb0_13_mixed_loss_cu_5433b71220mixed_fwdgrad_"
+     "kernelIfEEvPKT_S3_PKfPfPS1_iiiiiff", "mixed_fwdgrad"),
+    ("_ZN46_GLOBAL__N__593e2bb0_13_mixed_loss_cu_5433b71220mixed_fwdgrad_"
+     "kernelI13__nv_bfloat16EEvPKT_S4_PKfPfPS2_iiiiiff", "mixed_fwdgrad_bf16"),
+    ("_ZN6svbrdf17value_loss_kernelILb1EfEEvPKT0_S3_PKfPfiiiiiff",
+     "mixed_fwd"),
+    ("_ZN6svbrdf17value_loss_kernelILb0E13__nv_bfloat16EEvPKT0_S4_PKfPfiiiiiff",
+     "render_fwd_bf16"),
+    ("_ZN50_GLOBAL__N__42a2314e_17_rendering_loss_cu_f412259924rendering_"
+     "fwdgrad_kernelIfEEvPKT_S3_PKfPfPS1_iiiiif", "render_fwdgrad"),
+    ("_ZN50_GLOBAL__N__42a2314e_17_rendering_loss_cu_f412259924rendering_"
+     "fwdgrad_kernelI13__nv_bfloat16EEvPKT_S4_PKfPfPS2_iiiiif",
+     "render_fwdgrad_bf16"),
+    ("_ZN50_GLOBAL__N__42a2314e_17_rendering_loss_cu_f412259921rendering_"
+     "both_kernelIfEEvPKT_S3_PKfPfPS1_S6_iiiiif", "render_fwdgrad_both"),
+    ("_ZN50_GLOBAL__N__42a2314e_17_rendering_loss_cu_f412259921rendering_"
+     "both_kernelI13__nv_bfloat16EEvPKT_S4_PKfPfPS2_S7_iiiiif",
+     "render_fwdgrad_both_bf16"),
+])
+def test_kernel_names_by_plane_type(mangled, kernel):
+    """Each kernel of the current sources has an instance for float and one
+    for __nv_bfloat16 planes; the second is reported as <kernel>_bf16, and
+    the kernel with both gradients under its own name."""
+    sass = f"\t\tFunction : {mangled}\n        /*0000*/    FMUL R1, R2, R3 ;\n"
+    assert compare_builds.parse_sass(sass) == {
+        kernel: {"total": 1, "FMUL": 1}}
+
+
 def test_loss_inputs_on_cpu():
     """The kernels' inputs at a small size: (B, 12, H, W) planes with
     normals of unit length up to their 8-bit quantization (each component
     within 1/255, so the length within 1e-2) and maps in [0, 1], pred
-    unlike gt, and 3 + 6 scenes per item packed as (B, S, 9)."""
+    unlike gt, and 3 + 6 scenes per item packed as (B, S, 9); with
+    dtype=bf16 the same planes rounded to bf16, the scenes f32."""
+    bf16 = loss_inputs(2, 16, 9, device="cpu", dtype=torch.bfloat16)
     pred, gt, scenes9 = loss_inputs(2, 16, 9, device="cpu")
+    assert bf16[0].dtype == bf16[1].dtype == torch.bfloat16
+    assert torch.equal(bf16[0], pred.bfloat16())
+    assert torch.equal(bf16[1], gt.bfloat16())
+    assert torch.equal(bf16[2], scenes9)
     assert pred.shape == gt.shape == (2, 12, 16, 16)
     assert scenes9.shape == (2, 9, 9)
     for planes in (pred, gt):
@@ -117,6 +153,10 @@ def test_loss_inputs_near_on_cpu():
     assert all(torch.equal(a, b) for a, b in zip(again, (pred, gt, scenes9)))
     other = loss_inputs_near(2, 16, 9, sigma=1e-3, seed=1, device="cpu")
     assert not torch.equal(other[0], pred)
+    bf16 = loss_inputs_near(2, 16, 9, sigma=1e-3, device="cpu",
+                            dtype=torch.bfloat16)
+    assert torch.equal(bf16[0], pred.bfloat16())
+    assert torch.equal(bf16[1], gt.bfloat16())
 
 
 def test_kernel_tables_name_the_same_kernels():

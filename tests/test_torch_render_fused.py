@@ -254,7 +254,7 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
     p, g = _t(c["pred_t"]), _t(c["gt_t"])
     s9 = rf.pack_scenes(c["ts"])
     with pytest.raises(TypeError, match="float32"):
-        rf.mixed_loss_fwdgrad(p.bfloat16(), g.bfloat16(), s9)
+        rf.mixed_loss_fwdgrad(p.half(), g.half(), s9)
     with pytest.raises(ValueError, match="contiguous"):
         rf.mixed_loss_fwd(p.transpose(2, 3), g.transpose(2, 3), s9)
     with pytest.raises(ValueError, match=r"\(B, 12, H, W\)"):

@@ -20,6 +20,7 @@ import torch
 from svbrdf_tpu.ops import render_pallas
 from svbrdf_tpu_torch import losses
 from svbrdf_tpu_torch.ops import render_fused as rf
+from svbrdf_tpu_torch.utils.bench_setup import loss_inputs, loss_inputs_near
 from tests.test_torch_render_fused import (PALLAS_RTOL, _case, _t,
                                            assert_near_convergence)
 
@@ -109,6 +110,44 @@ def test_zero_on_identical():
     assert float(rf.rendering_loss_fwd_plain(p, p.clone(), s9)) == 0.0
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("near", [False, True])
+def test_both_plain_matches_float64(near, seed):
+    """The plain version with both gradients (value_shading.cuh's algebra
+    and its VJP, IEEE rsqrt, reciprocal and log) on loss_inputs (pred far
+    from gt) and loss_inputs_near, B=2, 32^2, S=9:
+    - in float64, its dpred and dgt equal the gradients of shading.cuh's
+      algebra (rendering_loss_fwdgrad_plain's dpred, of pred and, the loss
+      being symmetric, of gt with the two swapped) to 1e-12: the same
+      function and the same derivative conventions at the clamps;
+    - in f32, dpred and dgt against float64 normwise <= 2e-4 (measured
+      4e-5 to 6e-5 at 32^2 to 128^2), as test_plain_dpred_matches_float64
+      holds the training kernels', over the pixels at least KINK_MARGIN
+      from the loss's kinks (render_fused.kink_distance): closer, f32 may
+      take the other one-sided derivative. That sets apart under 1 % of
+      the pixels far from gt and under 10 % near it (measured 0.07 % and
+      4.5 %), where over all pixels the same distances read up to 9.4e-3
+      (one pixel at a clamp) and 4.8e-4 (many at |log(r_p / r_t)| ~ 0);
+    - pred = gt gives a loss and gradients of exactly 0."""
+    make = loss_inputs_near if near else loss_inputs
+    p, g, s9 = make(2, 32, 9, seed=seed, device="cpu")
+    _, dp32, dg32 = rf.rendering_loss_fwdgrad_both_plain(p, g, s9)
+    p64, g64, s64 = p.double(), g.double(), s9.double()
+    _, dp64, dg64 = rf.rendering_loss_fwdgrad_both_plain(p64, g64, s64)
+    _, ref_dp = rf.rendering_loss_fwdgrad_plain(p64, g64, s64)
+    _, ref_dg = rf.rendering_loss_fwdgrad_plain(g64, p64, s64)
+    for mine, ref in ((dp64, ref_dp), (dg64, ref_dg)):
+        assert float((mine - ref).norm() / ref.norm()) <= 1e-12
+    keep = (rf.kink_distance(p64, g64, s64) >= rf.KINK_MARGIN)[:, None]
+    assert 1.0 - float(keep.double().mean()) <= (0.1 if near else 0.01)
+    for d32, d64 in ((dp32, dp64), (dg32, dg64)):
+        err = float(((d32.double() - d64) * keep).norm() / (d64 * keep).norm())
+        assert err <= 2e-4, err
+    loss, dpred, dgt = rf.rendering_loss_fwdgrad_both_plain(g, g.clone(), s9)
+    assert float(loss) == 0.0
+    assert not dpred.any() and not dgt.any()
+
+
 def test_row_offset_and_global_height_match_pallas():
     """Two row halves with their offset and the global height: each equals
     the JAX entry's value and both gradients for the same shard, and the
@@ -136,28 +175,33 @@ def test_row_offset_and_global_height_match_pallas():
 @pytest.mark.parametrize("want_target_grad", [False, True])
 def test_function_gradients(want_target_grad):
     """rendering_loss_fused_planes under autograd: pred.grad is upstream *
-    dpred; gt.grad upstream * dgt with want_target_grad, else none (the
-    target is detached). Under no_grad the value-only path gives the same
-    value."""
+    dpred of the value+gradient plain version (the one with both gradients
+    with want_target_grad); gt.grad upstream * dgt with want_target_grad,
+    else none (the target is detached). Under no_grad the value-only path
+    gives the same value (to rounding: `both` shades on another algebra)."""
     c = _case(16, seed=14)
     pred = _t(c["pred_t"]).requires_grad_()
     gt = _t(c["gt_t"]).requires_grad_()
     loss = rf.rendering_loss_fused_planes(pred, gt, c["ts"],
                                           want_target_grad=want_target_grad)
     (3.0 * loss).backward()
-    ref_loss, dpred, dgt = rf.rendering_loss_fwdgrad_both_plain(
-        _t(c["pred_t"]), _t(c["gt_t"]), rf.pack_scenes(c["ts"]))
+    plain = (rf.rendering_loss_fwdgrad_both_plain if want_target_grad
+             else rf.rendering_loss_fwdgrad_plain)
+    ref_loss, dpred, *dgt = plain(_t(c["pred_t"]), _t(c["gt_t"]),
+                                  rf.pack_scenes(c["ts"]))
     assert float(loss.detach()) == float(ref_loss)
     np.testing.assert_allclose(pred.grad.numpy(), 3.0 * dpred.numpy(),
                                rtol=1e-6)
     if want_target_grad:
-        np.testing.assert_allclose(gt.grad.numpy(), 3.0 * dgt.numpy(),
+        np.testing.assert_allclose(gt.grad.numpy(), 3.0 * dgt[0].numpy(),
                                    rtol=1e-6)
     else:
         assert gt.grad is None
     with torch.no_grad():
         value = rf.rendering_loss_fused_planes(pred, gt, c["ts"])
-    assert float(value) == float(ref_loss)
+    assert float(value) == float(rf.rendering_loss_fwd_plain(
+        _t(c["pred_t"]), _t(c["gt_t"]), rf.pack_scenes(c["ts"])))
+    np.testing.assert_allclose(float(value), float(ref_loss), rtol=1e-6)
 
 
 def test_target_only_gradient():
@@ -213,7 +257,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     p, g = _t(c["pred_t"]), _t(c["gt_t"])
     s9 = rf.pack_scenes(c["ts"])
     with pytest.raises(TypeError, match="float32"):
-        rf.rendering_loss_fwdgrad(p.bfloat16(), g.bfloat16(), s9)
+        rf.rendering_loss_fwdgrad(p.half(), g.half(), s9)
     with pytest.raises(ValueError, match="contiguous"):
         rf.rendering_loss_fwd(p.transpose(2, 3), g.transpose(2, 3), s9)
     with pytest.raises(ValueError, match=r"\(B, S, 9\)"):
