@@ -4,7 +4,8 @@
 
 Phases, each raising (and so exiting non-zero) on any failure:
   1. device: the card's name and power limit, torch and CUDA versions; TF32
-     off for convolutions and matrix products;
+     off for convolutions and matrix products (the f32 phases' setting;
+     the bf16 phases and the CLI's default run set their own, _tf32);
   2. build: every CUDA kernel compiled from csrc/ with nvcc, one process per
      source, all started together;
   3. kernels: each of the five loss kernels held against its plain torch
@@ -16,15 +17,25 @@ Phases, each raising (and so exiting non-zero) on any failure:
      the training kernels) against it in float64; each bf16 instantiation
      against the f32 one on the upcast planes; and checked to give a loss
      and gradients of exactly 0 for pred equal to gt;
+  3b. the fused SR-Adam update (csrc/sr_adam.cu) against its plain version,
+     bit-exact, on the largest conv leaf and a 1-D leaf of the full-width
+     single-view model, in each dtype combination the policies use, at 3
+     salts and step counts past 2148; and its stochastic rounding unbiased
+     on the card (the mean over 400 salts within rel 1e-3);
   4. agreement: a small single-view mixed-loss model and a small multi-view
      rendering-loss model: train step, eval loss and prediction on the card
-     against the same program on the CPU;
-  5. paths, each with every kernel's launch counter set to 0 just before
-     and read just after, at full width (depth 8, 64 filters, 256^2, batch
-     8, f32, seeded weights):
-       - single-view model, mixed loss: 5 train steps, 1 eval step, predict;
-       - multi-view model (3 synthesized views), rendering-only loss: 5
-         train steps, 1 eval step, predict;
+     against the same program on the CPU; and a small single-view bf16
+     step with bf16-SR masters (loss rel 2e-2, masters within SR's reach);
+  5. paths, each with every launch counter (the loss kernels' by planes
+     dtype, and sr_adam's) set to 0 just before and read just after, at
+     full width (depth 8, 64 filters, 256^2, batch 8, seeded weights):
+       - single-view model, mixed loss, f32: 5 train steps, 1 eval step,
+         predict;
+       - multi-view model (3 synthesized views), rendering-only loss, f32:
+         5 train steps, 1 eval step, predict;
+       - the same two in bf16 with bf16-SR masters: the bf16 instantiations
+         of the loss kernels and one sr_adam launch per parameter tensor per
+         step, bf16 >=2-D masters that moved, f32 maps;
        - the rendering loss with the target's gradient under autograd;
        - one call each of the mixed loss and of the rendering loss with the
          target's gradient on bf16 planes under autograd;
@@ -33,20 +44,31 @@ Phases, each raising (and so exiting non-zero) on any failure:
      version and each path's steps, each kernel's bound for f32 and bf16
      planes, and the blocks of each kernel that fit one SM (the occupancy
      query of the library, beside the ptxas register and spill lines of
-     phase 2);
+     phase 2); the train and eval steps of both configurations side by side
+     in f32 with TF32 off, in TF32 (single view only, not a CLI mode), in
+     bf16 with f32 masters and in bf16 with bf16-SR masters; the whole
+     optimizer step of the bf16-SR single-view model: sr_adam's device time
+     (torch.profiler) against its plain version and its bound;
   7. the CLI, `svbrdf_tpu_torch.main.main([...])` in process at full width
      on 101 maps-only 1024 x 256 strips (two strips' maps written with the
      port's PNG writer, and symlinks; the 1 % split holds one out), each run
      with the launch counters set to 0 just before and read just after:
-       - single view, mixed loss, 2 epochs (13 steps each, one validation
-         sample each), then resumed to 3 epochs, then test mode on
-         data/test: the counters equal the loop's train steps
+       - single view, mixed loss, --dtype float32, 2 epochs (13 steps each,
+         one validation sample each), then resumed to 3 epochs, then test
+         mode on data/test: the counters equal the loop's train steps
          (mixed_fwdgrad) and validation batches (mixed_fwd), the checkpoint
          reloads into a fresh model that predicts the same bits, the logs,
          grid and metrics.json read back;
        - the same for 1 epoch with --device-data-cache;
-       - multi view (3 synthesized views), rendering loss, 1 epoch with
-         --device-data-cache and 2 without (render_fwdgrad, render_fwd);
+       - multi view (3 synthesized views), rendering loss, --dtype float32,
+         1 epoch with --device-data-cache and 2 without (render_fwdgrad,
+         render_fwd);
+       - single view, mixed loss at the CLI's defaults (--dtype auto: bf16
+         on the card, bf16-SR masters), TF32 as torch sets it: 2 epochs,
+         then resumed to 3 ("Restored master_dtype 'bf16sr'"): the bf16
+         loss kernels and sr_adam per step and parameter tensor, f32
+         weights in the checkpoint, which a fresh bf16-SR model reloads to
+         predict the same bits;
      and the loop's median ms per step against the build_program train
      step of phase 5, each epoch's validation pass ms, the decode ms of one
      strip, the checkpoint's save ms and size.
@@ -170,16 +192,36 @@ KERNELS = {
         "tpu_kernel": "_fwdgrad_kernel_both"},
 }
 
+# The fused SR-Adam update: not a TPU kernel's port (XLA fuses the update
+# in the JAX package, at the line named).
+SR_ADAM = {"name": "sr_adam", "route": "cuda",
+           "source": "svbrdf_tpu_torch/csrc/sr_adam.cu",
+           "replaces": "svbrdf_tpu/parallel/optimizer.py:75",
+           "tpu_kernel": None}
+# Its least operations per element: mu 3, nu 4, u 6 (two quotients and a
+# square root counted as one operation each), p + u 1: 14 FP32; the hash's
+# integer operations are not counted. Bytes: each value read or written once.
+SR_ADAM_FP32_PER_ELEMENT = 14
+
 MAIN = {"batch": 8, "size": 256, "depth": 8, "num_filters": 64,
         "n_scenes": 9, "train_steps": 5}
-# The paths driven at full width: (model kind, loss kind) and the launches
-# each must show, by kernel (every other kernel: 0).
+# The paths driven at full width: (model kind, loss kind), the compute dtype
+# and master policy, and the launches each must show by counter (every
+# other counter: 0; a bf16-SR path's sr_adam count, one per parameter
+# tensor per step, is added where the path runs).
 STEPS = MAIN["train_steps"]
+BF16 = torch.bfloat16
 PATHS = {
-    "single_mixed": (("single", "mixed"),
+    "single_mixed": (("single", "mixed"), torch.float32, None,
                      {"mixed_fwdgrad": STEPS, "mixed_fwd": 1}),
-    "multi_rendering": (("multi", "rendering"),
+    "multi_rendering": (("multi", "rendering"), torch.float32, None,
                         {"render_fwdgrad": STEPS, "render_fwd": 1}),
+    "single_mixed_bf16": (("single", "mixed"), BF16, "bf16sr",
+                          {"mixed_fwdgrad_bf16": STEPS,
+                           "mixed_fwd_bf16": 1}),
+    "multi_rendering_bf16": (("multi", "rendering"), BF16, "bf16sr",
+                             {"render_fwdgrad_bf16": STEPS,
+                              "render_fwd_bf16": 1}),
 }
 TARGET_GRAD_PATH = "rendering_target_grad"
 # The path whose run each kernel's `launches` comes from, and its calls
@@ -189,6 +231,12 @@ KERNEL_PATH = {"mixed_fwdgrad": ("single_mixed", STEPS),
                "render_fwdgrad": ("multi_rendering", STEPS),
                "render_fwd": ("multi_rendering", 1),
                "render_fwdgrad_both": (TARGET_GRAD_PATH, 1)}
+# The run that launches each kernel's bf16 instantiation on a path.
+KERNEL_PATH_BF16 = {"mixed_fwdgrad": "single_mixed_bf16",
+                    "mixed_fwd": "single_mixed_bf16",
+                    "render_fwdgrad": "multi_rendering_bf16",
+                    "render_fwd": "multi_rendering_bf16",
+                    "render_fwdgrad_both": "bf16_rendering_target_grad"}
 
 # The CLI phase: full width, 101 maps-only strips (100 train, 1 held out).
 CLI = {"size": 256, "depth": 8, "num_filters": 64, "batch": 8,
@@ -201,6 +249,7 @@ METRIC_KEYS = ("rmse_normals", "rmse_diffuse", "rmse_roughness",
                "ssim_specular", "rendering_rmse")
 # Printout lines of a CLI run worth echoing.
 CLI_ECHO = ("Training samples", "Validation samples", "Restored epoch",
+            "Restored master_dtype",
             "Training from", "validation loss", "steps:", "Test metrics",
             "Device data cache")
 
@@ -486,6 +535,166 @@ def _hold_bf16(name, label, out, inputs, inputs32) -> dict:
     return {"f32_loss_rel": rel32}
 
 
+# The storage dtypes (p, g, mu, nu) of each kind of leaf the policies
+# train: >=2-D leaves under bf16-SR masters or f32 masters with 'bf16sr'
+# state, and under 'bf16' state; 1-D leaves (f32 masters; f32 moments under
+# 'bf16sr', a bf16 mu under 'bf16').
+F32 = torch.float32
+SR_COMBOS = {
+    "conv": {"bf16 masters, bf16sr state": (BF16, BF16, BF16, BF16),
+             "f32 masters, bf16sr state": (F32, F32, BF16, BF16),
+             "f32 masters, bf16 state": (F32, F32, BF16, F32)},
+    "1-D": {"bf16sr state": (F32, F32, F32, F32),
+            "bf16 state": (F32, F32, BF16, F32)},
+}
+# (Adam step count, master salt): salts at 0, the largest and another, the
+# counts past 2147, where JAX's int32 moment salt count * 1000003 wraps.
+SR_STEPS = ((1, 0), (2148, 2 ** 31 - 2), (5000, 123456789))
+
+
+def _sr_leaf_shapes() -> dict:
+    """The largest conv leaf and the largest 1-D leaf of the full-width
+    single-view model (shapes only, made on the meta device)."""
+    from svbrdf_tpu_torch.models.generator import Generator
+
+    with torch.device("meta"):
+        gen = Generator(9, MAIN["num_filters"], MAIN["depth"])
+    params = list(gen.parameters())
+    return {"conv": tuple(max((p for p in params if p.dim() >= 2),
+                              key=lambda p: p.numel()).shape),
+            "1-D": tuple(max((p for p in params if p.dim() == 1),
+                             key=lambda p: p.numel()).shape)}
+
+
+def phase_sr_adam() -> dict:
+    """The fused SR-Adam kernel against its plain version on the card,
+    bit-exact (p, mu and nu equal), for each leaf kind, dtype combination
+    and (count, salt) of SR_COMBOS and SR_STEPS; then its SR unbiased: the
+    mean over 400 salts of a stochastically rounded nu within rel 1e-3 of
+    the f32 value, as the JAX package's test holds sr_bf16."""
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out = {"checks": [], "max_abs_err": 0.0}
+    for kind, shape in _sr_leaf_shapes().items():
+        for label, dtypes in SR_COMBOS[kind].items():
+            for count, salt in SR_STEPS:
+                scales = (0.02, 1e-3, 1e-4)
+                leaf = [(torch.randn(shape, generator=g, device="cuda")
+                         * sc).to(dt) for sc, dt in zip(scales, dtypes)]
+                leaf.append((torch.rand(shape, generator=g, device="cuda")
+                             * 1e-6).to(dtypes[3]))
+                s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, count,
+                                     count * 1000003 + 7, salt + 7)
+                kern = [t.clone() for t in leaf]
+                plain = [t.clone() for t in leaf]
+                sr_adam.sr_adam_update_cuda(*kern, s)
+                opt.adam_update_plain(*plain, s)
+                torch.cuda.synchronize()
+                equal = all(torch.equal(a, b) for a, b in zip(kern, plain))
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(kern, plain))
+                moved = float((kern[0] != leaf[0]).double().mean())
+                out["checks"].append({"leaf": kind, "shape": list(shape),
+                                      "dtypes": label, "count": count,
+                                      "master_salt": salt, "equal": equal,
+                                      "max_abs_err": err})
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                log(f"sr_adam {kind} {shape} [{label}] count {count} salt "
+                    f"{salt}: kernel vs plain "
+                    f"{'bit-exact' if equal else 'DIFFERENT'} (max abs err "
+                    f"{err:.3g}); {moved:.3%} of p moved")
+                if not equal:
+                    raise RuntimeError(f"sr_adam differs from its plain "
+                                       f"version on {kind} [{label}] at "
+                                       f"count {count}")
+    # Unbiasedness: nu32 = 0 * 1 + x * x * 1 stored bf16 through SR.
+    x = torch.sqrt(torch.empty(64, device="cuda").uniform_(
+        1e-8, 1e-4, generator=g))
+    target = (x * x).double()
+    acc = torch.zeros(64, dtype=torch.float64, device="cuda")
+    n_salts = 400
+    for salt in range(n_salts):
+        p, mu = torch.zeros_like(x), torch.zeros_like(x)
+        nu = torch.zeros(64, dtype=BF16, device="cuda")
+        sr_adam.sr_adam_update_cuda(p, x, mu, nu, opt.AdamScalars(
+            b1=0.9, omb1=0.1, b2=1.0, omb2=1.0, bc1=1.0, bc2=1.0, eps=1e-8,
+            neg_lr=0.0, nu_salt=salt, master_salt=0))
+        acc += nu.double()
+    rel = float(((acc / n_salts - target).abs() / target).max())
+    log(f"sr_adam SR unbiased: mean over {n_salts} salts, max rel err "
+        f"{rel:.3g} (limit 1e-3)")
+    if rel > 1e-3:
+        raise RuntimeError(f"sr_adam SR is biased: rel {rel:.3g}")
+    out["unbiased_max_rel"] = rel
+    return out
+
+
+def _bf16_ulp(a, b):
+    """One bf16 ulp at the larger magnitude of a and b, elementwise."""
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(1e-38)
+    return torch.exp2(torch.floor(torch.log2(big)) - 7)
+
+
+def _agreement_bf16() -> dict:
+    """One train step of a small single-view bf16 model with bf16-SR
+    masters on the card against the same program on the CPU (weights,
+    batch, scenes and step salt the same, dropout off): loss within rel
+    2e-2; the post-step bf16 masters within one bf16 ulp of each other
+    except where the two gradients, which differ in bf16 rounding, have
+    other signs (<= 0.1 % of the elements), and within one ulp plus 2 lr
+    everywhere: each side stochastically rounds p + u to one of its two
+    bf16 neighbours with |u| <= lr at the first step, so where p is small
+    against lr a sign flip of u moves the two far apart in ulps."""
+    from svbrdf_tpu_torch import losses
+    from svbrdf_tpu_torch.models import SingleViewModel
+    from svbrdf_tpu_torch.ops import sampling
+    from svbrdf_tpu_torch.parallel import step as step_lib
+    from svbrdf_tpu_torch.utils.bench_setup import synthetic_raw_batch
+
+    lr = 1e-5
+    g = torch.Generator().manual_seed(3)
+    prep = step_lib.PrepConfig(used_input_image_count=1, mix_materials=True)
+    raw = {k: torch.from_numpy(v)
+           for k, v in synthetic_raw_batch(2, 32, 0, seed=3).items()}
+    batch = step_lib.prepare(raw, prep, g)
+    scenes = sampling.generate_loss_scenes(2, generator=g)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        model = SingleViewModel(8, 5, device="cpu", seed=3,
+                                dtype=BF16).to(dev)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.eval()
+        with step_lib.master_dtype_scope():
+            step_lib.set_master_dtype_policy("bf16sr")
+            step_lib.master_cast(model)
+        step = step_lib.make_train_step(
+            model, step_lib.make_optimizer(model.parameters(), lr, BF16),
+            losses.make_loss_fn("mixed"), prep, None, seed=3)
+        loss = float(step.update({k: v.to(dev) for k, v in batch.items()},
+                                 scenes=scenes.to(dev), step=1))
+        results[dev] = (loss, torch.cat([
+            p.detach().double().cpu().flatten()
+            for p in model.parameters() if p.dim() >= 2]))
+    (lc, mc), (lg, mg) = results["cpu"], results["cuda"]
+    diff, ulp = (mg - mc).abs(), _bf16_ulp(mg, mc)
+    beyond = float((diff > ulp).double().mean())
+    worst = float((diff - ulp - 2 * lr).max())
+    log(f"agreement SingleViewModel + mixed, bf16 with bf16-SR masters "
+        f"(depth 5, 32^2, 8 filters, batch 2): loss card {lg:.9g} cpu "
+        f"{lc:.9g}; masters more than one bf16 ulp apart: {beyond:.4%}; "
+        f"max |card - cpu| - (ulp + 2 lr) {worst:.3g}")
+    if abs(lg - lc) > 2e-2 * abs(lc):
+        raise RuntimeError("bf16 card and CPU losses disagree beyond rel "
+                           "2e-2")
+    if worst > 0.0 or beyond > 1e-3:
+        raise RuntimeError("bf16 card and CPU masters disagree beyond SR's "
+                           "reach")
+    return {"loss_rel": abs(lg - lc) / abs(lc), "beyond_one_ulp": beyond}
+
+
 def _agreement(model_cls, loss_kind: str, n_views: int) -> None:
     """One train step, the eval loss and a prediction of a small model on
     the card against the same program, weights, batch and scenes on the
@@ -535,24 +744,57 @@ def _agreement(model_cls, loss_kind: str, n_views: int) -> None:
         raise RuntimeError("card and CPU gradients or predictions disagree")
 
 
-def phase_agreement() -> None:
+def phase_agreement() -> dict:
     from svbrdf_tpu_torch.models import MultiViewModel, SingleViewModel
 
     _agreement(SingleViewModel, "mixed", 1)
     _agreement(MultiViewModel, "rendering", 3)
+    return _agreement_bf16()
 
 
 def _zero_counts() -> None:
     from svbrdf_tpu_torch.ops import render_fused as rf
+    from svbrdf_tpu_torch.ops import sr_adam
 
     for wrapper in rf.CUDA_WRAPPERS.values():
         wrapper.launches = 0
+        for dtype in wrapper.launches_by_dtype:
+            wrapper.launches_by_dtype[dtype] = 0
+    sr_adam.sr_adam_update_cuda.launches = 0
 
 
 def _counts() -> dict:
+    """Every launch counter: each loss kernel's by planes dtype (the bf16
+    instantiation as <kernel>_bf16), and sr_adam's."""
     from svbrdf_tpu_torch.ops import render_fused as rf
+    from svbrdf_tpu_torch.ops import sr_adam
 
-    return {k: w.launches for k, w in rf.CUDA_WRAPPERS.items()}
+    counts = {k + rf.PLANE_DTYPES[dtype]: n
+              for k, w in rf.CUDA_WRAPPERS.items()
+              for dtype, n in w.launches_by_dtype.items()}
+    counts["sr_adam"] = sr_adam.sr_adam_update_cuda.launches
+    return counts
+
+
+@contextlib.contextmanager
+def _tf32(cudnn: bool, matmul: bool):
+    """TF32 for convolutions and matrix products as given, restored after.
+    torch's own defaults are cudnn True, matmul False."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _stepped_leaves(model) -> int:
+    """Parameter tensors the last backward gave a gradient: an AdamBf16SR
+    step launches sr_adam once for each."""
+    return sum(p.grad is not None for p in model.parameters())
 
 
 def _expect(counts: dict, expected: dict, what: str) -> None:
@@ -563,11 +805,15 @@ def _expect(counts: dict, expected: dict, what: str) -> None:
 
 def phase_path(path: str, program) -> dict:
     """One path with every launch counter set to 0 just before and read
-    just after: 5 train steps, 1 eval step, predict."""
+    just after: 5 train steps, 1 eval step, predict. A bf16-SR path also
+    keeps bf16 >=2-D masters (f32 1-D ones) and moves more than 5 % of
+    their elements, as tests/test_training.py::TestBf16SRMasters asks."""
     from svbrdf_tpu_torch.parallel.step import prepare
 
-    expected = PATHS[path][1]
-    train_only = {k: v for k, v in expected.items() if k.endswith("fwdgrad")}
+    expected = dict(PATHS[path][3])
+    bf16sr = PATHS[path][2] == "bf16sr"
+    before = ([p.detach().clone() for p in program.model.parameters()]
+              if bf16sr else None)
     torch.cuda.synchronize()
     _zero_counts()
     train_losses = [float(program.train_step(program.raw))
@@ -583,11 +829,32 @@ def phase_path(path: str, program) -> dict:
 
     if not all(torch.isfinite(torch.tensor(train_losses + [eval_loss]))):
         raise RuntimeError(f"{path}: non-finite loss")
+    if bf16sr:
+        expected["sr_adam"] = STEPS * _stepped_leaves(program.model)
+    train_only = {k: v for k, v in expected.items()
+                  if "fwdgrad" in k or k == "sr_adam"}
     _expect(after_train, train_only, f"{path} after the train steps")
     _expect(counts, expected, f"{path} after eval and predict")
+    if bf16sr:
+        changed = total = 0
+        for p0, p in zip(before, program.model.parameters()):
+            if p.dtype != (BF16 if p.dim() >= 2 else torch.float32):
+                raise RuntimeError(f"{path}: a {p.dim()}-D master is "
+                                   f"{p.dtype}")
+            if p.dim() >= 2:
+                changed += int((p0 != p).sum())
+                total += p.numel()
+        log(f"{path}: >=2-D masters bf16, 1-D f32; {changed} of {total} "
+            f"bf16 master elements changed ({changed / total:.3%}); "
+            f"sr_adam launched {counts['sr_adam']} times, "
+            f"{_stepped_leaves(program.model)} tensors a step")
+        if changed <= 0.05 * total:
+            raise RuntimeError(f"{path}: SR updates did not land: "
+                               f"{changed / total:.3%} of elements moved")
     size = MAIN["size"]
-    if tuple(svbrdf.shape) != (MAIN["batch"], size, size, 12):
-        raise RuntimeError(f"{path}: predict gave shape "
+    if tuple(svbrdf.shape) != (MAIN["batch"], size, size, 12) \
+            or svbrdf.dtype != torch.float32:
+        raise RuntimeError(f"{path}: predict gave {svbrdf.dtype} of shape "
                            f"{tuple(svbrdf.shape)}")
     if not torch.isfinite(svbrdf).all():
         raise RuntimeError(f"{path}: predict gave non-finite maps")
@@ -597,7 +864,7 @@ def phase_path(path: str, program) -> dict:
         raise RuntimeError(f"{path}: predicted maps out of range: normal "
                            f"norm err {norm_err:.3g}, maps in "
                            f"[{float(maps.min())}, {float(maps.max())}]")
-    log(f"{path} predict: {tuple(svbrdf.shape)}, {tuple(images.shape)} "
+    log(f"{path} predict: f32 {tuple(svbrdf.shape)}, {tuple(images.shape)} "
         f"input, unit normals (max err {norm_err:.3g}), maps in [0, 1]")
     return counts
 
@@ -667,7 +934,7 @@ def phase_bf16_calls(inputs) -> dict:
         torch.cuda.synchronize()
         counts[path] = _counts()
         log(f"{path}: loss {float(loss.detach())!r}; launches {counts[path]}")
-        _expect(counts[path], {kernel: 1}, path)
+        _expect(counts[path], {kernel + "_bf16": 1}, path)
         # The comparison's own launch, after the counts are read.
         ref_loss, *grads = rf.CUDA_WRAPPERS[kernel](p, g, s9)
         # Without the target's gradient the target is detached.
@@ -722,15 +989,112 @@ def kernel_times(inputs, inputs_bf16, rates: dict) -> dict:
     return out
 
 
-def step_times(path: str, program) -> dict:
+def step_times(path: str, program, predict: bool = True) -> dict:
     from svbrdf_tpu_torch.parallel.step import prepare
 
     images = prepare(program.raw, program.prep, program.generator)["inputs"]
     steps = {"train_step": lambda: program.train_step(program.raw),
-             "eval_step": lambda: program.eval_step(program.raw),
-             "predict": lambda: program.predict(images)}
+             "eval_step": lambda: program.eval_step(program.raw)}
+    if predict:
+        steps["predict"] = lambda: program.predict(images)
     out = {k: cuda_ms(fn, runs=20, warmup=2) for k, fn in steps.items()}
     log(f"{path} ms (median of 20, CUDA events): {out}")
+    return out
+
+
+# The precision modes timed side by side (phase 6): compute dtype, master
+# policy, TF32 (cudnn, matmul); the paths each applies to. f32 and bf16-SR
+# are phase 5's programs; TF32 is a measured line, not a mode of the CLI.
+MODES = {"f32": (F32, None, (False, False), ("single_mixed",
+                                             "multi_rendering")),
+         "tf32": (F32, None, (True, True), ("single_mixed",)),
+         "bf16_f32_masters": (BF16, "f32", (True, False),
+                              ("single_mixed", "multi_rendering")),
+         "bf16_bf16sr": (BF16, "bf16sr", (True, False),
+                         ("single_mixed", "multi_rendering"))}
+
+
+def mode_times() -> dict:
+    """Train and eval steps of the modes that phase 5 does not run (TF32,
+    bf16 with f32 masters), one program each at full width."""
+    from svbrdf_tpu_torch.utils.bench_setup import build_program
+
+    out = {}
+    for mode in ("tf32", "bf16_f32_masters"):
+        dtype, master, tf32, paths = MODES[mode]
+        for path in paths:
+            kinds = PATHS[path][0]
+            with _tf32(*tf32):
+                program = build_program(*kinds, MAIN["batch"], MAIN["size"],
+                                        MAIN["depth"], MAIN["num_filters"],
+                                        seed=0, device="cuda", dtype=dtype,
+                                        master_dtype=master)
+                out[f"{path}_{mode}"] = step_times(
+                    f"{path} [{mode}]", program, predict=False)
+            del program
+            torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _plain_optimizer_updates():
+    """AdamBf16SR's leaves updated by the plain version (on the card)."""
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    saved = opt.update
+    opt.update = opt.adam_update_plain
+    try:
+        yield
+    finally:
+        opt.update = saved
+
+
+def optimizer_times(program, rates: dict) -> dict:
+    """The whole optimizer step of a bf16-SR program, on the gradients of
+    its last train step: sr_adam's device time over the step's launches
+    (torch.profiler), the step's wall time between CUDA events, the plain
+    version's step, and the bound: each tensor read or written once (g, p,
+    mu, nu in; p, mu, nu out) over the memory rate, or
+    SR_ADAM_FP32_PER_ELEMENT over the FP32 rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    optimizer = program.train_step.optimizer
+    leaves = [(p, optimizer.state[p]) for p in program.model.parameters()
+              if p.grad is not None]
+    nbytes = sum(p.numel() * (p.grad.element_size() + 2 * (
+        p.element_size() + st["exp_avg"].element_size()
+        + st["exp_avg_sq"].element_size())) for p, st in leaves)
+    elements = sum(p.numel() for p, _ in leaves)
+    t_bytes = nbytes / rates["bytes"]
+    t_ops = elements * SR_ADAM_FP32_PER_ELEMENT / rates["fp32"]
+    salt = [0]
+
+    def step():
+        salt[0] += 1
+        optimizer.step(master_salt=salt[0])
+
+    wall_ms = cuda_ms(step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if "sr_adam_kernel" in e.key) / 1e3 / 5
+    with _plain_optimizer_updates():
+        plain_ms = cuda_ms(step, runs=5, warmup=1)
+    out = {"ms": device_ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_parts_us": {"bytes_us": t_bytes * 1e6,
+                              "fp32_us": t_ops * 1e6},
+           "tensors": len(leaves), "elements": elements, "bytes": nbytes}
+    log(f"sr_adam optimizer step ({len(leaves)} tensors, {elements} "
+        f"elements, {nbytes} bytes): device {device_ms:.4f} ms "
+        f"(torch.profiler, {len(leaves)} launches), wall {wall_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
     return out
 
 
@@ -781,16 +1145,20 @@ def _cli(name: str, argv: list):
     return result, out.getvalue(), counts
 
 
-def _cli_train(name, argv, kernels, steps, validation_batches):
+def _cli_train(name, argv, kernels, steps, validation_batches,
+               sr_adam=False):
     """A training run: its launches must be the loop's train steps
-    (kernels[0]) and validation batches (kernels[1]), 0 elsewhere."""
+    (kernels[0]) and validation batches (kernels[1]), with `sr_adam` one
+    sr_adam launch per step and parameter tensor, 0 elsewhere."""
     run, out, counts = _cli(name, argv)
     if (run.steps, run.validation_batches) != (steps, validation_batches):
         raise RuntimeError(f"cli {name}: {run.steps} steps and "
                            f"{run.validation_batches} validation batches, "
                            f"expected {steps} and {validation_batches}")
-    _expect(counts, {kernels[0]: run.steps,
-                     kernels[1]: run.validation_batches}, f"cli {name}")
+    expected = {kernels[0]: run.steps, kernels[1]: run.validation_batches}
+    if sr_adam:
+        expected["sr_adam"] = run.steps * _stepped_leaves(run.model)
+    _expect(counts, expected, f"cli {name}")
     if not math.isfinite(run.last_loss):
         raise RuntimeError(f"cli {name}: last loss {run.last_loss}")
     return run, out, counts
@@ -800,6 +1168,70 @@ def _adam_steps(model_dir: pathlib.Path) -> int:
     blob = torch.load(model_dir / "checkpoint.tar", map_location="cpu",
                       weights_only=True)
     return int(blob["optimizer_state_dict"]["state"][0]["step"])
+
+
+def _cli_default_runs(root, train, per_epoch) -> dict:
+    """Single view, mixed loss at the CLI's defaults (--dtype auto: bf16 on
+    the card, bf16-SR masters) with TF32 as torch sets it, as a user runs
+    it: 2 epochs, then resumed to 3. The resume restores the policy from
+    the checkpoint, which holds f32 weights; a fresh bf16-SR model reloaded
+    from it predicts the trained model's bits."""
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.parallel import step as step_lib
+    from svbrdf_tpu_torch.training.checkpoint import Checkpoint
+
+    kernels = ("mixed_fwdgrad_bf16", "mixed_fwd_bf16")
+    mixed = ["--used-image-count", "1", "--loss", "mixed"]
+    model_dir = root / "default"
+    runs = {}
+    with _tf32(True, False):
+        runs["single_mixed_default"] = _cli_train(
+            "single_mixed_default", train("default", *mixed, "--epochs", "2",
+                                          "--retrain"),
+            kernels, 2 * per_epoch, 2, sr_adam=True)
+        runs["single_mixed_default_resume"] = _cli_train(
+            "single_mixed_default_resume",
+            train("default", *mixed, "--epochs", "3"), kernels,
+            2 * per_epoch, 2, sr_adam=True)
+    resumed, out, _ = runs["single_mixed_default_resume"]
+    if ("Restored master_dtype 'bf16sr'" not in out
+            or "Training from epoch 1 to 3" not in out):
+        raise RuntimeError("cli default: the resume did not restore "
+                           "master_dtype 'bf16sr' and continue from epoch 1")
+    if _adam_steps(model_dir) != 4 * per_epoch:
+        raise RuntimeError("cli default: after the resume the Adam step is "
+                           "not the steps taken in both runs")
+    blob = torch.load(model_dir / "checkpoint.tar", map_location="cpu",
+                      weights_only=True)
+    dtypes = {v.dtype for v in blob["model_state_dict"].values()}
+    if dtypes != {torch.float32} or blob.get("master_dtype") != "bf16sr":
+        raise RuntimeError(f"cli default: checkpoint weights {dtypes}, "
+                           f"master_dtype {blob.get('master_dtype')!r}")
+    for p in resumed.model.parameters():
+        if p.dtype != (BF16 if p.dim() >= 2 else torch.float32):
+            raise RuntimeError(f"cli default: a {p.dim()}-D master is "
+                               f"{p.dtype}")
+    device = next(resumed.model.parameters()).device
+    fresh = build_model("single", False, CLI["depth"], CLI["num_filters"],
+                        device=device, seed=1, dtype=BF16)
+    with contextlib.redirect_stdout(io.StringIO()):
+        Checkpoint.load(model_dir).restore_params(fresh)
+    with step_lib.master_dtype_scope():
+        step_lib.set_master_dtype_policy("bf16sr")
+        step_lib.master_cast(fresh)
+    images = torch.rand(2, 1, CLI["size"], CLI["size"], 3, device=device)
+    with _tf32(True, False):
+        same = torch.equal(step_lib.make_predict_fn(fresh)(images),
+                           step_lib.make_predict_fn(resumed.model)(images))
+    if not same:
+        raise RuntimeError("cli default: the reloaded bf16-SR model "
+                           "predicts otherwise than the trained one")
+    log(f"cli single_mixed_default: resumed with master_dtype 'bf16sr'; "
+        f"checkpoint weights f32; a fresh bf16-SR model reloaded from it "
+        f"predicts the same bits")
+    del fresh
+    shutil.rmtree(model_dir)
+    return runs
 
 
 def phase_cli(build_program_ms: dict) -> dict:
@@ -835,9 +1267,11 @@ def phase_cli(build_program_ms: dict) -> dict:
 
         single = ("mixed_fwdgrad", "mixed_fwd")
         multi = ("render_fwdgrad", "render_fwd")
-        mixed = ["--used-image-count", "1", "--loss", "mixed"]
+        # The f32 runs say so: the CLI's default on the card is bf16.
+        mixed = ["--used-image-count", "1", "--loss", "mixed", "--dtype",
+                 "float32"]
         render = ["--model-type", "multi", "--used-image-count", "3",
-                  "--loss", "render"]
+                  "--loss", "render", "--dtype", "float32"]
         model_dir = root / "single"
         runs = {}
         runs["single_mixed"] = _cli_train(
@@ -894,7 +1328,8 @@ def phase_cli(build_program_ms: dict) -> dict:
                                "the steps taken in both runs")
         written, _, counts = _cli("single_mixed_test", [
             "--mode", "test", "--input-dir", str(REPO / "data" / "test"),
-            "--image-count", "10", "--model-dir", str(model_dir)] + width)
+            "--image-count", "10", "--model-dir", str(model_dir),
+            "--dtype", "float32"] + width)
         _expect(counts, {}, "cli single_mixed_test")
         grid = strips.read_image_u8(written[0])
         summary = json.loads((model_dir / "test_outputs" /
@@ -922,11 +1357,14 @@ def phase_cli(build_program_ms: dict) -> dict:
                 kind, epochs * per_epoch, epochs)
             shutil.rmtree(root / name)  # a checkpoint is ~1 GB at full width
 
+        runs.update(_cli_default_runs(root, train, per_epoch))
+
     for name, (run, _, counts) in runs.items():
         entry = {"launches": counts}
         if run is not None:
-            path = "single_mixed" if name.startswith("single") else \
-                "multi_rendering"
+            path = ("single_mixed_bf16" if "default" in name
+                    else "single_mixed" if name.startswith("single")
+                    else "multi_rendering")
             base = build_program_ms[path]["train_step"]
             # Every step is timed (--log-every 1); the first is the
             # timer's warm-up. An epoch's first pass over the strips
@@ -978,17 +1416,36 @@ def main() -> None:
     inputs, inputs_bf16 = input_sets["loss_inputs"], input_sets[
         "loss_inputs bf16"]
     errors = phase_kernels(input_sets)
-    phase_agreement()
+    sr_checks = phase_sr_adam()
+    agreement_bf16 = phase_agreement()
 
-    counts, steps_ms = {}, {}
-    for path, (kinds, _) in PATHS.items():
-        program = build_program(*kinds, MAIN["batch"], MAIN["size"],
-                                MAIN["depth"], MAIN["num_filters"], seed=0,
-                                device="cuda")
-        counts[path] = phase_path(path, program)
-        steps_ms[path] = step_times(path, program)
+    counts, steps_ms = {}, {"modes": {}}
+    optimizer = None
+    for path, (kinds, dtype, master, _) in PATHS.items():
+        # The f32 paths run with TF32 off (phase 1); the bf16 ones with
+        # TF32 as torch sets it, as the CLI runs them.
+        with (_tf32(True, False) if dtype == BF16
+              else contextlib.nullcontext()):
+            program = build_program(*kinds, MAIN["batch"], MAIN["size"],
+                                    MAIN["depth"], MAIN["num_filters"],
+                                    seed=0, device="cuda", dtype=dtype,
+                                    master_dtype=master)
+            counts[path] = phase_path(path, program)
+            steps_ms[path] = step_times(path, program)
+            if path == "single_mixed_bf16":
+                optimizer = optimizer_times(program, rates)
         del program
         torch.cuda.empty_cache()
+    steps_ms["modes"] = mode_times()
+    for path in ("single_mixed", "multi_rendering"):
+        log(f"{path} train / eval ms by mode: " + "; ".join(
+            f"{mode} {t['train_step']:.2f} / {t['eval_step']:.2f}"
+            for mode, t in (
+                ("f32", steps_ms[path]),
+                ("tf32", steps_ms["modes"].get(f"{path}_tf32")),
+                ("bf16_f32_masters",
+                 steps_ms["modes"][f"{path}_bf16_f32_masters"]),
+                ("bf16_bf16sr", steps_ms[f"{path}_bf16"])) if t))
     counts[TARGET_GRAD_PATH] = phase_target_grad(inputs)
     counts.update(phase_bf16_calls(inputs_bf16))
     times = kernel_times(inputs, inputs_bf16, rates)
@@ -997,9 +1454,13 @@ def main() -> None:
     for k in KERNELS:
         path, calls = KERNEL_PATH[k]
         launches = counts[path][k]
+        bf16_path = KERNEL_PATH_BF16[k]
         kernels.append(dict(
             name=k, **KERNELS[k], path=path, launches=launches,
             launches_per_call=launches / calls,
+            launches_by_dtype={"f32": launches,
+                               "bf16": counts[bf16_path][k + "_bf16"]},
+            bf16_path=bf16_path,
             max_abs_err=errors[k]["loss_inputs"]["max_abs_err"],
             loss_rel_err=errors[k]["loss_inputs"]["loss_rel_err"],
             checks=errors[k],
@@ -1013,9 +1474,27 @@ def main() -> None:
             bf16_bound_ms=times[k]["bf16_bound_ms"],
             bf16_bound_by=times[k]["bf16_bound_by"],
             bf16_blocks_per_sm=times[k]["bf16_blocks_per_sm"],
-            bf16_launches={path: counts[path][k] for path in BF16_PATHS},
-            cli_launches={run: c["launches"][k]
+            bf16_launches={p: counts[p][k + "_bf16"] for p in BF16_PATHS},
+            cli_launches={run: {"f32": c["launches"][k],
+                                "bf16": c["launches"][k + "_bf16"]}
                           for run, c in cli["runs"].items()}))
+    # sr_adam: launches from the bf16-SR main path; the times of one whole
+    # optimizer step of that path's model (one launch per tensor).
+    kernels.append(dict(
+        **SR_ADAM, path="single_mixed_bf16",
+        launches=counts["single_mixed_bf16"]["sr_adam"],
+        launches_per_call=counts["single_mixed_bf16"]["sr_adam"] / STEPS,
+        launches_by_path={p: counts[p]["sr_adam"] for p in PATHS},
+        max_abs_err=sr_checks["max_abs_err"], checks=sr_checks,
+        ms=optimizer["ms"], wall_ms=optimizer["wall_ms"],
+        plain_ms=optimizer["plain_ms"], bound_ms=optimizer["bound_ms"],
+        bound_us=optimizer["bound_ms"] * 1e3,
+        bound_by=optimizer["bound_by"],
+        bound_parts_us=optimizer["bound_parts_us"],
+        optimizer_step=optimizer, library_ms=None,
+        cli_launches={run: c["launches"]["sr_adam"]
+                      for run, c in cli["runs"].items()}))
+    steps_ms["agreement_bf16"] = agreement_bf16
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "steps_ms": steps_ms,
                       "cli": cli}))

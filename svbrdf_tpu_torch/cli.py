@@ -13,10 +13,6 @@ import argparse
 
 # Unported features: (flag, predicate on its value, ROADMAP Queue 1 item).
 _NOT_PORTED = (
-    ("--dtype bfloat16", lambda a: a.dtype == "bfloat16",
-     "13 (bf16 compute and SR optimizer)"),
-    ("--master-dtype bf16sr", lambda a: a.master_dtype == "bf16sr",
-     "13 (bf16 compute and SR optimizer)"),
     ("--renderer pathtracing", lambda a: a.renderer == "pathtracing",
      "12 (path tracer)"),
     ("--num-devices > 1", lambda a: a.num_devices > 1,
@@ -99,13 +95,19 @@ def build_parser() -> argparse.ArgumentParser:
                    default=1e-5, help="Adam learning rate.")
     p.add_argument("--dtype", dest="dtype",
                    choices=["auto", "float32", "bfloat16"], default="auto",
-                   help="Model compute dtype. 'auto' = float32; 'bfloat16' "
-                        "is not ported yet.")
+                   help="Model compute dtype (params stay float32 unless "
+                        "--master-dtype bf16sr). 'auto' = bfloat16 on a "
+                        "CUDA device, float32 on the CPU. float32 runs with "
+                        "TF32 off.")
     p.add_argument("--master-dtype", dest="master_dtype",
                    choices=["auto", "f32", "bf16sr"], default="auto",
-                   help="Master-parameter storage policy: the port keeps "
-                        "f32 masters ('auto' and 'f32'); 'bf16sr' is not "
-                        "ported yet.")
+                   help="Master-parameter storage policy for bf16 models "
+                        "(changes the trained artifact: 'bf16sr' stores "
+                        ">=2-D leaves bf16, updated with stochastic "
+                        "rounding; 'f32' keeps f32 masters). 'auto' = "
+                        "SVBRDF_MASTER_DTYPE env var, default bf16sr "
+                        "(parity evidence: docs/bf16_parity.md). Recorded "
+                        "in the checkpoint and restored on resume.")
     p.add_argument("--upconv", dest="upconv",
                    choices=["auto", "dilated", "fold", "naive"],
                    default="auto",

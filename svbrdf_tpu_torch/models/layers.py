@@ -9,6 +9,13 @@ Submodules are named after the PyTorch reference's state_dict keys (e.g.
 enc2.conv.conv.weight, dec8.deconv.conv.2.weight), so a reference
 checkpoint and interop.jax_params.params_from_jax both load strictly.
 
+Compute dtype: every layer takes `dtype`, the dtype it computes in (bf16
+or f32), as the JAX package's modules do. Parameters keep their own dtype
+(f32, or bf16 masters: parallel/step.master_cast) and are cast per use; the
+normalization statistics, the channel means and the affine of the norm run
+in f32. Each cast is a no-op at f32, where the layers compute what they
+computed before the dtype existed, op for op.
+
 Init contract (init_params):
   conv kernels  ~ N(0, 0.02); no conv bias anywhere;
   merge Linear  ~ N(0, 0.01 * sqrt(1/fan_in)), no bias;
@@ -23,23 +30,55 @@ from torch import nn
 from torch.nn import functional as F
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (no bias here) that casts its input and weight to
+    `compute_dtype`."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
+
+
+class Linear(nn.Linear):
+    """nn.Linear that casts its input, weight and bias to `compute_dtype`
+    (as flax's Dense(dtype=...))."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
 class InstanceNorm(nn.Module):
     """Per-sample, per-channel normalization over H, W with affine params:
     eps 1e-5, biased variance, no running statistics. One-pass statistics,
-    E[x^2] - E[x]^2 clamped at 0, as the JAX package computes them."""
+    E[x^2] - E[x]^2 clamped at 0, as the JAX package computes them. The
+    statistics and the affine run in f32; the result is in `dtype`."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5,
+                 dtype=torch.float32):
         super().__init__()
         self.eps = eps
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        x = x.float()
         mean = torch.mean(x, dim=(2, 3), keepdim=True)
         mean_sq = torch.mean(torch.square(x), dim=(2, 3), keepdim=True)
         var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
         y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight[:, None, None] + self.bias[:, None, None]
+        y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        return y.to(self.compute_dtype)
 
 
 class Merge(nn.Module):
@@ -47,9 +86,10 @@ class Merge(nn.Module):
     With no global track (the first encoder block) the input passes as is;
     the weight still exists, as in the reference."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype=torch.float32):
         super().__init__()
-        self.fully_connected = nn.Linear(features, features, bias=False)
+        self.fully_connected = Linear(features, features, bias=False,
+                                      compute_dtype=dtype)
 
     def forward(self, x, global_track):
         if global_track is None:
@@ -60,9 +100,11 @@ class Merge(nn.Module):
 class GlobalTrack(nn.Module):
     """FC + SELU over concat(global track, channel means)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 dtype=torch.float32):
         super().__init__()
-        self.fully_connected = nn.Linear(in_features, features, bias=True)
+        self.fully_connected = Linear(in_features, features, bias=True,
+                                      compute_dtype=dtype)
 
     def forward(self, local_mean, global_track):
         h = (local_mean if global_track is None
@@ -70,9 +112,10 @@ class GlobalTrack(nn.Module):
         return F.selu(self.fully_connected(h))
 
 
-def _spatial_mean(x):
-    """Channel means over H, W (the pre-norm tap into the global track)."""
-    return torch.mean(x, dim=(2, 3))
+def spatial_mean(x):
+    """Channel means over H, W (the pre-norm tap into the global track),
+    in f32."""
+    return torch.mean(x.float(), dim=(2, 3))
 
 
 class _ConvUnit(nn.Module):
@@ -80,12 +123,12 @@ class _ConvUnit(nn.Module):
     optional InstanceNorm, merge."""
 
     def __init__(self, in_features, features, use_norm, kernel_size, stride,
-                 padding):
+                 padding, dtype):
         super().__init__()
-        self.conv = nn.Conv2d(in_features, features, kernel_size,
-                              stride=stride, padding=padding, bias=False)
-        self.norm = InstanceNorm(features) if use_norm else None
-        self.merge = Merge(features)
+        self.conv = Conv2d(in_features, features, kernel_size, stride=stride,
+                           padding=padding, bias=False, compute_dtype=dtype)
+        self.norm = InstanceNorm(features, dtype=dtype) if use_norm else None
+        self.merge = Merge(features, dtype)
 
 
 class EncodingBlock(nn.Module):
@@ -95,18 +138,18 @@ class EncodingBlock(nn.Module):
     conv_geometry = (4, 2, 1)  # kernel size, stride, padding
 
     def __init__(self, in_features, features, use_norm=True,
-                 use_activation=True):
+                 use_activation=True, dtype=torch.float32):
         super().__init__()
         self.use_activation = use_activation
         self.conv = _ConvUnit(in_features, features, use_norm,
-                              *self.conv_geometry)
+                              *self.conv_geometry, dtype)
 
     def forward(self, x, global_track):
         if self.use_activation:
             x = F.leaky_relu(x, 0.2)
         u = self.conv
         x = u.conv(x)
-        mean = _spatial_mean(x)
+        mean = spatial_mean(x)
         if u.norm is not None:
             x = u.norm(x)
         return u.merge(x, global_track), mean
@@ -158,15 +201,15 @@ class _DecodingUnit(nn.Module):
     """The reference's DecodingLayer body: conv = [upsample, pad, conv,
     pad, conv] (keys conv.2 / conv.4), optional InstanceNorm, merge."""
 
-    def __init__(self, in_features, features, use_norm):
+    def __init__(self, in_features, features, use_norm, dtype):
         super().__init__()
         self.conv = nn.Sequential(
             _Fn(upsample_nearest_2x), _Fn(_pad_1212),
-            nn.Conv2d(in_features, features, 4, bias=False),
+            Conv2d(in_features, features, 4, bias=False, compute_dtype=dtype),
             _Fn(_pad_1212),
-            nn.Conv2d(features, features, 4, bias=False))
-        self.norm = InstanceNorm(features) if use_norm else None
-        self.merge = Merge(features)
+            Conv2d(features, features, 4, bias=False, compute_dtype=dtype))
+        self.norm = InstanceNorm(features, dtype=dtype) if use_norm else None
+        self.merge = Merge(features, dtype)
 
 
 class DecodingBlock(nn.Module):
@@ -175,9 +218,9 @@ class DecodingBlock(nn.Module):
     Returns (features, channel_mean)."""
 
     def __init__(self, in_features, features, use_norm=True,
-                 use_dropout=False):
+                 use_dropout=False, dtype=torch.float32):
         super().__init__()
-        self.deconv = _DecodingUnit(in_features, features, use_norm)
+        self.deconv = _DecodingUnit(in_features, features, use_norm, dtype)
         self.dropout = nn.Dropout(0.5) if use_dropout else None
 
     def forward(self, x, skip, global_track):
@@ -186,7 +229,7 @@ class DecodingBlock(nn.Module):
         x = F.leaky_relu(x, 0.2)
         u = self.deconv
         x = u.conv(x)
-        mean = _spatial_mean(x)
+        mean = spatial_mean(x)
         if u.norm is not None:
             x = u.norm(x)
         x = u.merge(x, global_track)

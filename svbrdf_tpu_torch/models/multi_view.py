@@ -11,7 +11,9 @@ parameters and per-view dropout keys; here the views are folded into the
 batch, which is the same computation: InstanceNorm and the global track
 are per sample, and dropout draws an independent mask per element. The
 JAX head runs in a space-to-depth phase layout for the TPU; this is its
-plain form at full resolution, with the same parameter tree.
+plain form at full resolution, with the same parameter tree. The generator
+and the head compute in `dtype`, the channel means in f32; the maps are
+decoded and returned in f32.
 """
 
 from __future__ import annotations
@@ -36,24 +38,27 @@ class MultiViewModel(nn.Module):
 
     def __init__(self, num_filters: int = 64, depth: int = 8,
                  generator_output_channels: int = 64,
-                 use_coords: bool = False, *, device="cuda", seed: int = 0):
+                 use_coords: bool = False, *, device="cuda", seed: int = 0,
+                 dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
+        self.compute_dtype = dtype
         c0 = generator_output_channels
         f1, f2, f3 = HEAD_FEATURES
         with dev:
             self.generator = Generator(c0, num_filters=num_filters,
-                                       depth=depth, use_coords=use_coords)
-            self.merge = L.Merge(c0)
-            self.gt1 = L.GlobalTrack(c0 + c0, f1)
+                                       depth=depth, use_coords=use_coords,
+                                       dtype=dtype)
+            self.merge = L.Merge(c0, dtype)
+            self.gt1 = L.GlobalTrack(c0 + c0, f1, dtype)
             self.conv1 = L.ConvFeatureBlock(c0, f1, use_norm=True,
-                                            use_activation=False)
-            self.gt2 = L.GlobalTrack(f1 + f1, f2)
+                                            use_activation=False, dtype=dtype)
+            self.gt2 = L.GlobalTrack(f1 + f1, f2, dtype)
             self.conv2 = L.ConvFeatureBlock(f1, f2, use_norm=True,
-                                            use_activation=True)
-            self.gt3 = L.GlobalTrack(f2 + f2, f3)
+                                            use_activation=True, dtype=dtype)
+            self.gt3 = L.GlobalTrack(f2 + f2, f3, dtype)
             self.conv3 = L.ConvFeatureBlock(f2, f3, use_norm=False,
-                                            use_activation=True)
+                                            use_activation=True, dtype=dtype)
         L.init_params(self, torch.Generator(device=dev).manual_seed(seed))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -69,7 +74,7 @@ class MultiViewModel(nn.Module):
         g_pooled = torch.amax(global_vec.reshape(b, n, -1), dim=1)
 
         x = self.merge(spatial, g_pooled)
-        g = self.gt1(torch.mean(spatial, dim=(2, 3)), g_pooled)
+        g = self.gt1(L.spatial_mean(spatial), g_pooled)
         x, mean = self.conv1(x, g)
         g = self.gt2(mean, g)
         x, mean = self.conv2(x, g)

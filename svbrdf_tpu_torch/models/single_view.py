@@ -4,7 +4,9 @@ Counterpart of svbrdf_tpu/models/single_view.py: Generator(9 channels) ->
 tanh -> decode to a 12-channel SVBRDF (normal z reconstruction, roughness
 replication) -> diffuse/roughness/specular remapped [-1, 1] -> [0, 1],
 normals kept in [-1, 1]. Given (B, N, H, W, 3) inputs, only view 0 is used.
-`use_coords` appends coordinate channels to the input (Generator).
+`use_coords` appends coordinate channels to the input (Generator). The
+generator computes in `dtype`; the head decodes in f32 and the maps come
+out in f32, as the JAX model's public spatial output.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ from svbrdf_tpu_torch.ops import codecs
 
 def head_to_svbrdf(sv9: torch.Tensor) -> torch.Tensor:
     """(..., 9) head output -> tanh -> packed (..., 12) SVBRDF in output
-    ranges."""
-    maps = codecs.unpack_svbrdf(codecs.decode_svbrdf(torch.tanh(sv9)))
+    ranges, decoded in f32."""
+    maps = codecs.unpack_svbrdf(codecs.decode_svbrdf(torch.tanh(sv9.float())))
     unit = codecs.encode_as_unit_interval
     return codecs.pack_svbrdf(maps.normals, unit(maps.diffuse),
                               unit(maps.roughness), unit(maps.specular))
@@ -35,12 +37,15 @@ class SingleViewModel(nn.Module):
     """
 
     def __init__(self, num_filters: int = 64, depth: int = 8,
-                 use_coords: bool = False, *, device="cuda", seed: int = 0):
+                 use_coords: bool = False, *, device="cuda", seed: int = 0,
+                 dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
+        self.compute_dtype = dtype
         with dev:
             self.generator = Generator(9, num_filters=num_filters,
-                                       depth=depth, use_coords=use_coords)
+                                       depth=depth, use_coords=use_coords,
+                                       dtype=dtype)
         L.init_params(self, torch.Generator(device=dev).manual_seed(seed))
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

@@ -690,6 +690,13 @@ def _rendering_count(pred_t, scenes9, global_height):
     return _count(batch, scenes9.shape[1], height, width, global_height)
 
 
+def _counted(wrapper, pred_t) -> None:
+    """One launch of `wrapper`'s kernel, counted in total and by the planes'
+    dtype."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[pred_t.dtype] += 1
+
+
 def mixed_loss_fwdgrad_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
                             global_height: int = 0, l1_weight: float = 0.1):
     """Launch the mixed loss's value+gradient kernel: (loss, dpred). The
@@ -698,7 +705,7 @@ def mixed_loss_fwdgrad_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
     partials, dpred = _launch(
         "mixed_fwdgrad", pred_t, gt_t, scenes9, row_offset, global_height,
         _mixed_floats(pred_t, scenes9, global_height, l1_weight))
-    mixed_loss_fwdgrad_cuda.launches += 1
+    _counted(mixed_loss_fwdgrad_cuda, pred_t)
     return torch.sum(partials), dpred
 
 
@@ -709,7 +716,7 @@ def mixed_loss_fwd_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
     partials, = _launch(
         "mixed_fwd", pred_t, gt_t, scenes9, row_offset, global_height,
         _mixed_floats(pred_t, scenes9, global_height, l1_weight))
-    mixed_loss_fwd_cuda.launches += 1
+    _counted(mixed_loss_fwd_cuda, pred_t)
     return torch.sum(partials)
 
 
@@ -721,7 +728,7 @@ def rendering_loss_fwdgrad_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
     count = _rendering_count(pred_t, scenes9, global_height)
     partials, dpred = _launch("render_fwdgrad", pred_t, gt_t, scenes9,
                               row_offset, global_height, (1.0 / count,))
-    rendering_loss_fwdgrad_cuda.launches += 1
+    _counted(rendering_loss_fwdgrad_cuda, pred_t)
     return torch.sum(partials) / count, dpred
 
 
@@ -732,7 +739,7 @@ def rendering_loss_fwd_cuda(pred_t, gt_t, scenes9, row_offset: int = 0,
     count = _rendering_count(pred_t, scenes9, global_height)
     partials, = _launch("render_fwd", pred_t, gt_t, scenes9, row_offset,
                         global_height, ())
-    rendering_loss_fwd_cuda.launches += 1
+    _counted(rendering_loss_fwd_cuda, pred_t)
     return torch.sum(partials) / count
 
 
@@ -746,7 +753,7 @@ def rendering_loss_fwdgrad_both_cuda(pred_t, gt_t, scenes9,
     partials, dpred, dgt = _launch("render_fwdgrad_both", pred_t, gt_t,
                                    scenes9, row_offset, global_height,
                                    (1.0 / count,))
-    rendering_loss_fwdgrad_both_cuda.launches += 1
+    _counted(rendering_loss_fwdgrad_both_cuda, pred_t)
     return torch.sum(partials) / count, dpred, dgt
 
 
@@ -759,6 +766,7 @@ CUDA_WRAPPERS = {
 }
 for _wrapper in CUDA_WRAPPERS.values():
     _wrapper.launches = 0
+    _wrapper.launches_by_dtype = dict.fromkeys(PLANE_DTYPES, 0)
 
 PLAIN_VERSIONS = {
     "mixed_fwdgrad": mixed_loss_fwdgrad_plain,

@@ -1,0 +1,256 @@
+"""Adam with reduced-precision state, and stochastic rounding to bf16.
+
+Counterpart of svbrdf_tpu/parallel/optimizer.py. bf16 moments halve
+Adam's state traffic, but round-to-nearest storage would freeze the second
+moment: its EMA increments are (1 - beta2) = 1e-3-scale relative changes,
+far below bf16's ~0.4 % mantissa step. Stochastic rounding (SR) adds a
+uniform dither below the cut before truncating, so the stored value is
+unbiased (E[sr_bf16(x)] = x) and the EMA is followed in expectation. The
+same rounding lands the sub-ulp updates of bf16 master weights
+(parallel/step.master_dtype_policy).
+
+The dither is the JAX package's counter-based hash over (element index,
+salt), bit for bit: torch has no full uint32 arithmetic, so it runs on
+int64 tensors masked to 32 bits after every multiply and shift, and the
+salt's own product (which would overflow int64) is reduced on the host.
+
+AdamBf16SR computes optax's Adam (bias-corrected, eps outside the square
+root) in f32 and stores the state in the dtypes of its precision:
+  - 'bf16sr': >=2-D leaves keep mu bf16 (round to nearest) and nu bf16
+    (stochastically rounded); 1-D leaves keep f32 moments;
+  - 'bf16': mu bf16 (round to nearest), nu f32, every leaf
+    (optax.adam(mu_dtype=bfloat16); optax rounds b1 * mu to bf16 before the
+    sum, this class takes mu in f32 as 'bf16sr' does);
+  - 'f32': f32 moments.
+A bf16 parameter (a bf16 master) is updated as sr_bf16(p + u, salt + i)
+with the caller's master salt; an f32 one as p + u. The state's keys are
+torch.optim.Adam's (step, exp_avg, exp_avg_sq), so checkpoints load across
+the two and across precisions: load_state_dict casts the moments to this
+optimizer's dtypes.
+
+On CPU tensors each leaf runs the plain version (adam_update_plain); on
+CUDA tensors it runs the fused kernel of csrc/sr_adam.cu
+(ops/sr_adam.sr_adam_update_cuda), which computes the same ops in the same
+order and is bit-exact with it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from svbrdf_tpu_torch.ops import sr_adam
+
+_MASK32 = 0xFFFFFFFF
+_SALT_STEP = 1000003  # per-step stride of the per-leaf moment salt
+
+
+def u32(salt: int) -> int:
+    """An integer salt read as uint32, as JAX's int32 salts are read by
+    .astype(uint32): two's complement, modulo 2^32."""
+    return int(salt) & _MASK32
+
+
+def dither_bits(shape, salt: int, device=None) -> torch.Tensor:
+    """Per-element uint32 hash of the row-major element index and `salt`
+    (JAX's _dither_bits), as int64 values in [0, 2^32)."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    salt_term = (u32(salt) * 0x85EBCA6B) & _MASK32
+    z = torch.arange(n, dtype=torch.int64, device=device)
+    z = (z * 0x9E3779B9 + salt_term) & _MASK32
+    z = z ^ (z >> 16)
+    z = (z * 0x7FEB352D) & _MASK32
+    z = z ^ (z >> 15)
+    return (z ^ (z >> 16)).reshape(tuple(int(d) for d in shape))
+
+
+def sr_bf16(x: torch.Tensor, salt: int) -> torch.Tensor:
+    """Stochastically round to bf16: add the dither's low 16 bits to the
+    f32 bit pattern and truncate. Unbiased: E[result] = x."""
+    bits = x.float().view(torch.int32).to(torch.int64) & _MASK32
+    noise = dither_bits(x.shape, salt, x.device) & 0xFFFF
+    hi = ((bits + noise) & _MASK32) >> 16
+    hi = hi - ((hi & 0x8000) << 1)  # the bf16 pattern as a signed int16
+    return hi.to(torch.int16).view(torch.bfloat16)
+
+
+def moment_dtype(p: torch.Tensor) -> torch.dtype:
+    """bf16 moments for >=2-D leaves (conv and linear weights, where the
+    bytes are), f32 for 1-D ones (biases, norm scales), as the master-dtype
+    policy's >=2-D rule."""
+    return torch.bfloat16 if p.dim() >= 2 else torch.float32
+
+
+PRECISIONS = ("bf16sr", "bf16", "f32")
+
+
+def state_dtypes(p: torch.Tensor, precision: str) -> tuple:
+    """(mu dtype, nu dtype) of parameter `p` under state `precision`."""
+    if precision == "bf16sr":
+        return moment_dtype(p), moment_dtype(p)
+    if precision == "bf16":
+        return torch.bfloat16, torch.float32
+    return torch.float32, torch.float32
+
+
+class AdamScalars(NamedTuple):
+    """One leaf's scalars of one step, each float exactly an f32 value:
+    b1, 1 - b1, b2, 1 - b2, the bias corrections 1 - b^count, eps and -lr;
+    the two salts as uint32 (master_salt unused for an f32 parameter)."""
+
+    b1: float
+    omb1: float
+    b2: float
+    omb2: float
+    bc1: float
+    bc2: float
+    eps: float
+    neg_lr: float
+    nu_salt: int
+    master_salt: int
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _bias_correction(b: float, count: int) -> float:
+    """1 - b ** count as the JAX update forms it in f32: b rounded to f32,
+    its power rounded once to f32 (computed in float64; XLA's and numpy's
+    f32 pow each miss the rounded value by an ulp at some counts), then
+    subtracted in f32."""
+    power = np.float32(float(np.float32(b)) ** count)
+    return float(np.float32(1.0) - power)
+
+
+def adam_scalars(lr: float, betas: tuple, eps: float, count: int,
+                 nu_salt: int, master_salt: int = 0) -> AdamScalars:
+    """The scalars as the JAX update forms them in f32: b1 and 1 - b1 from
+    Python floats, the bias corrections by _bias_correction."""
+    b1, b2 = betas
+    return AdamScalars(
+        b1=_f32(b1), omb1=_f32(1.0 - b1), b2=_f32(b2), omb2=_f32(1.0 - b2),
+        bc1=_bias_correction(b1, count), bc2=_bias_correction(b2, count),
+        eps=_f32(eps), neg_lr=_f32(-lr), nu_salt=u32(nu_salt),
+        master_salt=u32(master_salt))
+
+
+@torch.no_grad()
+def adam_update_plain(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                      nu: torch.Tensor, s: AdamScalars) -> None:
+    """One leaf's update in place, in f32: mu stored round-to-nearest, nu
+    through sr_bf16 when it is bf16, p through sr_bf16 with the master salt
+    when it is bf16, else p + u. The bias corrections divide as tensors on
+    p's device (torch takes a division by a Python number on the card as a
+    product with its reciprocal; the kernel and JAX divide)."""
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.float32, device=p.device)
+
+    g32 = g.float()
+    mu32 = mu.float() * s.b1 + g32 * s.omb1
+    nu32 = nu.float() * s.b2 + g32 * g32 * s.omb2
+    u = (mu32 / scalar(s.bc1)) / (torch.sqrt(nu32 / scalar(s.bc2)) + s.eps)
+    u = u * s.neg_lr
+    mu.copy_(mu32)
+    nu.copy_(sr_bf16(nu32, s.nu_salt) if nu.dtype == torch.bfloat16
+             else nu32)
+    p.copy_(sr_bf16(p.float() + u, s.master_salt)
+            if p.dtype == torch.bfloat16 else p + u)
+
+
+def update(p, g, mu, nu, s: AdamScalars) -> None:
+    """One leaf's update in place: the plain version for CPU tensors, the
+    fused kernel (ops/sr_adam) for CUDA tensors."""
+    if p.device.type == "cpu":
+        adam_update_plain(p, g, mu, nu, s)
+    else:
+        sr_adam.sr_adam_update_cuda(p, g, mu, nu, s)
+
+
+class AdamBf16SR(torch.optim.Optimizer):
+    """Adam with its state in the dtypes of `precision` ('bf16sr', 'bf16'
+    or 'f32'; see the module docstring) and SR updates of bf16 parameters.
+
+    step(master_salt=None): the per-step salt of the bf16 masters' SR
+    (leaf i rounds with master_salt + i, modulo 2^32); required when any
+    parameter is bf16. Leaf i's moment salt is count * 1000003 + i modulo
+    2^32, count being its step after the increment, as JAX's int32 product
+    wraps. i is the parameter's position over the param groups.
+    """
+
+    def __init__(self, params, lr: float = 1e-5, betas=(0.9, 0.999),
+                 eps: float = 1e-8, precision: str = "bf16sr"):
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown optimizer state precision "
+                             f"{precision!r}")
+        self.precision = precision
+        # weight_decay 0: torch.optim.Adam reads it from the groups of a
+        # state this optimizer saved.
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=0.0))
+
+    def _leaves(self):
+        return [(group, p) for group in self.param_groups
+                for p in group["params"]]
+
+    def _init_state(self, p):
+        mu_dtype, nu_dtype = state_dtypes(p, self.precision)
+        state = self.state[p]
+        state["step"] = torch.tensor(0.0)
+        state["exp_avg"] = torch.zeros(p.shape, dtype=mu_dtype,
+                                       device=p.device)
+        state["exp_avg_sq"] = torch.zeros(p.shape, dtype=nu_dtype,
+                                          device=p.device)
+        return state
+
+    @torch.no_grad()
+    def step(self, closure=None, master_salt: Optional[int] = None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        scalars = {}  # the step's scalars, once per group and count
+        for i, (group, p) in enumerate(self._leaves()):
+            if p.grad is None:
+                continue
+            if p.dtype == torch.bfloat16 and master_salt is None:
+                raise ValueError("AdamBf16SR.step needs master_salt: a "
+                                 "parameter is bf16")
+            state = self.state[p] or self._init_state(p)
+            # The step count lives on the host (a CPU tensor, as in
+            # torch.optim.Adam), so the salts and bias corrections need no
+            # device read.
+            state["step"] += 1
+            count = int(state["step"])
+            key = (id(group), count)
+            if key not in scalars:
+                scalars[key] = adam_scalars(group["lr"], group["betas"],
+                                            group["eps"], count, 0)
+            s = scalars[key]._replace(
+                nu_salt=u32(count * _SALT_STEP + i),
+                master_salt=u32(0 if master_salt is None
+                                else master_salt + i))
+            update(p, p.grad, state["exp_avg"], state["exp_avg_sq"], s)
+        return loss
+
+    def load_state_dict(self, state_dict) -> None:
+        """Load torch.optim.Adam's or this class's state; the moments are
+        cast from the stored tensors to this optimizer's dtypes (torch's
+        own load casts them to the parameter's dtype first, which would
+        round f32 moments of a bf16 parameter)."""
+        saved = state_dict["state"]
+        super().load_state_dict(state_dict)
+        ids = [i for g in state_dict["param_groups"] for i in g["params"]]
+        for i, (_, p) in zip(ids, self._leaves()):
+            if i not in saved:
+                continue
+            mu_dtype, nu_dtype = state_dtypes(p, self.precision)
+            state = self.state[p]
+            state["step"] = torch.tensor(float(saved[i]["step"]))
+            state["exp_avg"] = saved[i]["exp_avg"].to(p.device, mu_dtype)
+            state["exp_avg_sq"] = saved[i]["exp_avg_sq"].to(p.device,
+                                                            nu_dtype)

@@ -4,13 +4,23 @@ on-disk format.
 Counterpart of svbrdf_tpu/training/checkpoint.py. One file,
 <model_dir>/checkpoint.tar, written with torch.save: the PyTorch reference's
 dict {model_type, use_coords, epoch, model_state_dict[,
-optimizer_state_dict]} plus model_depth and num_filters. The model's
-state_dict keys are the reference's, so the JAX package's Checkpoint.load
-picks the file up from a model directory and ports the weights. The
-restored architecture arguments override the CLI; loading is optional (a
-missing checkpoint is an error only in test mode). A legacy bare
-`model.data` state dict, with an optional `state.json` holding the epoch,
-is read too.
+optimizer_state_dict]} plus model_depth, num_filters and the master-dtype
+policy the run trained with (master_dtype). The weights are written in f32
+whatever their storage dtype (bf16 masters upcast exactly), as the JAX
+package's exporter writes them and its reader (.numpy()) needs them. The
+model's state_dict keys are the reference's, so the JAX package's
+Checkpoint.load picks the file up from a model directory and ports the
+weights. The restored architecture arguments override the CLI; loading is
+optional (a missing checkpoint is an error only in test mode). A legacy
+bare `model.data` state dict, with an optional `state.json` holding the
+epoch, is read too.
+
+Restoring across precisions: the weights load into an f32 model, which the
+trainer then casts to its master dtypes (parallel/step.master_cast); Adam's
+moments are cast to the dtypes of the optimizer in force (torch.optim.Adam
+casts them to its parameters', parallel/optimizer.AdamBf16SR to its
+state precision's), so a checkpoint of either optimizer resumes under the
+other.
 """
 
 from __future__ import annotations
@@ -84,17 +94,22 @@ class Checkpoint:
     @staticmethod
     def save(model_dir, model, optimizer, epoch: int, model_type: str,
              use_coords: bool, omit_optimizer_state: bool = False,
-             model_depth: int = 8, num_filters: int = 64) -> pathlib.Path:
-        """Write <model_dir>/checkpoint.tar; returns its path."""
+             model_depth: int = 8, num_filters: int = 64,
+             master_dtype: Optional[str] = None) -> pathlib.Path:
+        """Write <model_dir>/checkpoint.tar, the weights in f32; returns
+        its path."""
         d = pathlib.Path(model_dir)
         d.mkdir(parents=True, exist_ok=True)
+        weights = {k: v.float() if v.is_floating_point() else v
+                   for k, v in model.state_dict().items()}
         blob = {"model_type": model_type, "use_coords": bool(use_coords),
-                "epoch": int(epoch),
-                "model_state_dict": model.state_dict()}
+                "epoch": int(epoch), "model_state_dict": weights}
         if not omit_optimizer_state and optimizer is not None:
             blob["optimizer_state_dict"] = optimizer.state_dict()
         blob["model_depth"] = int(model_depth)
         blob["num_filters"] = int(num_filters)
+        if master_dtype is not None:
+            blob["master_dtype"] = master_dtype
         path = d / CHECKPOINT_FILE
         # Written beside and renamed, so a run killed mid-save keeps the
         # previous checkpoint.
@@ -123,9 +138,11 @@ class Checkpoint:
         for extra in ("model_depth", "num_filters"):
             if extra in self._meta:
                 setattr(args, extra, self._meta[extra])
-        # Recorded by the JAX package; they pick TPU mechanisms and change
-        # nothing in the port, but fill in a CLI value left at 'auto' as
-        # there.
+        # Unlike the architecture, an explicit CLI value beats the
+        # checkpoint here (either policy restores from either); the
+        # recorded value fills in a CLI value left at 'auto'. upconv is
+        # recorded by the JAX package and picks a TPU layout, nothing in
+        # the port.
         for knob in ("master_dtype", "upconv"):
             if (knob in self._meta
                     and getattr(args, knob, "auto") in ("auto", None)):
@@ -134,7 +151,8 @@ class Checkpoint:
         return args
 
     def restore_params(self, model) -> None:
-        """Load the stored weights into `model`, strictly."""
+        """Load the stored weights into `model`, strictly (each cast to the
+        dtype of the parameter it fills)."""
         if self._model_state is None:
             print("Failed to restore model state")
             return
@@ -142,7 +160,8 @@ class Checkpoint:
         print("Restored model state")
 
     def restore_opt_state(self, optimizer) -> None:
-        """Load the stored Adam state into `optimizer` when there is one."""
+        """Load the stored Adam state into `optimizer` when there is one,
+        its moments cast to the optimizer's dtypes."""
         if self._optimizer_state is None:
             print("Failed to restore optimizer state")
             return

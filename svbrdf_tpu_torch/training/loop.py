@@ -14,9 +14,16 @@ validation batches from their own (seed, epoch, batch) streams, so a step's
 draws do not depend on where the run resumed. Dropout masks come from
 torch's default generator of the device.
 
+Precision: --dtype picks the compute dtype (resolve_dtype: 'auto' is bf16
+on a CUDA device, f32 on the CPU) and, through device.precision_scope, the
+card's TF32 settings for the run; --master-dtype (else the checkpoint's
+record, else SVBRDF_MASTER_DTYPE) picks the master-dtype policy for the
+run (parallel/step.master_dtype_scope), and the checkpoint records the
+policy in force.
+
 Not ported: the multi-device and multi-host branches (ROADMAP Queue 1 item
-14), the lax.scan chunk programs (the port dispatches each step), AOT
-compilation and the master-dtype scope (TPU mechanisms).
+14), the lax.scan chunk programs (the port dispatches each step) and AOT
+compilation (TPU mechanisms).
 """
 
 from __future__ import annotations
@@ -37,11 +44,12 @@ from svbrdf_tpu_torch import viz
 from svbrdf_tpu_torch.data.dataset import (SvbrdfDataset,
                                            split_train_validation)
 from svbrdf_tpu_torch.data.device_cache import DeviceDataCache
-from svbrdf_tpu_torch.device import resolve_device
+from svbrdf_tpu_torch.device import precision_scope, resolve_device
 from svbrdf_tpu_torch.models import build_model
+from svbrdf_tpu_torch.parallel import step as step_lib
 from svbrdf_tpu_torch.parallel.step import (PrepConfig, make_eval_step,
                                             make_optimizer, make_predict_fn,
-                                            make_train_step)
+                                            make_train_step, stream_seed)
 from svbrdf_tpu_torch.training.checkpoint import Checkpoint
 from svbrdf_tpu_torch.training.tensorboard import SummaryWriter
 from svbrdf_tpu_torch.utils.profiling import StepTimer, trace_steps
@@ -51,13 +59,17 @@ from svbrdf_tpu_torch.utils.profiling import StepTimer, trace_steps
 _VALIDATION_STREAM = 1_000_000_007
 # Training steps of a run captured under --profile-dir: [first, last).
 _PROFILE_STEPS = (1, 4)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def stream_seed(*words: int) -> int:
-    """A 64-bit torch seed from integers (seed, step, ...): distinct word
-    lists give independent streams."""
-    return int(np.random.SeedSequence(list(words)).generate_state(
-        2, np.uint64)[0])
+def resolve_dtype(name: str, device) -> torch.dtype:
+    """--dtype as a torch dtype: 'auto' is bf16 on a CUDA device (the
+    accelerator's configuration, as the JAX package picks bf16 on a TPU)
+    and f32 on the CPU (the parity tests' oracle)."""
+    if name == "auto":
+        name = ("bfloat16" if torch.device(device).type == "cuda"
+                else "float32")
+    return DTYPES[name]
 
 
 @dataclass
@@ -96,7 +108,9 @@ def _loss_kind(name: str) -> str:
 
 
 def setup(args, device):
-    """Shared build: checkpoint -> args override -> model / optimizer.
+    """Shared build: checkpoint -> args override -> master-dtype policy ->
+    model / optimizer. In train mode the parameters are cast to the
+    policy's master dtypes.
 
     Returns (args, model, optimizer, epoch_start).
     """
@@ -112,15 +126,23 @@ def setup(args, device):
     if checkpoint.is_valid():
         args = checkpoint.restore_args(args)
 
+    # The CLI flag, or the policy the checkpoint recorded; 'auto' leaves
+    # it to SVBRDF_MASTER_DTYPE.
+    master_dtype = getattr(args, "master_dtype", "auto")
+    step_lib.set_master_dtype_policy(
+        None if master_dtype in ("auto", None) else master_dtype)
+    dtype = resolve_dtype(args.dtype, device)
     model = build_model(args.model_type, args.use_coords,
                         depth=args.model_depth, num_filters=args.num_filters,
-                        device=device, seed=args.seed)
+                        device=device, seed=args.seed, dtype=dtype)
     if checkpoint.is_valid():
         checkpoint.restore_params(model)
     elif args.mode == "test":
         raise SystemExit("No model found in the model directory but it is "
                          "required for testing.")
-    optimizer = make_optimizer(model.parameters(), args.learning_rate)
+    if args.mode == "train":
+        step_lib.master_cast(model)
+    optimizer = make_optimizer(model.parameters(), args.learning_rate, dtype)
     if checkpoint.is_valid():
         checkpoint.restore_opt_state(optimizer)
     epoch_start = checkpoint.restore_epoch(0) if checkpoint.is_valid() else 0
@@ -153,8 +175,15 @@ def _validation_sums(eval_step, generator, data, val_idx, batch_size, seed,
 def run_training(args, device="cuda") -> TrainingRun:
     """Train on args.input_dir; writes <model_dir>/checkpoint.tar and
     <model_dir>/logs. Raises FloatingPointError (after saving) on a
-    non-finite loss."""
+    non-finite loss. The master-dtype policy and the TF32 settings are the
+    run's and are restored when it ends."""
     device = resolve_device(device)
+    with step_lib.master_dtype_scope(), precision_scope(
+            resolve_dtype(args.dtype, device)):
+        return _run_training(args, device)
+
+
+def _run_training(args, device) -> TrainingRun:
     args, model, optimizer, epoch_start = setup(args, device)
 
     data = _build_dataset(args, "train")
@@ -175,7 +204,8 @@ def run_training(args, device="cuda") -> TrainingRun:
                       mix_materials=data.mix_materials)
     loss_fn = losses_lib.make_loss_fn(_loss_kind(args.loss), args.renderer)
     generator = torch.Generator(device=device)
-    train_step = make_train_step(model, optimizer, loss_fn, prep, generator)
+    train_step = make_train_step(model, optimizer, loss_fn, prep, generator,
+                                 seed=args.seed)
     eval_step = make_eval_step(model, loss_fn, prep, generator)
     print(f"Using renderer '{args.renderer}' on {device}")
 
@@ -193,7 +223,8 @@ def run_training(args, device="cuda") -> TrainingRun:
                         args.model_type, args.use_coords,
                         args.omit_optimizer_state_save,
                         model_depth=args.model_depth,
-                        num_filters=args.num_filters)
+                        num_filters=args.num_filters,
+                        master_dtype=step_lib.master_dtype_policy())
 
     print(f"Training from epoch {epoch_start} to {args.epochs}")
     sync = torch.cuda.synchronize if device.type == "cuda" else None
@@ -231,7 +262,7 @@ def run_training(args, device="cuda") -> TrainingRun:
                         raw = _to_device(data.raw_batch(idx), device)
                     generator.manual_seed(stream_seed(args.seed,
                                                       batch_index + 1))
-                    loss = train_step(raw)
+                    loss = train_step(raw, step=batch_index + 1)
                     if fetch:
                         loss = float(loss)
                 steps += 1
@@ -276,6 +307,12 @@ def run_test(args, device="cuda", out_dir: Optional[str] = None,
     Returns the written grid paths.
     """
     device = resolve_device(device)
+    with step_lib.master_dtype_scope(), precision_scope(
+            resolve_dtype(args.dtype, device)):
+        return _run_test(args, device, out_dir, validation_split_only)
+
+
+def _run_test(args, device, out_dir, validation_split_only) -> list:
     args, model, _optimizer, epoch = setup(args, device)
 
     export_path = getattr(args, "export_torch_checkpoint", None)

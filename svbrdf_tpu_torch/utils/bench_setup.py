@@ -1,7 +1,9 @@
 """The port's training programs and their inputs: local renderer, material
-mixing, augmentation on, f32, Adam at lr 1e-5, and either the single-view
-model with the mixed loss (the main path) or the multi-view model (3
-views, all synthesized) with the rendering-only loss.
+mixing, augmentation on, Adam at lr 1e-5, f32 or bf16 compute (with f32 or
+bf16-SR masters), and either the single-view model with the mixed loss
+(the main path) or the multi-view model (3 views, all synthesized) with
+the rendering-only loss. The same code as the CLI's builds the models,
+masters and optimizers (models.build_model, parallel/step).
 
 Counterpart of svbrdf_tpu/utils/bench_setup.py (synthetic_raw_batch and
 build_headline_program) for the port: one place that builds what
@@ -18,7 +20,8 @@ import torch
 
 from svbrdf_tpu_torch import losses
 from svbrdf_tpu_torch.device import resolve_device
-from svbrdf_tpu_torch.models import MultiViewModel, SingleViewModel
+from svbrdf_tpu_torch.models import build_model
+from svbrdf_tpu_torch.parallel import step as step_lib
 from svbrdf_tpu_torch.parallel.step import (PrepConfig, TrainStep,
                                             make_eval_step, make_optimizer,
                                             make_predict_fn, make_train_step)
@@ -134,17 +137,24 @@ class MainProgram:
 def build_program(model_kind: str = "single", loss_kind: str = "mixed",
                   batch: int = 8, size: int = 256, depth: int = 8,
                   num_filters: int = 64, seed: int = 0,
-                  device="cuda") -> MainProgram:
+                  device="cuda", dtype=torch.float32,
+                  master_dtype=None) -> MainProgram:
     """Build a training program at the given widths, with weights and data
     made from `seed`, on `device`: model_kind "single" (one input view) or
-    "multi" (3 views), loss_kind "mixed" or "rendering"."""
+    "multi" (3 views), loss_kind "mixed" or "rendering"; the model
+    computing in `dtype`, its masters cast by the policy `master_dtype`
+    ('f32' | 'bf16sr'; None: the policy in force)."""
     if model_kind not in ("single", "multi"):
         raise ValueError(f"unknown model kind {model_kind!r}")
     dev = resolve_device(device)
     n_views = 3 if model_kind == "multi" else 1
-    model_cls = MultiViewModel if model_kind == "multi" else SingleViewModel
-    model = model_cls(num_filters, depth, device=dev, seed=seed)
-    optimizer = make_optimizer(model.parameters(), 1e-5)
+    model = build_model(model_kind, False, depth, num_filters, device=dev,
+                        seed=seed, dtype=dtype)
+    with step_lib.master_dtype_scope():
+        if master_dtype is not None:
+            step_lib.set_master_dtype_policy(master_dtype)
+        step_lib.master_cast(model)
+    optimizer = make_optimizer(model.parameters(), 1e-5, dtype)
     loss_fn = losses.make_loss_fn(loss_kind, "local")
     prep = PrepConfig(used_input_image_count=n_views, use_augmentation=True,
                       is_linear=False, mix_materials=True)
@@ -154,7 +164,7 @@ def build_program(model_kind: str = "single", loss_kind: str = "mixed",
     return MainProgram(
         model=model,
         train_step=make_train_step(model, optimizer, loss_fn, prep,
-                                   generator),
+                                   generator, seed=seed),
         eval_step=make_eval_step(model, loss_fn, prep, generator),
         predict=make_predict_fn(model), raw=raw, prep=prep,
         generator=generator)

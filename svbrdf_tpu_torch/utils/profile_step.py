@@ -1,14 +1,20 @@
 """Where a training path's train step spends its time on the card.
 
-    python -m svbrdf_tpu_torch.utils.profile_step [--path PATH] [--out FILE]
+    python -m svbrdf_tpu_torch.utils.profile_step [--path PATH]
+        [--dtype DTYPE] [--out FILE]
 
 PATH is single-mixed (the main path: single-view model, mixed loss; the
 default) or multi-rendering (multi-view model with 3 synthesized views,
-rendering-only loss). Builds that program (bench_setup.build_program:
-depth 8, 64 filters, 256^2, batch 8, f32, TF32 off) and, after warm-up,
-reports:
+rendering-only loss). DTYPE is the compute dtype, float32 (the default,
+TF32 off) or bfloat16 (TF32 settings left as torch has them, as the CLI's
+device.precision_scope does; the master-dtype policy in force, bf16sr
+unless SVBRDF_MASTER_DTYPE says f32). Builds that program
+(bench_setup.build_program: depth 8, 64 filters, 256^2, batch 8) and, after
+warm-up, reports:
   - phases: CUDA-event medians of one step's parts (prepare, forward, loss,
-    backward, Adam) over STEPS steps;
+    backward, Adam) over STEPS steps, the forward and the Adam step as the
+    train step runs them (its casts; the fused SR-Adam kernel for a bf16
+    model);
   - kernels: torch.profiler device time per kernel name over STEPS steps
     (annotation ranges such as Optimizer.step#Adam.step left out: they span
     kernels),
@@ -38,19 +44,20 @@ def _phase_times(program, steps):
     step = program.train_step
     names = ("prepare", "forward", "loss", "backward", "adam")
     samples = {n: [] for n in names}
-    for _ in range(steps):
+    for n in range(steps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
         batch = prepare(program.raw, program.prep, program.generator)
         ev[1].record()
-        pred = program.model(batch["inputs"])
+        pred = step.forward(batch["inputs"])
         ev[2].record()
         loss = step.loss_fn(pred, batch["svbrdf"], program.generator)
         ev[3].record()
         step.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         ev[4].record()
-        step.optimizer.step()
+        step.apply_gradients(step.step_index + 1)
+        step.step_index += 1
         ev[5].record()
         ev[5].synchronize()
         for i, n in enumerate(names):
@@ -65,6 +72,11 @@ PATHS = {"single-mixed": ("single", "mixed"),
          "multi-rendering": ("multi", "rendering")}
 
 CATEGORIES = (
+    # cuDNN's layout transforms around NCHW convolutions (bf16 kernels take
+    # NHWC).
+    ("layout_transform", ("nchwToNhwc", "nhwcToNchw", "nchw2nhwc",
+                          "nhwc2nchw")),
+    ("sr_adam", ("sr_adam_kernel",)),
     ("mixed_loss", ("mixed_fwdgrad_kernel", "value_loss_kernel<true>")),
     ("rendering_loss", ("rendering_fwdgrad_kernel",
                         "value_loss_kernel<false>")),
@@ -122,6 +134,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path", choices=sorted(PATHS),
                         default="single-mixed")
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"),
+                        default="float32")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
 
@@ -129,18 +143,25 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         sys.exit("profile_step: needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from svbrdf_tpu_torch.device import precision_scope
+    from svbrdf_tpu_torch.parallel.step import master_dtype_policy
+    from svbrdf_tpu_torch.training.loop import DTYPES
     from svbrdf_tpu_torch.utils.bench_setup import build_program
 
-    program = build_program(*PATHS[args.path])
-    for _ in range(3):
-        program.train_step(program.raw)
-    torch.cuda.synchronize()
-    result = {"path": args.path, "device": torch.cuda.get_device_name(0),
-              "torch": torch.__version__,
-              "phases_ms": _phase_times(program, STEPS),
-              "kernels": _kernel_times(program, STEPS)}
+    dtype = DTYPES[args.dtype]
+    with precision_scope(dtype):
+        program = build_program(*PATHS[args.path], dtype=dtype)
+        for _ in range(3):
+            program.train_step(program.raw)
+        torch.cuda.synchronize()
+        result = {"path": args.path, "dtype": args.dtype,
+                  "master_dtype": master_dtype_policy(),
+                  "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                           "matmul": torch.backends.cuda.matmul.allow_tf32},
+                  "device": torch.cuda.get_device_name(0),
+                  "torch": torch.__version__,
+                  "phases_ms": _phase_times(program, STEPS),
+                  "kernels": _kernel_times(program, STEPS)}
     text = json.dumps(result, indent=1)
     print(text)
     if args.out:

@@ -19,9 +19,13 @@ large: a normal's gradient sums 27 terms per pixel, some scaled by
 1 / denom^3 (up to 1e9 near the clamp). The kernel with both gradients is
 held normwise (_assert_both_close, test_both_kernel_within_tolerance). A
 bf16 kernel computes what its f32 instantiation computes on the upcast
-planes, each gradient rounded once to bf16. TF32 is off for every test.
+planes, each gradient rounded once to bf16. The fused SR-Adam kernel
+(csrc/sr_adam.cu) is bit-exact against its plain version; a bf16 step with
+bf16-SR masters on the card is held to the same step on the CPU as
+chip_smoke.py holds it. TF32 is off for every test.
 """
 
+import itertools
 import math
 
 import pytest
@@ -439,7 +443,7 @@ def test_multi_view_rendering_program_on_card(cuda):
 
 
 def test_cli_trains_resumes_and_tests_on_the_card(cuda, tmp_path):
-    """The CLI at depth 5, 32^2, 8 filters on cuda:0: each train step
+    """The CLI at depth 5, 32^2, 8 filters, f32, on cuda:0: each train step
     launches the mixed value+gradient kernel once and nothing else runs a
     loss kernel (no validation split with 2 samples); resume continues from
     the saved epoch; test mode writes a grid and metrics.json. The
@@ -458,7 +462,8 @@ def test_cli_trains_resumes_and_tests_on_the_card(cuda, tmp_path):
     data = pathlib.Path(__file__).resolve().parents[1] / "data"
     common = ["--image-count", "10", "--image-size", "32", "--model-depth",
               "5", "--num-filters", "8", "--batch-size", "2",
-              "--model-dir", str(tmp_path / "m"), "--gpu-id", "0"]
+              "--model-dir", str(tmp_path / "m"), "--gpu-id", "0",
+              "--dtype", "float32"]
     train = ["--mode", "train", "--input-dir", str(data / "train"),
              "--save-frequency", "1", "--validation-frequency", "1"] + common
     runs = []
@@ -492,3 +497,91 @@ def test_cli_trains_resumes_and_tests_on_the_card(cuda, tmp_path):
     on_card = make_predict_fn(model)(images.to(cuda)).cpu()
     on_cpu = make_predict_fn(cpu_model)(images)
     torch.testing.assert_close(on_cpu, on_card, rtol=0, atol=1e-4)
+
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("dtypes", list(itertools.product(
+    (torch.float32, BF16), repeat=4)), ids=lambda d: "-".join(
+        "bf16" if t == BF16 else "f32" for t in d))
+def test_sr_adam_kernel_matches_plain(cuda, dtypes):
+    """The fused SR-Adam update, each of its 16 storage combinations of (p,
+    g, mu, nu), on a leaf whose size is no multiple of the block and on
+    one past a grid's stride, at two (count, salt) pairs (the second past
+    JAX's int32 wrap of the moment salt): p, mu and nu equal to the plain
+    version's to the bit, one launch each."""
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for shape in ((61, 33, 4, 4), (4096 * 256 + 7,)):
+        for count, salt in ((1, 0), (2148, 2 ** 31 - 2)):
+            leaf = [(torch.randn(shape, generator=g, device=cuda)
+                     * sc).to(dt) for sc, dt in zip((0.02, 1e-3, 1e-4),
+                                                    dtypes)]
+            leaf.append((torch.rand(shape, generator=g, device=cuda)
+                         * 1e-6).to(dtypes[3]))
+            s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, count,
+                                 count * 1000003 + 3, salt + 3)
+            kern = [t.clone() for t in leaf]
+            plain = [t.clone() for t in leaf]
+            before = sr_adam.sr_adam_update_cuda.launches
+            sr_adam.sr_adam_update_cuda(*kern, s)
+            assert sr_adam.sr_adam_update_cuda.launches == before + 1
+            opt.adam_update_plain(*plain, s)
+            torch.cuda.synchronize()
+            for a, b in zip(kern, plain):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_bf16_step_card_matches_cpu(cuda):
+    """A bf16 single-view step with bf16-SR masters (depth 5, 32^2, 8
+    filters, batch 2, dropout off, the same weights, batch, scenes and step
+    salt) on the card and on the CPU: the loss within rel 2e-2; the masters
+    within one bf16 ulp of each other except where the two gradients'
+    signs differ (<= 0.1 %), and within one ulp plus 2 lr everywhere (each
+    side rounds p + u, |u| <= lr, to a bf16 neighbour; where p is small
+    against lr a sign flip is many ulps); one sr_adam launch per parameter
+    tensor with a gradient."""
+    from svbrdf_tpu_torch import losses
+    from svbrdf_tpu_torch.models import SingleViewModel
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import step as step_lib
+
+    g = torch.Generator().manual_seed(3)
+    prep = step_lib.PrepConfig(used_input_image_count=1, mix_materials=True)
+    raw = {k: torch.from_numpy(v) for k, v in
+           bench_setup.synthetic_raw_batch(2, 32, 0, seed=3).items()}
+    batch = step_lib.prepare(raw, prep, g)
+    scenes = sampling.generate_loss_scenes(2, generator=g)
+    results = {}
+    for dev in ("cpu", cuda):
+        model = SingleViewModel(8, 5, device="cpu", seed=3, dtype=BF16).to(dev)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.eval()
+        with step_lib.master_dtype_scope():
+            step_lib.set_master_dtype_policy("bf16sr")
+            step_lib.master_cast(model)
+        step = step_lib.make_train_step(
+            model, step_lib.make_optimizer(model.parameters(), 1e-5, BF16),
+            losses.make_loss_fn("mixed"), prep, None, seed=3)
+        before = sr_adam.sr_adam_update_cuda.launches
+        loss = float(step.update({k: v.to(dev) for k, v in batch.items()},
+                                 scenes=scenes.to(dev), step=1))
+        launched = sr_adam.sr_adam_update_cuda.launches - before
+        stepped = sum(p.grad is not None for p in model.parameters())
+        assert launched == (0 if dev == "cpu" else stepped)
+        results[str(dev)] = (loss, [p.detach().double().cpu()
+                                    for p in model.parameters()
+                                    if p.dim() >= 2])
+    (lc, mc), (lg, mg) = results["cpu"], results[str(cuda)]
+    assert abs(lg - lc) <= 2e-2 * abs(lc)
+    mg, mc = torch.cat([m.flatten() for m in mg]), torch.cat(
+        [m.flatten() for m in mc])
+    diff = (mg - mc).abs()
+    big = torch.maximum(mg.abs(), mc.abs()).clamp_min(1e-38)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert bool((diff <= ulp + 2e-5).all())  # one ulp + 2 lr
+    assert float((diff > ulp).double().mean()) <= 1e-3

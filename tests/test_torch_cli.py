@@ -1,7 +1,8 @@
 """The port's CLI end to end on the CPU (`--gpu-id -1`): train, resume and
-test from the repo's PNG strips, validation, the device cache, the error
-paths and the unported flags, and the port-trained checkpoint tested by the
-JAX package's CLI.
+test from the repo's PNG strips, in f32 and with bf16 compute (bf16-SR or
+f32 masters), validation, the device cache, the error paths and the
+unported flags, and the port-trained checkpoints tested by the JAX
+package's CLI.
 
 Depth 5, 32^2, 8 filters, batch 2. Tolerances: the JAX package's and the
 port's metrics.json on one port-trained checkpoint agree at rtol 1e-4 (JAX
@@ -271,8 +272,6 @@ def test_test_mode_needs_a_model(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--dtype", "bfloat16"], "item 13"),
-    (["--master-dtype", "bf16sr"], "item 13"),
     (["--renderer", "pathtracing"], "item 12"),
     (["--num-devices", "2"], "item 14"),
     (["--shard-spatial", "2"], "item 15"),
@@ -280,6 +279,75 @@ def test_test_mode_needs_a_model(tmp_path):
 def test_unported_flags_raise_naming_their_item(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         main_mod.main(_train_args(tmp_path, *flag))
+
+
+@pytest.fixture(scope="module")
+def trained_bf16(tmp_path_factory):
+    """bf16 compute with bf16-SR masters: train 2 epochs on data/train,
+    then resume to 3 with the policy left at 'auto': (model dir, (first
+    run, its printout), (resumed run, its printout))."""
+    model_dir = tmp_path_factory.mktemp("cli_bf16") / "model"
+    bf16 = ["--dtype", "bfloat16"]
+    first = _run(_train_args(model_dir, *bf16, "--master-dtype", "bf16sr",
+                             "--epochs", "2", "--retrain"))
+    resumed = _run(_train_args(model_dir, *bf16, "--epochs", "3"))
+    return model_dir, first, resumed
+
+
+def test_bf16sr_trains_resumes_and_tests(trained_bf16):
+    model_dir, (first, out1), (resumed, out2) = trained_bf16
+    for run in (first, resumed):
+        assert run.steps == 2 and math.isfinite(run.last_loss)
+        for p in run.model.parameters():
+            assert p.dtype == (torch.bfloat16 if p.dim() >= 2
+                               else torch.float32)
+    assert "Restored master_dtype 'bf16sr'" in out2
+    assert "Restored optimizer state" in out2 and "Restored epoch 1" in out2
+    blob = torch.load(model_dir / "checkpoint.tar", weights_only=True)
+    assert blob["master_dtype"] == "bf16sr"
+    assert {v.dtype for v in blob["model_state_dict"].values()} == {
+        torch.float32}
+    moments = blob["optimizer_state_dict"]["state"][0]
+    assert moments["exp_avg_sq"].dtype == torch.bfloat16
+    assert int(moments["step"]) == 4
+    written, out = _run(["--mode", "test", "--input-dir", TEST,
+                         "--image-count", "10", "--model-dir", str(model_dir),
+                         "--dtype", "bfloat16"] + SMALL)
+    assert len(written) == 1 and "Restored master_dtype 'bf16sr'" in out
+    summary = json.loads((model_dir / "test_outputs" /
+                          "metrics.json").read_text())
+    assert all(math.isfinite(v) for v in summary["mean"].values())
+
+
+def test_bf16_with_f32_masters_trains(tmp_path):
+    run, _ = _run(_train_args(tmp_path / "m", "--dtype", "bfloat16",
+                              "--master-dtype", "f32", "--epochs", "1",
+                              "--retrain"))
+    assert run.steps == 1 and math.isfinite(run.last_loss)
+    assert {p.dtype for p in run.model.parameters()} == {torch.float32}
+    state = run.optimizer.state[run.model.generator.enc2.conv.conv.weight]
+    assert state["exp_avg_sq"].dtype == torch.bfloat16  # bf16sr moments
+    blob = torch.load(tmp_path / "m" / "checkpoint.tar", weights_only=True)
+    assert blob["master_dtype"] == "f32"
+
+
+def test_jax_cli_tests_the_bf16sr_model(trained_bf16, tmp_path):
+    """The JAX package's run_test and the port's (both f32, the CPU's
+    'auto') on the bf16sr checkpoint.tar write metrics.json files that
+    agree at rtol 1e-4."""
+    argv = ["--mode", "test", "--input-dir", TEST, "--image-count", "10",
+            "--model-dir", str(trained_bf16[0])] + SMALL
+    with contextlib.redirect_stdout(io.StringIO()):
+        loop.run_test(main_mod.parse_args(argv), "cpu",
+                      out_dir=str(tmp_path / "port"))
+        with jax.default_matmul_precision("highest"):
+            jloop.run_test(jparse_args(argv), out_dir=str(tmp_path / "jax"))
+    mine = json.loads((tmp_path / "port" / "metrics.json").read_text())
+    ref = json.loads((tmp_path / "jax" / "metrics.json").read_text())
+    assert set(mine["mean"]) == set(ref["mean"]) == METRIC_KEYS
+    for key, value in ref["mean"].items():
+        np.testing.assert_allclose(mine["mean"][key], value, rtol=1e-4,
+                                   err_msg=key)
 
 
 def test_flag_surface_matches_the_jax_cli():
