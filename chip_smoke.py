@@ -17,11 +17,15 @@ Phases, each raising (and so exiting non-zero) on any failure:
      the training kernels) against it in float64; each bf16 instantiation
      against the f32 one on the upcast planes; and checked to give a loss
      and gradients of exactly 0 for pred equal to gt;
-  3b. the fused SR-Adam update (csrc/sr_adam.cu) against its plain version,
-     bit-exact, on the largest conv leaf and a 1-D leaf of the full-width
+  3b. the fused SR-Adam update (csrc/sr_adam.cu, one multi-tensor launch
+     per optimizer step) against its plain version, bit-exact: one-leaf
+     tables of the largest conv leaf and a 1-D leaf of the full-width
      single-view model, in each dtype combination the policies use, at 3
-     salts and step counts past 2148; and its stochastic rounding unbiased
-     on the card (the mean over 400 salts within rel 1e-3);
+     salts and step counts past 2148; one table of every leaf of each
+     full-width model (single view, multi view) in the bf16-SR dtypes, with
+     random moments, at a count past 2148 and master salts that wrap; and
+     its stochastic rounding unbiased on the card (the mean over 400 salts
+     within rel 1e-3);
   4. agreement: a small single-view mixed-loss model and a small multi-view
      rendering-loss model: train step, eval loss and prediction on the card
      against the same program on the CPU; and a small single-view bf16
@@ -34,8 +38,8 @@ Phases, each raising (and so exiting non-zero) on any failure:
        - multi-view model (3 synthesized views), rendering-only loss, f32:
          5 train steps, 1 eval step, predict;
        - the same two in bf16 with bf16-SR masters: the bf16 instantiations
-         of the loss kernels and one sr_adam launch per parameter tensor per
-         step, bf16 >=2-D masters that moved, f32 maps;
+         of the loss kernels and one sr_adam launch per optimizer step (a
+         table holds every leaf), bf16 >=2-D masters that moved, f32 maps;
        - the rendering loss with the target's gradient under autograd;
        - one call each of the mixed loss and of the rendering loss with the
          target's gradient on bf16 planes under autograd;
@@ -47,8 +51,11 @@ Phases, each raising (and so exiting non-zero) on any failure:
      phase 2); the train and eval steps of both configurations side by side
      in f32 with TF32 off, in TF32 (single view only, not a CLI mode), in
      bf16 with f32 masters and in bf16 with bf16-SR masters; the whole
-     optimizer step of the bf16-SR single-view model: sr_adam's device time
-     (torch.profiler) against its plain version and its bound;
+     optimizer step of each bf16-SR model: sr_adam's device time
+     (torch.profiler) and launches per step, the step's wall time, against
+     its plain version and its bound, with the kernel's registers and the
+     SASS instructions per element of its vector loops (all-bf16 and
+     all-f32 leaves) and the issue time they imply;
   7. the CLI, `svbrdf_tpu_torch.main.main([...])` in process at full width
      on 101 maps-only 1024 x 256 strips (two strips' maps written with the
      port's PNG writer, and symlinks; the 1 % split holds one out), each run
@@ -66,7 +73,7 @@ Phases, each raising (and so exiting non-zero) on any failure:
        - single view, mixed loss at the CLI's defaults (--dtype auto: bf16
          on the card, bf16-SR masters), TF32 as torch sets it: 2 epochs,
          then resumed to 3 ("Restored master_dtype 'bf16sr'"): the bf16
-         loss kernels and sr_adam per step and parameter tensor, f32
+         loss kernels and one sr_adam launch per step, f32
          weights in the checkpoint, which a fresh bf16-SR model reloads to
          predict the same bits;
      and the loop's median ms per step against the build_program train
@@ -156,15 +163,18 @@ FLOATS_PER_PIXEL = {"mixed_fwdgrad": 36, "mixed_fwd": 24,
 # agree to the last bit on an H100 (see phase_kernels).
 BIT_EXACT_TORCH = "2.11.0+cu128"
 
-# Peak rates at full power: memory bytes/s, FP32 (non-tensor) FLOP/s, and
+# Peak rates at full power: memory bytes/s, FP32 (non-tensor) FLOP/s,
 # special-function results/s (16 per clock per SM on compute capability 9.0,
-# CUDA C++ Programming Guide throughput table, at the boost clock that
-# gives the FP32 figure). NVIDIA data sheets. First match wins.
+# CUDA C++ Programming Guide throughput table) and warp instructions issued
+# per second (4 schedulers per SM, one each a clock), at the boost clock
+# that gives the FP32 figure. NVIDIA data sheets. First match wins.
 CARDS = (
     ("H100 PCIe", {"bytes": 2.0e12, "fp32": 51.2e12,
-                   "sfu": 114 * 16 * 1.755e9}),
-    ("H200", {"bytes": 4.8e12, "fp32": 66.9e12, "sfu": 132 * 16 * 1.98e9}),
-    ("H100", {"bytes": 3.35e12, "fp32": 66.9e12, "sfu": 132 * 16 * 1.98e9}),
+                   "sfu": 114 * 16 * 1.755e9, "issue": 114 * 4 * 1.755e9}),
+    ("H200", {"bytes": 4.8e12, "fp32": 66.9e12, "sfu": 132 * 16 * 1.98e9,
+              "issue": 132 * 4 * 1.98e9}),
+    ("H100", {"bytes": 3.35e12, "fp32": 66.9e12, "sfu": 132 * 16 * 1.98e9,
+              "issue": 132 * 4 * 1.98e9}),
 )
 
 _MIXED = "svbrdf_tpu_torch/csrc/mixed_loss.cu"
@@ -202,13 +212,16 @@ SR_ADAM = {"name": "sr_adam", "route": "cuda",
 # square root counted as one operation each), p + u 1: 14 FP32; the hash's
 # integer operations are not counted. Bytes: each value read or written once.
 SR_ADAM_FP32_PER_ELEMENT = 14
+# The kernel's vector loops by their 16-byte loads and stores a pass (8
+# elements): every tensor bf16 (one each), every tensor f32 (two each).
+SR_ADAM_LOOPS = {"bf16": (4, 3), "f32": (8, 6)}
 
 MAIN = {"batch": 8, "size": 256, "depth": 8, "num_filters": 64,
         "n_scenes": 9, "train_steps": 5}
 # The paths driven at full width: (model kind, loss kind), the compute dtype
 # and master policy, and the launches each must show by counter (every
-# other counter: 0; a bf16-SR path's sr_adam count, one per parameter
-# tensor per step, is added where the path runs).
+# other counter: 0; a bf16-SR path's sr_adam count, one launch per step,
+# is added where the path runs).
 STEPS = MAIN["train_steps"]
 BF16 = torch.bfloat16
 PATHS = {
@@ -317,7 +330,9 @@ def phase_device() -> None:
         "torch.backends.cuda.matmul.allow_tf32 = False")
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every source; the compiler's output by source (empty where a
+    library was up to date)."""
     from svbrdf_tpu_torch.ops import _build
 
     start = time.perf_counter()
@@ -329,6 +344,7 @@ def phase_build() -> None:
                                        "spill")):
                 log(f"  ptxas: {line.strip()}")
     log(f"build phase {time.perf_counter() - start:.1f} s")
+    return report
 
 
 def _outputs(out) -> tuple:
@@ -628,7 +644,57 @@ def phase_sr_adam() -> dict:
     if rel > 1e-3:
         raise RuntimeError(f"sr_adam SR is biased: rel {rel:.3g}")
     out["unbiased_max_rel"] = rel
+    out["models"] = {kind: _sr_adam_model_check(kind, g)
+                     for kind in ("single", "multi")}
     return out
+
+
+def _sr_adam_model_check(kind: str, g) -> dict:
+    """Every leaf of the full-width `kind` model in one multi-tensor call,
+    in the bf16-SR main path's dtypes (>=2-D leaves: bf16 master, gradient
+    and moments; 1-D: f32), random gradients and moments, count 2148 and a
+    master salt that wraps with the leaf index: bit-exact against the
+    plain version, one launch per table."""
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    shapes = [tuple(p.shape) for p in build_model(
+        kind, False, MAIN["depth"], MAIN["num_filters"],
+        device="cuda").parameters()]
+    leaves = []
+    for i, shape in enumerate(shapes):
+        dt = BF16 if len(shape) >= 2 else F32
+        ts = [(torch.randn(shape, generator=g, device="cuda") * sc).to(dt)
+              for sc in (0.02, 1e-3, 1e-4)]
+        ts.append((torch.rand(shape, generator=g, device="cuda")
+                   * 1e-6).to(dt))
+        leaves.append(sr_adam.SrLeaf(i, *ts))
+    s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, 2148, 2148 * 1000003,
+                         2 ** 32 - 40)
+    copy = [sr_adam.SrLeaf(lf.index, *(t.clone() for t in lf[1:]))
+            for lf in leaves]
+    before = sr_adam.sr_adam_multi_cuda.launches
+    sr_adam.sr_adam_multi_cuda(copy, s)
+    launches = sr_adam.sr_adam_multi_cuda.launches - before
+    opt.sr_adam_multi_plain(leaves, s)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for x, y in zip(copy, leaves)
+                for a, b in zip(x[1:], y[1:]))
+    err = max(float((a.float() - b.float()).abs().max()) for x, y in
+              zip(copy, leaves) for a, b in zip(x[1:], y[1:]) if a.numel())
+    tables = math.ceil(len(leaves) / sr_adam.max_leaves())
+    elements = sum(math.prod(shape) for shape in shapes)
+    log(f"sr_adam multi-tensor, every leaf of the full-width {kind}-view "
+        f"model ({len(leaves)} leaves, {elements} elements, {launches} "
+        f"launch(es)): kernel vs plain "
+        f"{'bit-exact' if equal else 'DIFFERENT'} (max abs err {err:.3g})")
+    if not equal or launches != tables:
+        raise RuntimeError(f"sr_adam multi-tensor on the {kind}-view model: "
+                           f"equal {equal}, {launches} launches for "
+                           f"{tables} table(s)")
+    return {"leaves": len(leaves), "elements": elements,
+            "launches": launches, "equal": equal, "max_abs_err": err}
 
 
 def _bf16_ulp(a, b):
@@ -760,7 +826,7 @@ def _zero_counts() -> None:
         wrapper.launches = 0
         for dtype in wrapper.launches_by_dtype:
             wrapper.launches_by_dtype[dtype] = 0
-    sr_adam.sr_adam_update_cuda.launches = 0
+    sr_adam.sr_adam_multi_cuda.launches = 0
 
 
 def _counts() -> dict:
@@ -772,7 +838,7 @@ def _counts() -> dict:
     counts = {k + rf.PLANE_DTYPES[dtype]: n
               for k, w in rf.CUDA_WRAPPERS.items()
               for dtype, n in w.launches_by_dtype.items()}
-    counts["sr_adam"] = sr_adam.sr_adam_update_cuda.launches
+    counts["sr_adam"] = sr_adam.sr_adam_multi_cuda.launches
     return counts
 
 
@@ -792,9 +858,17 @@ def _tf32(cudnn: bool, matmul: bool):
 
 
 def _stepped_leaves(model) -> int:
-    """Parameter tensors the last backward gave a gradient: an AdamBf16SR
-    step launches sr_adam once for each."""
+    """Parameter tensors the last backward gave a gradient."""
     return sum(p.grad is not None for p in model.parameters())
+
+
+def _sr_adam_launches(model) -> int:
+    """sr_adam launches of one AdamBf16SR step of `model`: one per table
+    of stepped leaves in the step's one bucket (every leaf shares its param
+    group and count on these paths); one table holds them all."""
+    from svbrdf_tpu_torch.ops import sr_adam
+
+    return math.ceil(_stepped_leaves(model) / sr_adam.max_leaves())
 
 
 def _expect(counts: dict, expected: dict, what: str) -> None:
@@ -830,7 +904,7 @@ def phase_path(path: str, program) -> dict:
     if not all(torch.isfinite(torch.tensor(train_losses + [eval_loss]))):
         raise RuntimeError(f"{path}: non-finite loss")
     if bf16sr:
-        expected["sr_adam"] = STEPS * _stepped_leaves(program.model)
+        expected["sr_adam"] = STEPS * _sr_adam_launches(program.model)
     train_only = {k: v for k, v in expected.items()
                   if "fwdgrad" in k or k == "sr_adam"}
     _expect(after_train, train_only, f"{path} after the train steps")
@@ -846,7 +920,7 @@ def phase_path(path: str, program) -> dict:
                 total += p.numel()
         log(f"{path}: >=2-D masters bf16, 1-D f32; {changed} of {total} "
             f"bf16 master elements changed ({changed / total:.3%}); "
-            f"sr_adam launched {counts['sr_adam']} times, "
+            f"sr_adam launched {counts['sr_adam']} times in {STEPS} steps, "
             f"{_stepped_leaves(program.model)} tensors a step")
         if changed <= 0.05 * total:
             raise RuntimeError(f"{path}: SR updates did not land: "
@@ -1041,22 +1115,61 @@ def _plain_optimizer_updates():
     """AdamBf16SR's leaves updated by the plain version (on the card)."""
     from svbrdf_tpu_torch.parallel import optimizer as opt
 
-    saved = opt.update
-    opt.update = opt.adam_update_plain
+    saved = opt.update_leaves
+    opt.update_leaves = lambda leaves, s, plans=None: \
+        opt.sr_adam_multi_plain(leaves, s)
     try:
         yield
     finally:
-        opt.update = saved
+        opt.update_leaves = saved
 
 
-def optimizer_times(program, rates: dict) -> dict:
+def sr_adam_code(build_log: str) -> dict:
+    """The SR-Adam kernel's registers (ptxas, from phase 2's log; None
+    where the library was built before this run) and, per vector loop
+    (SR_ADAM_LOOPS), its static SASS instructions per element: the loop's
+    instructions (cuobjdump -sass of the built library, the division's
+    slow-path calls inside it included) over its 8 elements."""
+    from svbrdf_tpu_torch.ops import _build
+    from svbrdf_tpu_torch.utils import compare_builds
+
+    cuobjdump = str(pathlib.Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_build.library_path("sr_adam"))], check=True,
+                          capture_output=True, text=True).stdout
+    loops = compare_builds.sass_loops(sass, "sr_adam")
+    out = {"registers": compare_builds.ptxas_lines(build_log).get(
+        "sr_adam", {}).get("registers"),
+        "sass_total": compare_builds.parse_sass(sass)["sr_adam"]["total"],
+        "loops": {}}
+    for kind, (ldg, stg) in SR_ADAM_LOOPS.items():
+        found = [loop for loop in loops
+                 if (loop["ldg128"], loop["stg128"]) == (ldg, stg)]
+        if not found:
+            raise RuntimeError(f"sr_adam: no {kind} vector loop ({ldg} "
+                               f"16-byte loads, {stg} stores) in the SASS")
+        out["loops"][kind] = dict(found[0], per_element=found[0][
+            "instructions"] / 8)
+    log(f"sr_adam code: {out['registers']} registers, "
+        f"{out['sass_total']} SASS instructions; vector loops "
+        + ", ".join(f"{k} {v['instructions']} instructions / 8 elements "
+                    f"= {v['per_element']:.2f} a element"
+                    for k, v in out["loops"].items()))
+    return out
+
+
+def optimizer_times(program, rates: dict, code: dict) -> dict:
     """The whole optimizer step of a bf16-SR program, on the gradients of
-    its last train step: sr_adam's device time over the step's launches
-    (torch.profiler), the step's wall time between CUDA events, the plain
-    version's step, and the bound: each tensor read or written once (g, p,
-    mu, nu in; p, mu, nu out) over the memory rate, or
-    SR_ADAM_FP32_PER_ELEMENT over the FP32 rate."""
+    its last train step: sr_adam's device time and launches a step
+    (torch.profiler and the launch counter over 5 steps), the step's wall
+    time between CUDA events, the plain version's step, and the bound: each
+    tensor read or written once (g, p, mu, nu in; p, mu, nu out) over the
+    memory rate, or SR_ADAM_FP32_PER_ELEMENT over the FP32 rate; beside
+    it, the issue time of the vector loops' instructions (`code`,
+    sr_adam_code) for the step's bf16 and f32 leaves."""
     from torch.profiler import ProfilerActivity, profile
+
+    from svbrdf_tpu_torch.ops import sr_adam
 
     optimizer = program.train_step.optimizer
     leaves = [(p, optimizer.state[p]) for p in program.model.parameters()
@@ -1067,6 +1180,12 @@ def optimizer_times(program, rates: dict) -> dict:
     elements = sum(p.numel() for p, _ in leaves)
     t_bytes = nbytes / rates["bytes"]
     t_ops = elements * SR_ADAM_FP32_PER_ELEMENT / rates["fp32"]
+    # Warp instructions: a thread's loop pass covers 8 elements, 32
+    # threads a warp.
+    warp_instructions = sum(
+        p.numel() * code["loops"]["bf16" if p.dtype == BF16 else "f32"][
+            "per_element"] / 32 for p, _ in leaves)
+    t_issue = warp_instructions / rates["issue"]
     salt = [0]
 
     def step():
@@ -1075,26 +1194,32 @@ def optimizer_times(program, rates: dict) -> dict:
 
     wall_ms = cuda_ms(step)
     torch.cuda.synchronize()
+    before = sr_adam.sr_adam_multi_cuda.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
             step()
         torch.cuda.synchronize()
+    launches = (sr_adam.sr_adam_multi_cuda.launches - before) / 5
     device_ms = sum(e.self_device_time_total for e in prof.key_averages()
                     if "sr_adam_kernel" in e.key) / 1e3 / 5
     with _plain_optimizer_updates():
         plain_ms = cuda_ms(step, runs=5, warmup=1)
     out = {"ms": device_ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+           "launches_per_step": launches,
            "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bound_parts_us": {"bytes_us": t_bytes * 1e6,
                               "fp32_us": t_ops * 1e6},
-           "tensors": len(leaves), "elements": elements, "bytes": nbytes}
+           "issue_us": t_issue * 1e6, "tensors": len(leaves),
+           "elements": elements, "bytes": nbytes, "code": code}
     log(f"sr_adam optimizer step ({len(leaves)} tensors, {elements} "
         f"elements, {nbytes} bytes): device {device_ms:.4f} ms "
-        f"(torch.profiler, {len(leaves)} launches), wall {wall_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
-        f"({out['bound_by']})")
+        f"(torch.profiler, {launches:g} launch(es) a step), wall "
+        f"{wall_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}; the device time "
+        f"{device_ms / out['bound_ms']:.2f}x it), vector loops' issue "
+        f"{t_issue * 1e3:.4f} ms")
     return out
 
 
@@ -1149,7 +1274,7 @@ def _cli_train(name, argv, kernels, steps, validation_batches,
                sr_adam=False):
     """A training run: its launches must be the loop's train steps
     (kernels[0]) and validation batches (kernels[1]), with `sr_adam` one
-    sr_adam launch per step and parameter tensor, 0 elsewhere."""
+    sr_adam launch per step, 0 elsewhere."""
     run, out, counts = _cli(name, argv)
     if (run.steps, run.validation_batches) != (steps, validation_batches):
         raise RuntimeError(f"cli {name}: {run.steps} steps and "
@@ -1157,7 +1282,7 @@ def _cli_train(name, argv, kernels, steps, validation_batches,
                            f"expected {steps} and {validation_batches}")
     expected = {kernels[0]: run.steps, kernels[1]: run.validation_batches}
     if sr_adam:
-        expected["sr_adam"] = run.steps * _stepped_leaves(run.model)
+        expected["sr_adam"] = run.steps * _sr_adam_launches(run.model)
     _expect(counts, expected, f"cli {name}")
     if not math.isfinite(run.last_loss):
         raise RuntimeError(f"cli {name}: last loss {run.last_loss}")
@@ -1403,7 +1528,7 @@ def main() -> None:
     phase_device()
     name = torch.cuda.get_device_name(0)
     rates = card_rates(name)
-    phase_build()
+    build_log = "".join(r["log"] for r in phase_build().values())
     from svbrdf_tpu_torch.utils.bench_setup import (build_program, loss_inputs,
                                                     loss_inputs_near)
 
@@ -1420,7 +1545,8 @@ def main() -> None:
     agreement_bf16 = phase_agreement()
 
     counts, steps_ms = {}, {"modes": {}}
-    optimizer = None
+    code = sr_adam_code(build_log)
+    optimizer = {}
     for path, (kinds, dtype, master, _) in PATHS.items():
         # The f32 paths run with TF32 off (phase 1); the bf16 ones with
         # TF32 as torch sets it, as the CLI runs them.
@@ -1432,8 +1558,8 @@ def main() -> None:
                                     master_dtype=master)
             counts[path] = phase_path(path, program)
             steps_ms[path] = step_times(path, program)
-            if path == "single_mixed_bf16":
-                optimizer = optimizer_times(program, rates)
+            if PATHS[path][2] == "bf16sr":
+                optimizer[path] = optimizer_times(program, rates, code)
         del program
         torch.cuda.empty_cache()
     steps_ms["modes"] = mode_times()
@@ -1479,18 +1605,25 @@ def main() -> None:
                                 "bf16": c["launches"][k + "_bf16"]}
                           for run, c in cli["runs"].items()}))
     # sr_adam: launches from the bf16-SR main path; the times of one whole
-    # optimizer step of that path's model (one launch per tensor).
+    # optimizer step of that path's model (one launch a step).
+    main_step = optimizer["single_mixed_bf16"]
     kernels.append(dict(
         **SR_ADAM, path="single_mixed_bf16",
         launches=counts["single_mixed_bf16"]["sr_adam"],
         launches_per_call=counts["single_mixed_bf16"]["sr_adam"] / STEPS,
         launches_by_path={p: counts[p]["sr_adam"] for p in PATHS},
-        max_abs_err=sr_checks["max_abs_err"], checks=sr_checks,
-        ms=optimizer["ms"], wall_ms=optimizer["wall_ms"],
-        plain_ms=optimizer["plain_ms"], bound_ms=optimizer["bound_ms"],
-        bound_us=optimizer["bound_ms"] * 1e3,
-        bound_by=optimizer["bound_by"],
-        bound_parts_us=optimizer["bound_parts_us"],
+        max_abs_err=max(sr_checks["max_abs_err"], *(
+            m["max_abs_err"] for m in sr_checks["models"].values())),
+        checks=sr_checks,
+        ms=main_step["ms"], wall_ms=main_step["wall_ms"],
+        plain_ms=main_step["plain_ms"], bound_ms=main_step["bound_ms"],
+        bound_us=main_step["bound_ms"] * 1e3,
+        bound_by=main_step["bound_by"],
+        bound_parts_us=main_step["bound_parts_us"],
+        registers=code["registers"],
+        sass_per_element={k: v["per_element"]
+                          for k, v in code["loops"].items()},
+        issue_us=main_step["issue_us"],
         optimizer_step=optimizer, library_ms=None,
         cli_launches={run: c["launches"]["sr_adam"]
                       for run, c in cli["runs"].items()}))

@@ -1,54 +1,97 @@
-// Fused Adam update with stochastic rounding to bf16, for Hopper.
+// Fused Adam update with stochastic rounding to bf16, for Hopper: every
+// parameter tensor of an optimizer step in one launch.
 //
 // Not a port of a TPU kernel: in the JAX package XLA fuses this update
 // (svbrdf_tpu/parallel/optimizer.py scale_by_adam_bf16sr and the bf16
 // masters' SR in svbrdf_tpu/parallel/step.py make_train_step). In eager
 // PyTorch its plain version (svbrdf_tpu_torch/parallel/optimizer.py
 // adam_update_plain) runs as dozens of passes over each leaf, several of
-// them on int64 tensors for the dither; this kernel is one pass.
+// them on int64 tensors for the dither; this kernel is one pass over all
+// of them.
 //
-// What it computes, per element of one parameter tensor (one launch per
-// tensor), all arithmetic in f32:
+// What it computes, per element of each leaf of the launch's table, all
+// arithmetic in f32:
 //   mu' = mu * b1 + g * (1 - b1)            stored round-to-nearest
 //   nu' = nu * b2 + g * g * (1 - b2)        bf16: stochastically rounded
 //   u   = (mu' / bc1) / (sqrt(nu' / bc2) + eps) * (-lr)
 //   p'  = p + u                              bf16: stochastically rounded
 // where the SR of x to bf16 adds the low 16 bits of a counter-based hash
-// of (element index, salt) to x's bit pattern and truncates (JAX's
-// _dither_bits: two multiply-xorshift rounds in uint32), nu with the
-// leaf's moment salt and p with its master salt. g, p, mu and nu are each
-// f32 or bf16 (a template on the four); the wrapper passes the salts and
-// the f32 scalars from the host.
+// of (element index in the leaf, salt) to x's bit pattern and truncates
+// (JAX's _dither_bits: two multiply-xorshift rounds in uint32). Leaf i of
+// the optimizer takes the moment salt nu_base + i and the master salt
+// master_salt + i, in uint32. g, p, mu and nu are each f32 or bf16, per
+// leaf.
 //
 // Rounding: the plain version's ops in its order, IEEE division and
 // sqrtf, no contraction into FMAs (built with -fmad=false, ops/_build.py),
 // the hash in uint32: bit-exact with the plain version.
 //
-// What bounds it on this card: memory. With bf16 masters, bf16 gradients
-// and bf16 moments it reads 8 bytes and writes 6 per element and does ~20
-// f32 and ~25 integer operations, far below the ~20 operations per byte
-// where the card's issue rate would bound it. The design is the simplest
-// that touches each value once: one thread per element over a grid-stride
-// loop, neighbouring threads on neighbouring elements. One launch per
-// tensor (~100 a step) and scalar loads are left for a later pass.
+// What bounds it on this card: bytes. With bf16 masters, gradients and
+// moments it reads 8 bytes and writes 6 per element, 1.12 GB a step of
+// the full-width models (0.334 ms at 3.35 TB/s). Issue is close behind:
+// bit-exactness keeps three IEEE divisions and an IEEE square root per
+// element, with their slow-path calls, and the two hashes, so the
+// all-bf16 vector loop is 790 SASS instructions for 8 elements (~99 an
+// element; all-f32: 598), ~0.24 ms of issue at 132 SMs x 4 schedulers,
+// 70 % of the bytes' time (chip_smoke.py counts them). 70 registers, 3
+// blocks of 256 threads per SM; capping at 64 registers spills. The
+// design:
+//   - one launch per step: the wrapper passes a table of leaves (pointers,
+//     dtype code, leaf index) by value as a __grid_constant__
+//     parameter, so no buffer can change under a queued launch, and a
+//     chunk map (entry, first element, length) built once per leaf layout;
+//     each block updates one chunk, a branch uniform over the block picks
+//     the leaf's dtype combination;
+//   - 16-byte loads and stores (8 bf16 values, or two float4), all four
+//     tensors' loads issued before the arithmetic, streaming cache hints
+//     (about 1.1 GB a step passes through the 50 MB L2 once), 32-bit
+//     offsets inside a chunk from one 64-bit base per chunk;
+//   - leaf tails (n % 8) and leaves whose four pointers are not all
+//     16-byte aligned take a scalar loop in the same kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstring>
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 4096;
+constexpr int kVec = 8;  // elements per vector step: 16 bytes of bf16
+// Leaves per table. The table travels as a kernel parameter: up to 32,764
+// bytes of parameters from CUDA 12.1 on, 4,096 before.
+#if CUDART_VERSION >= 12010
+constexpr int kMaxLeaves = 256;
+#else
+constexpr int kMaxLeaves = 80;
+#endif
 
 struct Scalars {
   float b1, omb1, b2, omb2, bc1, bc2, eps, neg_lr;
-  unsigned nu_salt, master_salt;
+  unsigned nu_base, master_salt;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// One leaf as the wrapper packs it: five 64-bit words (its size is in the
+// chunk map).
+struct Leaf {
+  void* p;
+  const void* g;
+  void* mu;
+  void* nu;
+  int code;  // bits 0-3: p, g, mu, nu hold bf16; bit 4: all 16-byte aligned
+  unsigned index;  // position over all the optimizer's parameters
+};
+static_assert(sizeof(Leaf) == 40, "the wrapper packs five 64-bit words");
+
+constexpr int kAligned = 16;
+
+struct Table {
+  Scalars s;
+  Leaf leaves[kMaxLeaves];
+};
+static_assert(sizeof(Table) <= (CUDART_VERSION >= 12010 ? 32764 : 4096),
+              "the table must fit the kernel parameter space");
 
 // JAX's _dither_bits for element `idx` (the index modulo 2^32, as its
 // uint32 iota) and `salt`.
@@ -60,99 +103,192 @@ __device__ __forceinline__ unsigned dither(unsigned idx, unsigned salt) {
   return z ^ (z >> 16);
 }
 
-__device__ __forceinline__ __nv_bfloat16 sr_bf16(float x, unsigned idx,
-                                                 unsigned salt) {
-  unsigned hi = (__float_as_uint(x) + (dither(idx, salt) & 0xFFFFu)) >> 16;
-  return __ushort_as_bfloat16(static_cast<unsigned short>(hi));
+// The bf16 bit pattern of x stochastically rounded.
+__device__ __forceinline__ unsigned sr_bits(float x, unsigned idx,
+                                            unsigned salt) {
+  return (__float_as_uint(x) + (dither(idx, salt) & 0xFFFFu)) >> 16;
 }
 
-// Round to nearest (mu).
-__device__ __forceinline__ void store_rn(float* a, long long i, float x) {
-  a[i] = x;
-}
-__device__ __forceinline__ void store_rn(__nv_bfloat16* a, long long i,
-                                         float x) {
-  a[i] = __float2bfloat16_rn(x);
+__device__ __forceinline__ unsigned rn_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-// Stochastic rounding where the storage is bf16 (nu, p), else as is.
-__device__ __forceinline__ void store_sr(float* a, long long i, float x,
-                                         unsigned) {
-  a[i] = x;
+// Eight consecutive values, 16-byte aligned, widened to f32.
+__device__ __forceinline__ void load8(const float* a, float (&v)[kVec]) {
+  const float4 x = __ldcs(reinterpret_cast<const float4*>(a));
+  const float4 y = __ldcs(reinterpret_cast<const float4*>(a) + 1);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
 }
-__device__ __forceinline__ void store_sr(__nv_bfloat16* a, long long i,
-                                         float x, unsigned salt) {
-  a[i] = sr_bf16(x, static_cast<unsigned>(i), salt);
-}
-
-template <class P, class G, class M, class N>
-__global__ void __launch_bounds__(kThreads)
-sr_adam_kernel(P* __restrict__ p, const G* __restrict__ g,
-               M* __restrict__ mu, N* __restrict__ nu, long long n,
-               Scalars s) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const float g32 = to_f32(g[i]);
-    const float mu32 = to_f32(mu[i]) * s.b1 + g32 * s.omb1;
-    const float nu32 = to_f32(nu[i]) * s.b2 + g32 * g32 * s.omb2;
-    float u = (mu32 / s.bc1) / (sqrtf(nu32 / s.bc2) + s.eps);
-    u = u * s.neg_lr;
-    store_rn(mu, i, mu32);
-    store_sr(nu, i, nu32, s.nu_salt);
-    store_sr(p, i, to_f32(p[i]) + u, s.master_salt);
+__device__ __forceinline__ void load8(const __nv_bfloat16* a,
+                                      float (&v)[kVec]) {
+  const uint4 x = __ldcs(reinterpret_cast<const uint4*>(a));
+  const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[2 * k] = __uint_as_float(w[k] << 16);
+    v[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
   }
 }
 
-template <class P, class G, class M, class N>
-int launch(void* p, const void* g, void* mu, void* nu, long long n,
-           const Scalars& s, cudaStream_t stream) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks > 0) {
-    sr_adam_kernel<P, G, M, N><<<static_cast<int>(blocks), kThreads, 0,
-                                 stream>>>(
-        static_cast<P*>(p), static_cast<const G*>(g), static_cast<M*>(mu),
-        static_cast<N*>(nu), n, s);
+// Eight f32 values stored as they are (f32) or as the bf16 patterns that
+// `round` gives for (value, k).
+template <class Round>
+__device__ __forceinline__ void store8(float* a, const float (&v)[kVec],
+                                       Round) {
+  __stcs(reinterpret_cast<float4*>(a), make_float4(v[0], v[1], v[2], v[3]));
+  __stcs(reinterpret_cast<float4*>(a) + 1,
+         make_float4(v[4], v[5], v[6], v[7]));
+}
+template <class Round>
+__device__ __forceinline__ void store8(__nv_bfloat16* a,
+                                       const float (&v)[kVec], Round round) {
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    w[k] = round(v[2 * k], 2 * k) | (round(v[2 * k + 1], 2 * k + 1) << 16);
   }
-  return static_cast<int>(cudaGetLastError());
+  __stcs(reinterpret_cast<uint4*>(a), make_uint4(w[0], w[1], w[2], w[3]));
 }
 
-// Picks the template instance from the four storage flags, one at a time.
-template <class... T>
-struct Pick {
-  static int run(const int* flags, void* p, const void* g, void* mu,
-                 void* nu, long long n, const Scalars& s,
-                 cudaStream_t stream) {
-    if constexpr (sizeof...(T) == 4) {
-      return launch<T...>(p, g, mu, nu, n, s, stream);
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// One element, stored round-to-nearest (mu) or stochastically rounded (nu,
+// p) where the storage is bf16.
+__device__ __forceinline__ void store1_rn(float* a, float x) { *a = x; }
+__device__ __forceinline__ void store1_rn(__nv_bfloat16* a, float x) {
+  *a = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store1_sr(float* a, float x, unsigned,
+                                          unsigned) {
+  *a = x;
+}
+__device__ __forceinline__ void store1_sr(__nv_bfloat16* a, float x,
+                                          unsigned idx, unsigned salt) {
+  *a = __ushort_as_bfloat16(static_cast<unsigned short>(
+      sr_bits(x, idx, salt)));
+}
+
+// The update of one element, in the plain version's order.
+struct Moments {
+  float mu, nu, u;
+};
+__device__ __forceinline__ Moments adam(float g32, float mu, float nu,
+                                        const Scalars& s) {
+  const float mu32 = mu * s.b1 + g32 * s.omb1;
+  const float nu32 = nu * s.b2 + g32 * g32 * s.omb2;
+  float u = (mu32 / s.bc1) / (sqrtf(nu32 / s.bc2) + s.eps);
+  u = u * s.neg_lr;
+  return {mu32, nu32, u};
+}
+
+// One chunk of one leaf: elements [first, first + len).
+template <class P, class G, class M, class N>
+__device__ __forceinline__ void update_chunk(const Leaf& leaf,
+                                             long long first, int len,
+                                             const Scalars& s) {
+  P* p = static_cast<P*>(leaf.p) + first;
+  const G* g = static_cast<const G*>(leaf.g) + first;
+  M* mu = static_cast<M*>(leaf.mu) + first;
+  N* nu = static_cast<N*>(leaf.nu) + first;
+  const unsigned nu_salt = s.nu_base + leaf.index;
+  const unsigned p_salt = s.master_salt + leaf.index;
+  const unsigned base = static_cast<unsigned>(first);
+  // Chunk starts are multiples of kVec elements, so a leaf whose pointers
+  // are 16-byte aligned keeps every vector of the chunk aligned.
+  const int n_vec = (leaf.code & kAligned) ? len / kVec : 0;
+#pragma unroll 1
+  for (int v = threadIdx.x; v < n_vec; v += kThreads) {
+    const int j = v * kVec;
+    float gv[kVec], pv[kVec], mv[kVec], nv[kVec];
+    load8(g + j, gv);
+    load8(mu + j, mv);
+    load8(nu + j, nv);
+    load8(p + j, pv);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const Moments m = adam(gv[k], mv[k], nv[k], s);
+      mv[k] = m.mu;
+      nv[k] = m.nu;
+      pv[k] = pv[k] + m.u;
+    }
+    const unsigned idx = base + static_cast<unsigned>(j);
+    store8(mu + j, mv, [](float x, int) { return rn_bits(x); });
+    store8(nu + j, nv, [=](float x, int k) {
+      return sr_bits(x, idx + k, nu_salt);
+    });
+    store8(p + j, pv, [=](float x, int k) {
+      return sr_bits(x, idx + k, p_salt);
+    });
+  }
+  for (int j = n_vec * kVec + threadIdx.x; j < len; j += kThreads) {
+    const Moments m = adam(to_f32(g[j]), to_f32(mu[j]), to_f32(nu[j]), s);
+    const unsigned idx = base + static_cast<unsigned>(j);
+    store1_rn(mu + j, m.mu);
+    store1_sr(nu + j, m.nu, idx, nu_salt);
+    store1_sr(p + j, to_f32(p[j]) + m.u, idx, p_salt);
+  }
+}
+
+template <bool kBf16>
+using Storage = std::conditional_t<kBf16, __nv_bfloat16, float>;
+
+// The body for the leaf's dtype code, one comparison at a time.
+template <int kCode = 0>
+__device__ __forceinline__ void dispatch(const Leaf& leaf, long long first,
+                                         int len, const Scalars& s) {
+  if constexpr (kCode < 16) {
+    if ((leaf.code & 15) == kCode) {
+      update_chunk<Storage<(kCode & 1) != 0>, Storage<(kCode & 2) != 0>,
+                   Storage<(kCode & 4) != 0>, Storage<(kCode & 8) != 0>>(
+          leaf, first, len, s);
     } else {
-      return flags[sizeof...(T)]
-                 ? Pick<T..., __nv_bfloat16>::run(flags, p, g, mu, nu, n, s,
-                                                  stream)
-                 : Pick<T..., float>::run(flags, p, g, mu, nu, n, s, stream);
+      dispatch<kCode + 1>(leaf, first, len, s);
     }
   }
-};
+}
+
+// One block per chunk; chunks[3 * b .. 3 * b + 2] = (table entry, first
+// element, length) of block b.
+__global__ void __launch_bounds__(kThreads)
+sr_adam_kernel(const __grid_constant__ Table table,
+               const long long* __restrict__ chunks) {
+  const long long* c = chunks + 3 * static_cast<long long>(blockIdx.x);
+  const Leaf& leaf = table.leaves[static_cast<int>(__ldg(c))];
+  dispatch(leaf, __ldg(c + 1), static_cast<int>(__ldg(c + 2)), table.s);
+}
 
 }  // namespace
 
 extern "C" {
 
-// One leaf's update in place. *_bf16 say whether each tensor holds bf16
-// (else f32); all four hold n elements, contiguous. Returns the CUDA error
-// of the launch (0: launched).
-int svbrdf_sr_adam(void* p, const void* g, void* mu, void* nu, long long n,
-                   int p_bf16, int g_bf16, int mu_bf16, int nu_bf16,
-                   unsigned nu_salt, unsigned master_salt, float b1,
-                   float omb1, float b2, float omb2, float bc1, float bc2,
-                   float eps, float neg_lr, void* stream) {
-  const int flags[4] = {p_bf16, g_bf16, mu_bf16, nu_bf16};
-  const Scalars s{b1, omb1, b2, omb2, bc1, bc2, eps, neg_lr, nu_salt,
-                  master_salt};
-  return Pick<>::run(flags, p, g, mu, nu, n, s,
-                     static_cast<cudaStream_t>(stream));
+// The leaves one launch's table holds.
+int svbrdf_sr_adam_max_leaves(void) { return kMaxLeaves; }
+
+// The update of n_leaves leaves in place, one launch: `leaves` points to
+// n_leaves packed Leaf records on the host, `chunks` to n_chunks (entry,
+// first element, length) int64 triples on the device. Returns the CUDA
+// error of the launch (0: launched).
+int svbrdf_sr_adam_multi(const void* leaves, int n_leaves,
+                         const long long* chunks, long long n_chunks,
+                         unsigned nu_base, unsigned master_salt, float b1,
+                         float omb1, float b2, float omb2, float bc1,
+                         float bc2, float eps, float neg_lr, void* stream) {
+  if (n_leaves < 0 || n_leaves > kMaxLeaves || n_chunks < 0 ||
+      n_chunks > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_chunks == 0) return 0;
+  Table table;
+  table.s = Scalars{b1, omb1, b2, omb2, bc1, bc2, eps, neg_lr, nu_base,
+                    master_salt};
+  std::memcpy(table.leaves, leaves, sizeof(Leaf) * n_leaves);
+  sr_adam_kernel<<<static_cast<unsigned>(n_chunks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(table, chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -28,10 +28,13 @@ torch.optim.Adam's (step, exp_avg, exp_avg_sq), so checkpoints load across
 the two and across precisions: load_state_dict casts the moments to this
 optimizer's dtypes.
 
-On CPU tensors each leaf runs the plain version (adam_update_plain); on
-CUDA tensors it runs the fused kernel of csrc/sr_adam.cu
-(ops/sr_adam.sr_adam_update_cuda), which computes the same ops in the same
-order and is bit-exact with it.
+A step updates its leaves together: the leaves with a gradient, grouped
+into buckets that share a param group, a step count and a device (one on
+the main path). On CPU tensors a bucket runs the plain version
+(sr_adam_multi_plain: adam_update_plain leaf by leaf); on CUDA tensors the
+fused kernel of csrc/sr_adam.cu (ops/sr_adam.sr_adam_multi_cuda), one
+launch for the bucket, which computes the same ops in the same order and is
+bit-exact with it.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from svbrdf_tpu_torch.ops import sr_adam
 
 _MASK32 = 0xFFFFFFFF
 _SALT_STEP = 1000003  # per-step stride of the per-leaf moment salt
+_ONE = torch.tensor(1.0)  # a step's increment of the step counts
 
 
 def u32(salt: int) -> int:
@@ -98,9 +102,11 @@ def state_dtypes(p: torch.Tensor, precision: str) -> tuple:
 
 
 class AdamScalars(NamedTuple):
-    """One leaf's scalars of one step, each float exactly an f32 value:
-    b1, 1 - b1, b2, 1 - b2, the bias corrections 1 - b^count, eps and -lr;
-    the two salts as uint32 (master_salt unused for an f32 parameter)."""
+    """The scalars of one step, each float exactly an f32 value: b1, 1 -
+    b1, b2, 1 - b2, the bias corrections 1 - b^count, eps and -lr; the two
+    salts as uint32 (master_salt unused for an f32 parameter): one leaf's
+    in adam_update_plain, the bases that leaf i adds i to in a multi-leaf
+    update (ops/sr_adam.leaf_salts)."""
 
     b1: float
     omb1: float
@@ -162,13 +168,24 @@ def adam_update_plain(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
             if p.dtype == torch.bfloat16 else p + u)
 
 
-def update(p, g, mu, nu, s: AdamScalars) -> None:
-    """One leaf's update in place: the plain version for CPU tensors, the
-    fused kernel (ops/sr_adam) for CUDA tensors."""
-    if p.device.type == "cpu":
-        adam_update_plain(p, g, mu, nu, s)
+def sr_adam_multi_plain(leaves, s: AdamScalars) -> None:
+    """The update of every leaf (ops/sr_adam.SrLeaf) in place, leaf i with
+    the salts ops/sr_adam.leaf_salts(s, i): the fused kernel's plain
+    version."""
+    for lf in leaves:
+        nu_salt, master = sr_adam.leaf_salts(s, lf.index)
+        adam_update_plain(lf.p, lf.g, lf.mu, lf.nu,
+                          s._replace(nu_salt=nu_salt, master_salt=master))
+
+
+def update_leaves(leaves, s: AdamScalars, plans=None) -> None:
+    """The update of a bucket of leaves on one device: the plain version for
+    CPU tensors, the fused kernel (ops/sr_adam) for CUDA tensors, with the
+    launch plans cached in `plans`."""
+    if leaves[0].p.device.type == "cpu":
+        sr_adam_multi_plain(leaves, s)
     else:
-        sr_adam.sr_adam_update_cuda(p, g, mu, nu, s)
+        sr_adam.sr_adam_multi_cuda(leaves, s, plans)
 
 
 class AdamBf16SR(torch.optim.Optimizer):
@@ -179,7 +196,8 @@ class AdamBf16SR(torch.optim.Optimizer):
     (leaf i rounds with master_salt + i, modulo 2^32); required when any
     parameter is bf16. Leaf i's moment salt is count * 1000003 + i modulo
     2^32, count being its step after the increment, as JAX's int32 product
-    wraps. i is the parameter's position over the param groups.
+    wraps. i is the parameter's position over the param groups, counting
+    the parameters without a gradient, which the step leaves alone.
     """
 
     def __init__(self, params, lr: float = 1e-5, betas=(0.9, 0.999),
@@ -213,28 +231,35 @@ class AdamBf16SR(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        scalars = {}  # the step's scalars, once per group and count
-        for i, (group, p) in enumerate(self._leaves()):
-            if p.grad is None:
-                continue
-            if p.dtype == torch.bfloat16 and master_salt is None:
-                raise ValueError("AdamBf16SR.step needs master_salt: a "
-                                 "parameter is bf16")
-            state = self.state[p] or self._init_state(p)
-            # The step count lives on the host (a CPU tensor, as in
-            # torch.optim.Adam), so the salts and bias corrections need no
-            # device read.
-            state["step"] += 1
-            count = int(state["step"])
-            key = (id(group), count)
-            if key not in scalars:
-                scalars[key] = adam_scalars(group["lr"], group["betas"],
-                                            group["eps"], count, 0)
-            s = scalars[key]._replace(
-                nu_salt=u32(count * _SALT_STEP + i),
-                master_salt=u32(0 if master_salt is None
-                                else master_salt + i))
-            update(p, p.grad, state["exp_avg"], state["exp_avg_sq"], s)
+        stepped = [(i, group, p) for i, (group, p) in
+                   enumerate(self._leaves()) if p.grad is not None]
+        if not stepped:
+            return loss
+        if master_salt is None and any(p.dtype == torch.bfloat16
+                                       for _, _, p in stepped):
+            raise ValueError("AdamBf16SR.step needs master_salt: a "
+                             "parameter is bf16")
+        states = [self.state[p] or self._init_state(p) for _, _, p in stepped]
+        # The step counts live on the host (CPU tensors, as in
+        # torch.optim.Adam), so the salts and bias corrections need no
+        # device read: one increment and one read for all of them. The 1
+        # is a tensor, as torch.optim.Adam passes it: with a Python number
+        # the CPU loop of _foreach_add_ wraps it once per tensor.
+        counts = [state["step"] for state in states]
+        torch._foreach_add_(counts, _ONE, alpha=1.0)
+        buckets = {}
+        for (i, group, p), state, count in zip(stepped, states,
+                                               torch.stack(counts).tolist()):
+            buckets.setdefault((id(group), int(count), p.get_device()),
+                               (group, int(count), []))[2].append(
+                sr_adam.SrLeaf(i, p, p.grad, state["exp_avg"],
+                               state["exp_avg_sq"]))
+        plans = self.__dict__.setdefault("_sr_adam_plans", {})
+        for group, count, leaves in buckets.values():
+            s = adam_scalars(group["lr"], group["betas"], group["eps"], count,
+                             count * _SALT_STEP,
+                             0 if master_salt is None else master_salt)
+            update_leaves(leaves, s, plans)
         return loss
 
     def load_state_dict(self, state_dict) -> None:
@@ -244,6 +269,7 @@ class AdamBf16SR(torch.optim.Optimizer):
         round f32 moments of a bf16 parameter)."""
         saved = state_dict["state"]
         super().load_state_dict(state_dict)
+        self.__dict__.get("_sr_adam_plans", {}).clear()
         ids = [i for g in state_dict["param_groups"] for i in g["params"]]
         for i, (_, p) in zip(ids, self._leaves()):
             if i not in saved:

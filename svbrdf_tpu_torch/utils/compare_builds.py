@@ -64,6 +64,9 @@ SASS_NAMES = {
     "render_fwdgrad_both": ("rendering_both_kernel",
                             "rendering_fwdgrad_kernelILb1E",
                             "rendering_loss_kernelILb1ELb1E"),
+    # csrc/sr_adam.cu's kernel (chip_smoke.py reads its registers and
+    # loops; this tool builds the loss sources only).
+    "sr_adam": ("sr_adam_kernel",),
 }
 BF16_MANGLED = "__nv_bfloat16"
 SASS_OPS = ("FADD", "FMUL", "FFMA", "MUFU.RCP", "MUFU.RSQ", "MUFU.LG2",
@@ -148,6 +151,10 @@ def sass_mix(lib: Path) -> dict:
         text=True).stdout)
 
 
+_INSTRUCTION = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9_.]*)(.*)")
+
+
 def parse_sass(text: str) -> dict:
     """{kernel: {op: count, "total": n}} from cuobjdump -sass output: every
     instruction counts in the total, the SASS_OPS by name (MUFU by its
@@ -160,16 +167,61 @@ def parse_sass(text: str) -> dict:
             if current:
                 out[current] = {"total": 0}
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                     r"([A-Z][A-Z0-9_.]*)", line)
+        m = _INSTRUCTION.match(line)
         if m and current:
-            op = m.group(1)
+            op = m.group(2)
             key = op if op.startswith("MUFU") else op.split(".")[0]
             counts = out[current]
             counts["total"] += 1
             if key in SASS_OPS:
                 counts[key] = counts.get(key, 0) + 1
     return out
+
+
+def sass_loops(text: str, kernel: str) -> list:
+    """The loops of kernel `kernel`'s SASS (cuobjdump -sass output): for
+    each backward branch, the static instructions from its target to it,
+    {"first": address, "last": address, "instructions": n, "ldg128": n,
+    "stg128": n} (16-byte global loads and stores), innermost first. Branch
+    targets may be labels (.L_x_N, as CUDA 12 prints them) or addresses."""
+    instructions, labels, pending, current = [], {}, [], None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = _kernel_of(m.group(1))
+            continue
+        if current != kernel:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSTRUCTION.match(line)
+        if m:
+            address = int(m.group(1), 16)
+            labels.update((label, address) for label in pending)
+            pending = []
+            instructions.append((address, m.group(2), m.group(3)))
+    loops = []
+    for address, op, rest in instructions:
+        if op.split(".")[0] != "BRA":
+            continue
+        m = (re.search(r"`\((\.L_x_\d+)\)", rest)
+             or re.search(r"\b0x([0-9a-f]+)\b", rest))
+        if m is None:
+            continue
+        target = (labels.get(m.group(1)) if m.group(1).startswith(".L")
+                  else int(m.group(1), 16))
+        if target is None or target > address:
+            continue
+        body = [o for a, o, _ in instructions if target <= a <= address]
+        loops.append({"first": target, "last": address,
+                      "instructions": len(body),
+                      "ldg128": sum(o.startswith("LDG") and ".128" in o
+                                    for o in body),
+                      "stg128": sum(o.startswith("STG") and ".128" in o
+                                    for o in body)})
+    return sorted(loops, key=lambda loop: loop["instructions"])
 
 
 class Tree:

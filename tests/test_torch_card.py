@@ -526,9 +526,9 @@ def test_sr_adam_kernel_matches_plain(cuda, dtypes):
                                  count * 1000003 + 3, salt + 3)
             kern = [t.clone() for t in leaf]
             plain = [t.clone() for t in leaf]
-            before = sr_adam.sr_adam_update_cuda.launches
+            before = sr_adam.sr_adam_multi_cuda.launches
             sr_adam.sr_adam_update_cuda(*kern, s)
-            assert sr_adam.sr_adam_update_cuda.launches == before + 1
+            assert sr_adam.sr_adam_multi_cuda.launches == before + 1
             opt.adam_update_plain(*plain, s)
             torch.cuda.synchronize()
             for a, b in zip(kern, plain):
@@ -542,8 +542,8 @@ def test_bf16_step_card_matches_cpu(cuda):
     within one bf16 ulp of each other except where the two gradients'
     signs differ (<= 0.1 %), and within one ulp plus 2 lr everywhere (each
     side rounds p + u, |u| <= lr, to a bf16 neighbour; where p is small
-    against lr a sign flip is many ulps); one sr_adam launch per parameter
-    tensor with a gradient."""
+    against lr a sign flip is many ulps); one sr_adam launch for the step
+    (one bucket: every leaf shares its group and count)."""
     from svbrdf_tpu_torch import losses
     from svbrdf_tpu_torch.models import SingleViewModel
     from svbrdf_tpu_torch.ops import sr_adam
@@ -567,12 +567,11 @@ def test_bf16_step_card_matches_cpu(cuda):
         step = step_lib.make_train_step(
             model, step_lib.make_optimizer(model.parameters(), 1e-5, BF16),
             losses.make_loss_fn("mixed"), prep, None, seed=3)
-        before = sr_adam.sr_adam_update_cuda.launches
+        before = sr_adam.sr_adam_multi_cuda.launches
         loss = float(step.update({k: v.to(dev) for k, v in batch.items()},
                                  scenes=scenes.to(dev), step=1))
-        launched = sr_adam.sr_adam_update_cuda.launches - before
-        stepped = sum(p.grad is not None for p in model.parameters())
-        assert launched == (0 if dev == "cpu" else stepped)
+        launched = sr_adam.sr_adam_multi_cuda.launches - before
+        assert launched == (0 if dev == "cpu" else 1)
         results[str(dev)] = (loss, [p.detach().double().cpu()
                                     for p in model.parameters()
                                     if p.dim() >= 2])
@@ -585,3 +584,83 @@ def test_bf16_step_card_matches_cpu(cuda):
     ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
     assert bool((diff <= ulp + 2e-5).all())  # one ulp + 2 lr
     assert float((diff > ulp).double().mean()) <= 1e-3
+
+
+def _multi_leaves(dev, specs, seed):
+    """Leaves (SrLeaf) of `specs`: (index, n, (p, g, mu, nu) dtypes,
+    offset), each tensor a contiguous view `offset` elements into a larger
+    buffer where that tensor's offset is non-zero (so not 16-byte
+    aligned)."""
+    from svbrdf_tpu_torch.ops import sr_adam
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    leaves = []
+    for index, n, dtypes, offsets in specs:
+        ts = []
+        for k, (dt, off) in enumerate(zip(dtypes, offsets)):
+            x = (torch.rand(n + off, generator=g, device=dev) * 1e-6 if k == 3
+                 else torch.randn(n + off, generator=g, device=dev)
+                 * (0.02, 1e-3, 1e-4)[k])
+            ts.append(x.to(dt)[off:])
+        leaves.append(sr_adam.SrLeaf(index, *ts))
+    return leaves
+
+
+def _hold_multi(leaves, s, launches):
+    """The multi-tensor kernel on copies of `leaves` against
+    sr_adam_multi_plain on other copies: p, mu and nu equal to the bit,
+    `launches` launches."""
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    def copy(lf):
+        return sr_adam.SrLeaf(lf.index, *(t.clone() for t in lf[1:]))
+
+    kern = [copy(lf) for lf in leaves]
+    plain = [copy(lf) for lf in leaves]
+    before = sr_adam.sr_adam_multi_cuda.launches
+    sr_adam.sr_adam_multi_cuda(kern, s, {})
+    assert sr_adam.sr_adam_multi_cuda.launches == before + launches
+    opt.sr_adam_multi_plain(plain, s)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        for x, y in zip(a[1:], b[1:]):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+# (moment salt base, master salt base): 0; both near 2^32, so leaf index +
+# base wraps.
+@pytest.mark.parametrize("bases", [(0, 0), (2 ** 32 - 40, 2 ** 32 - 3),
+                                   (2148 * 1000003 % 2 ** 32, 2 ** 31 - 2)])
+def test_sr_adam_multi_kernel_matches_plain(cuda, bases):
+    """One launch over a table of every (p, g, mu, nu) dtype combination
+    (16), each with a tail of 1-7 elements past a multiple of 8, beside
+    leaves that are misaligned contiguous views (one tensor or all four a
+    storage offset of one element in), an empty leaf and a leaf above 2^23
+    elements: bit-exact against the plain version, leaf i taking the salts
+    base + i."""
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    combos = list(itertools.product((torch.float32, BF16), repeat=4))
+    specs = [(3 * k, 8 * (k + 1) * 37 + 1 + k % 7, dts, (0, 0, 0, 0))
+             for k, dts in enumerate(combos)]
+    specs += [(70, 4100, combos[15], (0, 1, 0, 0)),
+              (71, 1000, combos[0], (1, 1, 1, 1)),
+              (72, 0, combos[15], (0, 0, 0, 0)),
+              (73, 2 ** 23 + 13, combos[15], (0, 0, 0, 0)),
+              (74, 2 ** 23 + 9, combos[0], (0, 0, 0, 0))]
+    s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, 2148, *bases)
+    _hold_multi(_multi_leaves(cuda, specs, seed=5), s, 1)
+
+
+def test_sr_adam_multi_splits_tables(cuda):
+    """A leaf set larger than one table: one launch per table, each leaf
+    still bit-exact with its own index's salts."""
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    n = sr_adam.max_leaves() + 5
+    specs = [(i, 33 + i, (BF16, BF16, BF16, BF16) if i % 2
+              else (torch.float32,) * 4, (0, 0, 0, 0)) for i in range(n)]
+    s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, 7, 7 * 1000003, 99)
+    _hold_multi(_multi_leaves(cuda, specs, seed=6), s, 2)

@@ -175,3 +175,42 @@ def test_kernel_tables_name_the_same_kernels():
     assert rf.kernel_floats("mixed_fwdgrad", pred, scenes9) == \
         rf._normalizers(2, 9, 16, 16, 0, 0.1)
     assert rf.kernel_floats("render_fwdgrad", pred, scenes9) == (1 / count,)
+
+
+LOOP_SASS = """\
+\t\tFunction : _ZN12_GLOBAL__N_114sr_adam_kernelENS_5TableEPKx
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/               @P0 BRA `(.L_x_3) ;
+.L_x_1:
+        /*0020*/                   LDG.E.EF.128 R4, desc[UR4][R2.64] ;
+        /*0030*/                   LDG.E.EF.128 R8, desc[UR4][R6.64] ;
+        /*0040*/                   FCHK P1, R4, R5 ;
+        /*0050*/              @!P1 BRA `(.L_x_2) ;
+.L_x_4:
+        /*0060*/                   STG.E.EF.128 desc[UR4][R2.64], R4 ;
+        /*0070*/                   IMAD R1, R2, 0x9e3779b9, RZ ;
+        /*0080*/               @P2 BRA `(.L_x_1) ;
+.L_x_3:
+        /*0090*/                   EXIT ;
+.L_x_2:
+        /*00a0*/                   CALL.REL.NOINC `($__internal_0) ;
+        /*00b0*/                   BRA `(.L_x_4) ;
+\t\tFunction : _ZN46_GLOBAL__N__593e2bb0_13_mixed_loss_cu_5433b71220mixed_fwdgrad_kernelEPKfS1_S1_PfS2_iiiiiff
+        /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0010*/                   BRA 0x0 ;
+"""
+
+
+@pytest.mark.parametrize("kernel, loops", [
+    # The vector loop (.L_x_1 to its closing branch) and the division's
+    # slow-path return (a backward branch from past EXIT), smallest first.
+    ("sr_adam", [{"first": 0x60, "last": 0xb0, "instructions": 6,
+                  "ldg128": 0, "stg128": 1},
+                 {"first": 0x20, "last": 0x80, "instructions": 7,
+                  "ldg128": 2, "stg128": 1}]),
+    # Branch targets as addresses.
+    ("mixed_fwdgrad", [{"first": 0, "last": 0x10, "instructions": 2,
+                        "ldg128": 1, "stg128": 0}]),
+])
+def test_sass_loops(kernel, loops):
+    assert compare_builds.sass_loops(LOOP_SASS, kernel) == loops
