@@ -43,6 +43,16 @@ Phases, each raising (and so exiting non-zero) on any failure:
        - the rendering loss with the target's gradient under autograd;
        - one call each of the mixed loss and of the rendering loss with the
          target's gradient on bf16 planes under autograd;
+       - the path tracer (--renderer pathtracing; torch ops, no kernel of
+         its own): first held card against CPU on the same injected
+         samples (B=2, S=9, 32^2, spp (4, 2): renders, the mixed loss and
+         its gradient, each against float64 where f32 is ill-conditioned;
+         loss and gradient exactly 0 for pred equal to target); then the
+         single-view mixed path at full width and the CLI's default
+         precision (bf16, bf16-SR), spp (16, 8): 5 train steps, 1 eval
+         step, predict, no loss kernel launched and one sr_adam a step,
+         the peak device memory, the steps' times and the loss's share of
+         a train step; then utils/pathtrace_stability for 20 steps;
   6. times: CUDA-event medians of each kernel launched alone (f32, and its
      bf16 instantiation on the same planes in bf16), its wrapper, its plain
      version and each path's steps, each kernel's bound for f32 and bf16
@@ -76,9 +86,13 @@ Phases, each raising (and so exiting non-zero) on any failure:
          loss kernels and one sr_adam launch per step, f32
          weights in the checkpoint, which a fresh bf16-SR model reloads to
          predict the same bits;
+       - single view, mixed loss, --renderer pathtracing at the CLI's
+         defaults, 1 epoch: no loss kernel, one sr_adam a step;
      and the loop's median ms per step against the build_program train
-     step of phase 5, each epoch's validation pass ms, the decode ms of one
-     strip, the checkpoint's save ms and size.
+     step of phase 5, each epoch's validation pass ms (epoch 0 decodes the
+     strips through the dataset's decode pool of worker processes, later
+     epochs read its caches: epoch 0's median against epoch 1's), the
+     decode ms of one strip, the checkpoint's save ms and size.
 The next-to-last line is the JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -236,6 +250,15 @@ PATHS = {
                              {"render_fwdgrad_bf16": STEPS,
                               "render_fwd_bf16": 1}),
 }
+# The path tracer's full-width path (--renderer pathtracing): single view,
+# mixed loss, at the CLI's default precision (bf16, bf16-SR masters). The
+# path tracer is torch ops (no TPU kernel: plain JAX in the reference); the
+# loss kernels do not run, sr_adam once a step (added where the path runs).
+TRACED_PATH = "single_mixed_pathtracing"
+TRACED_PATHS = {TRACED_PATH: (("single", "mixed"), BF16, "bf16sr", {})}
+# The card-vs-CPU check of the path tracer, and the stability run's steps.
+PATHTRACE_SMALL = {"batch": 2, "size": 32, "spp": (4, 2)}
+STABILITY_STEPS = 20
 TARGET_GRAD_PATH = "rendering_target_grad"
 # The path whose run each kernel's `launches` comes from, and its calls
 # (train steps, eval steps or target-gradient calls) in that run.
@@ -884,8 +907,9 @@ def phase_path(path: str, program) -> dict:
     their elements, as tests/test_training.py::TestBf16SRMasters asks."""
     from svbrdf_tpu_torch.parallel.step import prepare
 
-    expected = dict(PATHS[path][3])
-    bf16sr = PATHS[path][2] == "bf16sr"
+    spec = PATHS[path] if path in PATHS else TRACED_PATHS[path]
+    expected = dict(spec[3])
+    bf16sr = spec[2] == "bf16sr"
     before = ([p.detach().clone() for p in program.model.parameters()]
               if bf16sr else None)
     torch.cuda.synchronize()
@@ -975,6 +999,125 @@ def phase_target_grad(inputs) -> dict:
     log(f"{TARGET_GRAD_PATH}: pred.grad and gt.grad equal {upstream} * "
         f"dpred / dgt")
     return counts
+
+
+def phase_pathtrace_agreement() -> dict:
+    """The path tracer on the card against the CPU on the same injected
+    samples (B=2, S=9, 32^2, spp (4, 2)): the renders (render_mc) by the
+    CPU tests' rule (bench_setup.hold_render: rel 1e-5, or where f32 is
+    ill-conditioned against float64; the card's 3-term dot products sum
+    in another order than the CPU's), the mixed path-traced loss at rel
+    1e-5, its gradient for pred within 1e-4 of the CPU's (normwise) and as
+    close to a float64 evaluation as the CPU's (2x, plus 1e-5); then, with
+    a generator on the card, loss and gradient exactly 0 for pred equal to
+    target."""
+    from svbrdf_tpu_torch import losses
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+    from svbrdf_tpu_torch.utils.bench_setup import (hold_render,
+                                                    pathtrace_inputs,
+                                                    render_conditioning)
+
+    small = PATHTRACE_SMALL
+    loss_fn = losses.make_loss_fn("mixed", "pathtracing")
+
+    def run(device, cast=lambda x: x):
+        pred, target, scenes, samples = pathtrace_inputs(
+            small["batch"], small["size"], small["spp"], device=device)
+        scenes = type(scenes)(*map(cast, (scenes.camera_pos,
+                                          scenes.light_pos,
+                                          scenes.light_color)))
+        samples = pt.RenderSamples(*(pt.Samples(*map(cast, s))
+                                     for s in samples))
+        pred, target = cast(pred), cast(target)
+        render = pt.render_mc(scenes, pred[:, None], samples)
+        p = pred.clone().requires_grad_()
+        loss = loss_fn(p, target, scenes=scenes, samples=samples)
+        loss.backward()
+        return (render.detach().double().cpu(), float(loss.detach()),
+                p.grad.double().cpu())
+
+    (rc, lc, gc), (rp, lp, gp) = run("cuda"), run("cpu")
+    r64, _, g64 = run("cpu", lambda x: x.double())
+    pred, _, scenes, samples = pathtrace_inputs(
+        small["batch"], small["size"], small["spp"], device="cpu")
+    cond = render_conditioning(scenes, pred[:, None], samples)
+    out = {"render": hold_render(rc, rp, r64, cond),
+           "loss_rel": abs(lc - lp) / abs(lp),
+           "grad_rel": float((gc - gp).norm() / gp.norm()),
+           "grad_rel_float64": float((gc - g64).norm() / g64.norm()),
+           "cpu_grad_rel_float64": float((gp - g64).norm() / g64.norm())}
+    target = pathtrace_inputs(small["batch"], small["size"],
+                              small["spp"], device="cuda")[1]
+    p = target.clone().requires_grad_()
+    zero = loss_fn(p, target, torch.Generator(device="cuda").manual_seed(1))
+    zero.backward()
+    out["zero_loss"] = float(zero.detach())
+    out["zero_grad_nonzero"] = int(torch.count_nonzero(p.grad))
+    log(f"agreement path tracer (B={small['batch']}, S=9, "
+        f"{small['size']}^2, spp {small['spp']}): loss card {lc!r} cpu "
+        f"{lp!r}; {out}")
+    if out["loss_rel"] > 1e-5:
+        raise RuntimeError("path-traced loss: card and CPU disagree beyond "
+                           "rel 1e-5")
+    if out["grad_rel"] > 1e-4 or out["grad_rel_float64"] > (
+            2 * out["cpu_grad_rel_float64"] + 1e-5):
+        raise RuntimeError("path-traced loss gradient: card and CPU "
+                           "disagree")
+    if out["zero_loss"] != 0.0 or out["zero_grad_nonzero"]:
+        raise RuntimeError("path-traced loss or gradient not 0 for pred "
+                           "equal to target")
+    return out
+
+
+def phase_pathtrace_path() -> dict:
+    """The full-width path-traced path at the CLI's default precision: 5
+    train steps, 1 eval step and predict with every launch counter read
+    (the loss kernels 0, sr_adam one a step), the peak device memory of
+    that run, the steps' times and the loss's share of a train step
+    (utils/profile_step.phase_times: loss forward + its gradient for the
+    maps, against the whole step)."""
+    from svbrdf_tpu_torch.utils.bench_setup import build_program
+    from svbrdf_tpu_torch.utils.profile_step import phase_times
+
+    (kinds, dtype, master, _) = TRACED_PATHS[TRACED_PATH]
+    with _tf32(True, False):
+        program = build_program(*kinds, MAIN["batch"], MAIN["size"],
+                                MAIN["depth"], MAIN["num_filters"], seed=0,
+                                device="cuda", dtype=dtype,
+                                master_dtype=master, renderer="pathtracing")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = phase_path(TRACED_PATH, program)
+        peak = torch.cuda.max_memory_allocated()
+        times = step_times(TRACED_PATH, program)
+        phases = phase_times(program, 5)
+    loss_ms = phases["loss"] + phases["loss_backward"]
+    out = {"launches": counts, "max_memory_allocated": peak,
+           "steps_ms": times, "phases_ms": phases, "loss_ms": loss_ms,
+           "loss_share": loss_ms / sum(phases.values())}
+    log(f"{TRACED_PATH}: peak device memory {peak} bytes; phases (CUDA "
+        f"events, median of 5) {phases}; loss forward + its gradient "
+        f"{loss_ms:.2f} ms, {out['loss_share']:.1%} of the train step")
+    del program
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_stability() -> dict:
+    """utils/pathtrace_stability.run for STABILITY_STEPS steps at full
+    width, the CLI's default precision: every loss and Adam second moment
+    finite."""
+    from svbrdf_tpu_torch.parallel.step import master_dtype_scope
+    from svbrdf_tpu_torch.utils import pathtrace_stability
+
+    with _tf32(True, False), master_dtype_scope():
+        record = pathtrace_stability.run(steps=STABILITY_STEPS)
+    log(f"pathtrace stability: {json.dumps(record)}")
+    if not (record["all_finite"] and record["adam_nu_finite"]):
+        raise RuntimeError("pathtrace stability: a non-finite loss or Adam "
+                           "second moment")
+    torch.cuda.empty_cache()
+    return record
 
 
 BF16_PATHS = {
@@ -1359,9 +1502,29 @@ def _cli_default_runs(root, train, per_epoch) -> dict:
     return runs
 
 
+def _cli_pathtracing(train, per_epoch):
+    """--renderer pathtracing at the CLI's defaults (bf16, bf16-SR masters)
+    for 1 epoch: the loss kernels never launch, sr_adam once a step."""
+    with _tf32(True, False):
+        run, out, counts = _cli(TRACED_PATH, train(
+            TRACED_PATH, "--used-image-count", "1", "--loss", "mixed",
+            "--renderer", "pathtracing", "--epochs", "1", "--retrain"))
+    if (run.steps, run.validation_batches) != (per_epoch, 1):
+        raise RuntimeError(f"cli {TRACED_PATH}: {run.steps} steps and "
+                           f"{run.validation_batches} validation batches")
+    if "Using renderer 'pathtracing'" not in out:
+        raise RuntimeError(f"cli {TRACED_PATH}: not the path tracer")
+    _expect(counts, {"sr_adam": run.steps * _sr_adam_launches(run.model)},
+            f"cli {TRACED_PATH}")
+    if not math.isfinite(run.last_loss):
+        raise RuntimeError(f"cli {TRACED_PATH}: last loss {run.last_loss}")
+    return run, out, counts
+
+
 def phase_cli(build_program_ms: dict) -> dict:
     """The CLI runs of phase 7; returns their numbers and launches."""
     from svbrdf_tpu_torch.data import strips
+    from svbrdf_tpu_torch.data.prefetch import PrefetchPool
     from svbrdf_tpu_torch.models import build_model
     from svbrdf_tpu_torch.parallel.step import make_predict_fn
     from svbrdf_tpu_torch.training.checkpoint import Checkpoint
@@ -1383,6 +1546,15 @@ def phase_cli(build_program_ms: dict) -> dict:
                 lambda: strips.read_image_u8(str(data / "maps_0.png")))}
         log(f"cli decode ms per strip (host, median of 5): "
             f"{out['decode_ms']}")
+        # A fresh decode pool's first strip: its spawned workers start (and
+        # import this script as their main module) before they decode.
+        start = time.perf_counter()
+        with PrefetchPool([str(data / "maps_0.png")], 2) as pool:
+            pool.request(0)
+            pool.take(0)
+            out["pool_first_take_ms"] = (time.perf_counter() - start) * 1e3
+        log(f"cli decode pool: a fresh pool's first strip after "
+            f"{out['pool_first_take_ms']:.1f} ms")
 
         def train(model_dir, *extra):
             return (["--mode", "train", "--input-dir", str(data),
@@ -1483,11 +1655,14 @@ def phase_cli(build_program_ms: dict) -> dict:
             shutil.rmtree(root / name)  # a checkpoint is ~1 GB at full width
 
         runs.update(_cli_default_runs(root, train, per_epoch))
+        runs[TRACED_PATH] = _cli_pathtracing(train, per_epoch)
+        shutil.rmtree(root / TRACED_PATH)
 
     for name, (run, _, counts) in runs.items():
         entry = {"launches": counts}
         if run is not None:
-            path = ("single_mixed_bf16" if "default" in name
+            path = (TRACED_PATH if name == TRACED_PATH
+                    else "single_mixed_bf16" if "default" in name
                     else "single_mixed" if name.startswith("single")
                     else "multi_rendering")
             base = build_program_ms[path]["train_step"]
@@ -1516,6 +1691,14 @@ def phase_cli(build_program_ms: dict) -> dict:
                                               for t in epoch_ms)
                 + "; validation pass per epoch "
                 + ", ".join(f"{t:.2f}" for t in validation_ms) + " ms")
+            if len(epoch_ms) > 1 and "cache" not in name:
+                # Epoch 0 decodes the strips through the dataset's decode
+                # pool; epoch 1 reads its caches.
+                entry["pool_epoch0_minus_epoch1_ms"] = (epoch_ms[0]
+                                                        - epoch_ms[1])
+                log(f"cli {name} decode pool: epoch 0 median "
+                    f"{epoch_ms[0]:.2f} ms, epoch 1 {epoch_ms[1]:.2f} ms, "
+                    f"epoch 0 - epoch 1 {epoch_ms[0] - epoch_ms[1]:.2f} ms")
         out["runs"][name] = entry
     return out
 
@@ -1572,6 +1755,11 @@ def main() -> None:
                 ("bf16_f32_masters",
                  steps_ms["modes"][f"{path}_bf16_f32_masters"]),
                 ("bf16_bf16sr", steps_ms[f"{path}_bf16"])) if t))
+    traced = {"agreement": phase_pathtrace_agreement()}
+    traced.update(phase_pathtrace_path())
+    counts[TRACED_PATH] = traced["launches"]
+    steps_ms[TRACED_PATH] = traced["steps_ms"]
+    traced["stability"] = phase_stability()
     counts[TARGET_GRAD_PATH] = phase_target_grad(inputs)
     counts.update(phase_bf16_calls(inputs_bf16))
     times = kernel_times(inputs, inputs_bf16, rates)
@@ -1611,7 +1799,8 @@ def main() -> None:
         **SR_ADAM, path="single_mixed_bf16",
         launches=counts["single_mixed_bf16"]["sr_adam"],
         launches_per_call=counts["single_mixed_bf16"]["sr_adam"] / STEPS,
-        launches_by_path={p: counts[p]["sr_adam"] for p in PATHS},
+        launches_by_path={p: counts[p]["sr_adam"]
+                          for p in list(PATHS) + [TRACED_PATH]},
         max_abs_err=max(sr_checks["max_abs_err"], *(
             m["max_abs_err"] for m in sr_checks["models"].values())),
         checks=sr_checks,
@@ -1630,7 +1819,7 @@ def main() -> None:
     steps_ms["agreement_bf16"] = agreement_bf16
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "steps_ms": steps_ms,
-                      "cli": cli}))
+                      "cli": cli, "pathtrace": traced}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,18 @@ as NCHW channel planes (B, 12, H, W).
 
 Entry points run on "cuda" unless the caller passes device="cpu"; without a
 card they raise instead of quietly running on the CPU (device.py).
+
+Importing the package imports nothing else (resolve_device is loaded on
+first use), so that the PNG decode workers (data/prefetch.py), which import
+data/strips.py and data/png.py, start without torch.
 """
 
-from svbrdf_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from svbrdf_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,8 +13,6 @@ import argparse
 
 # Unported features: (flag, predicate on its value, ROADMAP Queue 1 item).
 _NOT_PORTED = (
-    ("--renderer pathtracing", lambda a: a.renderer == "pathtracing",
-     "12 (path tracer)"),
     ("--num-devices > 1", lambda a: a.num_devices > 1,
      "14 (multi-GPU data parallel)"),
     ("--shard-spatial > 0", lambda a: a.shard_spatial > 0,
@@ -31,8 +29,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Mode in which the program is executed.")
     p.add_argument("--renderer", "-R", dest="renderer",
                    choices=["local", "pathtracing"], default="local",
-                   help="Renderer used by the rendering loss "
-                        "('pathtracing' is not ported yet).")
+                   help="Renderer used by the rendering loss: 'local' "
+                        "(the in-network Cook-Torrance renderer, fused "
+                        "loss kernels) or 'pathtracing' (the quad-light "
+                        "path tracer, 16 forward / 8 backward samples, "
+                        "unfused).")
     p.add_argument("--input-dir", "-i", dest="input_dir", required=True,
                    help="Directory containing the input data.")
     p.add_argument("--image-count", "-c", dest="image_count", required=True,

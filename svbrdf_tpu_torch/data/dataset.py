@@ -13,19 +13,36 @@ device in data/pipeline.prepare_batch; only test mode's __getitem__
 prepares one item on the host, drawing from a torch.Generator seeded from
 `seed`.
 
-Not ported: the per-host file shard of multi-host training and the native
-libpng prefetch pool (`prefetch` is kept as a hook that does nothing).
+Strips not in the caches are decoded ahead of use by a pool of worker
+processes (data/prefetch.py) running the port's own PNG decoder, where the
+JAX package's pool runs libpng in threads. Not ported: the per-host file
+shard of multi-host training.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, List
 
 import numpy as np
 import torch
 
 from svbrdf_tpu_torch.data import pipeline, strips
+from svbrdf_tpu_torch.data.prefetch import PrefetchPool
+
+
+def strip_tiles(path: str, input_image_count: int, n_read: int,
+                size: int):
+    """The byte fast path's work for one sample at the fixed crop anchor
+    (0, 0): the strip decoded and split, its last `n_read` photos and its
+    maps cropped to size x size, as contiguous uint8 (inputs, svbrdf)
+    tiles. The decode pool's workers run it."""
+    inputs, svbrdf = strips.decode_strip_u8(strips.read_image_u8(path),
+                                            input_image_count)
+    inputs = inputs[input_image_count - n_read:]
+    return (np.ascontiguousarray(inputs[:, :size, :size, :]),
+            np.ascontiguousarray(svbrdf[:size, :size, :]))
 
 
 class SvbrdfDataset:
@@ -35,7 +52,12 @@ class SvbrdfDataset:
                  use_augmentation: bool = True,
                  mix_materials: bool = False, no_svbrdf: bool = False,
                  is_linear: bool = False, random_crop: bool = False,
-                 seed: int = 313, cache_bytes: int = 1 << 30):
+                 seed: int = 313, use_native_prefetch: bool = True,
+                 prefetch_threads: int = 2, cache_bytes: int = 1 << 30):
+        """use_native_prefetch / prefetch_threads keep the JAX package's
+        names: with it on, `prefetch` hands the strips not yet cached to a
+        pool of `prefetch_threads` worker processes running the port's own
+        decoder (started at the first prefetch; `close` stops them)."""
         self.data_directory = data_directory
         self.file_paths: List[str] = strips.list_sample_files(data_directory)
         self.image_size = image_size
@@ -69,6 +91,33 @@ class SvbrdfDataset:
         self._scaled_cache: "dict[int, tuple]" = {}
         self._cache_used = 0
 
+        self._use_pool = use_native_prefetch and bool(self.file_paths)
+        self._prefetch_workers = prefetch_threads
+        self._pool = None
+        # What a sample's decode is, in the pool's workers or here: with a
+        # fixed crop anchor the byte path's tiles (strip_tiles), else the
+        # strip.
+        if self._transfer_u8 and not random_crop:
+            self._decode = partial(
+                strip_tiles, input_image_count=input_image_count,
+                n_read=min(input_image_count, used_input_image_count),
+                size=image_size)
+        else:
+            self._decode = strips.read_image_u8
+
+    def close(self) -> None:
+        """Stop the decode pool's workers (a later prefetch starts new
+        ones)."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
+
+    def __enter__(self) -> "SvbrdfDataset":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     def __len__(self) -> int:
         return len(self.file_paths)
 
@@ -79,17 +128,33 @@ class SvbrdfDataset:
         return (0, 0)
 
     def prefetch(self, indices) -> None:
-        """Hint about upcoming samples; the port has no decode pool, so
-        this does nothing."""
+        """Hint the decode pool about upcoming samples: those in neither
+        cache are queued (no-op without the pool)."""
+        if not self._use_pool:
+            return
+        wanted = [int(i) for i in indices
+                  if int(i) not in self._cache
+                  and int(i) not in self._scaled_cache]
+        if wanted and self._pool is None:
+            self._pool = PrefetchPool(self.file_paths,
+                                      self._prefetch_workers,
+                                      decode=self._decode)
+        for i in wanted:
+            self._pool.request(i)
 
-    def _read_strip_u8(self, idx: int, cache_strip: bool = True
-                       ) -> np.ndarray:
+    def _decoded(self, idx: int):
+        """self._decode of sample `idx`: from the pool if there is one
+        (its worker's if requested), else here."""
+        if self._pool is not None:
+            return self._pool.take(idx)
+        return self._decode(self.file_paths[idx])
+
+    def _read_strip_u8(self, idx: int) -> np.ndarray:
         cached = self._cache.get(idx)
         if cached is not None:
             return cached
-        strip = strips.read_image_u8(self.file_paths[idx])
-        if (cache_strip
-                and self._cache_used + strip.nbytes <= self._cache_limit):
+        strip = self._decoded(idx)
+        if self._cache_used + strip.nbytes <= self._cache_limit:
             self._cache[idx] = strip
             self._cache_used += strip.nbytes
         return strip
@@ -99,28 +164,22 @@ class SvbrdfDataset:
 
     def load_scaled_u8(self, idx: int):
         """Byte fast path (crop mode): raw uint8 (inputs, svbrdf) tiles."""
-        fixed_anchor = not self.random_crop
-        if fixed_anchor:
-            hit = self._scaled_cache.get(idx)
-            if hit is not None:
-                return hit
-        inputs, svbrdf = strips.decode_strip_u8(
-            self._read_strip_u8(idx, cache_strip=not fixed_anchor),
-            self.input_image_count)
+        if not self.random_crop:
+            out = self._scaled_cache.get(idx)
+            if out is None:
+                out = self._decoded(idx)
+                nbytes = out[0].nbytes + out[1].nbytes
+                if self._cache_used + nbytes <= self._cache_limit:
+                    self._scaled_cache[idx] = out
+                    self._cache_used += nbytes
+            return out
+        inputs, svbrdf = strips.decode_strip_u8(self._read_strip_u8(idx),
+                                                self.input_image_count)
         n_read = min(self.input_image_count, self.used_input_image_count)
         inputs = inputs[self.input_image_count - n_read:]
         r, c = self._crop_anchor(svbrdf.shape[0], svbrdf.shape[1])
         s = self.image_size
-        out = (inputs[:, r:r + s, c:c + s, :],
-               svbrdf[r:r + s, c:c + s, :])
-        if fixed_anchor:
-            out = (np.ascontiguousarray(out[0]),
-                   np.ascontiguousarray(out[1]))
-            nbytes = out[0].nbytes + out[1].nbytes
-            if self._cache_used + nbytes <= self._cache_limit:
-                self._scaled_cache[idx] = out
-                self._cache_used += nbytes
-        return out
+        return (inputs[:, r:r + s, c:c + s, :], svbrdf[r:r + s, c:c + s, :])
 
     def load_scaled(self, idx: int):
         """Strip -> scaled (inputs (N_read, s, s, 3), svbrdf (s, s, 12)):
@@ -175,13 +234,24 @@ class SvbrdfDataset:
     def raw_batch(self, indices) -> Dict[str, np.ndarray]:
         """Stack scaled raw samples (+ a mixing partner per sample, drawn
         from the host RNG) for preparation on the device."""
+        indices = [int(i) for i in indices]
+        drawn = None
+        if self.mix_materials and not (self.scale_mode == "crop"
+                                       and self.random_crop):
+            # No crop anchor draws from the host RNG, so the partners are
+            # drawn first (the same draws in the same order) and the pool
+            # decodes them beside the batch's own samples.
+            drawn = [int(self._host_rng.integers(0, len(self)))
+                     for _ in indices]
+            self.prefetch(drawn)
         inputs, svbrdfs, partners = [], [], []
-        for i in indices:
-            x, s = self.load_scaled(int(i))
+        for n, i in enumerate(indices):
+            x, s = self.load_scaled(i)
             inputs.append(x)
             svbrdfs.append(s)
             if self.mix_materials:
-                j = int(self._host_rng.integers(0, len(self)))
+                j = (drawn[n] if drawn is not None
+                     else int(self._host_rng.integers(0, len(self))))
                 partners.append(self.load_scaled(j)[1])
         batch = {
             "inputs": np.stack(inputs),

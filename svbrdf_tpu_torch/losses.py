@@ -2,7 +2,8 @@
 
 Counterpart of svbrdf_tpu/losses.py. `svbrdf_l1_loss`, `rendering_loss` and
 `mixed_loss` are plain autograd compositions over NHWC (B, H, W, 12)
-tensors; they are the oracle the fused kernels are held against. The scenes
+tensors: the oracle the fused kernels are held against, and with the path
+tracer (ops/pathtrace) the losses of --renderer pathtracing. The scenes
 of the rendering loss are passed in (the caller draws them with
 ops.sampling.generate_loss_scenes), so tests can hand both frameworks the
 same scenes.
@@ -10,9 +11,12 @@ same scenes.
 
 from __future__ import annotations
 
+import inspect
+
 import torch
 
-from svbrdf_tpu_torch.ops import codecs, render, render_fused, sampling
+from svbrdf_tpu_torch.ops import (codecs, pathtrace, render, render_fused,
+                                  sampling)
 from svbrdf_tpu_torch.ops.render_fused import EPSILON_L1, EPSILON_RENDER
 from svbrdf_tpu_torch.scene import Scene
 
@@ -37,21 +41,66 @@ def svbrdf_l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
                       torch.log(t.specular + EPSILON_L1)))
 
 
-def rendering_loss(pred: torch.Tensor, target: torch.Tensor,
-                   scenes: Scene) -> torch.Tensor:
+def _render_fn_accepts_generator(render_fn) -> bool:
+    """True if a renderer-protocol fn takes the optional per-call sampling
+    `generator` kwarg: declared by an `accepts_generator` attribute (the
+    path tracer's render fns have one), else read from its signature. A
+    callable whose signature cannot be read raises rather than silently
+    rendering every step on the same samples."""
+    declared = getattr(render_fn, "accepts_generator", None)
+    if declared is not None:
+        return bool(declared)
+    try:
+        params = inspect.signature(render_fn).parameters
+    except (TypeError, ValueError):  # builtins / odd callables
+        raise TypeError(
+            f"renderer {render_fn!r} has no inspectable signature; set "
+            f"render_fn.accepts_generator = True/False explicitly so the "
+            f"rendering loss knows whether to thread its generator") \
+            from None
+    return ("generator" in params
+            or any(p.kind is inspect.Parameter.VAR_KEYWORD
+                   for p in params.values()))
+
+
+def rendering_loss(pred: torch.Tensor, target: torch.Tensor, scenes: Scene,
+                   render_fn=None, generator=None,
+                   samples=None) -> torch.Tensor:
     """L1 between log(render + 0.1) of pred and target under per-item
-    scene sets (fields (B, S, 3))."""
-    pred_r = render.render_scene_set(scenes, pred)
-    target_r = render.render_scene_set(scenes, target)
+    scene sets (fields (B, S, 3)), rendered by `render_fn` (default: the
+    local renderer, render.render).
+
+    A renderer that takes a generator draws its samples from `generator`,
+    and pred and target share them (common random numbers: the generator
+    is rewound to its state before pred's render for the target's, so it
+    advances as for one render and the loss is exactly 0 at pred ==
+    target). `samples` hands the renderer given samples instead (both
+    renders share them too)."""
+    if render_fn is None:
+        pred_r = render.render_scene_set(scenes, pred)
+        target_r = render.render_scene_set(scenes, target)
+    elif samples is not None:
+        pred_r = render_fn(scenes, pred[:, None], samples=samples)
+        target_r = render_fn(scenes, target[:, None], samples=samples)
+    elif _render_fn_accepts_generator(render_fn) and generator is not None:
+        state = generator.get_state()
+        pred_r = render_fn(scenes, pred[:, None], generator=generator)
+        generator.set_state(state)
+        target_r = render_fn(scenes, target[:, None], generator=generator)
+    else:
+        pred_r = render_fn(scenes, pred[:, None])
+        target_r = render_fn(scenes, target[:, None])
     return l1_loss(torch.log(pred_r + EPSILON_RENDER),
                    torch.log(target_r + EPSILON_RENDER))
 
 
 def mixed_loss(pred: torch.Tensor, target: torch.Tensor, scenes: Scene,
-               l1_weight: float = 0.1) -> torch.Tensor:
+               l1_weight: float = 0.1, render_fn=None, generator=None,
+               samples=None) -> torch.Tensor:
     """l1_weight * svbrdf_l1_loss + rendering_loss."""
     return (l1_weight * svbrdf_l1_loss(pred, target)
-            + rendering_loss(pred, target, scenes))
+            + rendering_loss(pred, target, scenes, render_fn, generator,
+                             samples))
 
 
 def to_planes(svbrdf: torch.Tensor) -> torch.Tensor:
@@ -65,14 +114,19 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
 
     pred/target are NHWC (B, H, W, 12). The rendering terms draw 3 random
     and 6 specular scenes per item from `generator` unless `scenes` is
-    given. kinds "mixed" and "rendering" go through the fused kernels
-    (ops/render_fused): the CUDA kernels for CUDA tensors, their plain
-    versions for CPU tensors; the target is cast to pred's dtype (f32 or
-    bf16 planes) and gets no gradient. kind "l1" is plain.
+    given. With the local renderer, kinds "mixed" and "rendering" go
+    through the fused kernels (ops/render_fused): the CUDA kernels for
+    CUDA tensors, their plain versions for CPU tensors; the target is cast
+    to pred's dtype (f32 or bf16 planes) and gets no gradient. With the
+    path tracer (renderer "pathtracing") they are the unfused
+    rendering_loss / mixed_loss over ops/pathtrace.make_render_fn() (16
+    forward, 8 backward samples), as in the JAX package: the generator
+    draws the scenes, then the render samples, unless the loss fn is given
+    `samples=` (pathtrace.RenderSamples); the target keeps its dtype.
+    kind "l1" is plain.
     """
-    if renderer != "local":
-        raise NotImplementedError(
-            f"renderer {renderer!r} is not ported; only 'local' is")
+    if renderer not in ("local", "pathtracing"):
+        raise ValueError(f"unknown renderer {renderer!r}")
     if kind == "l1":
         def l1_fn(pred, target, generator=None, scenes=None):
             return svbrdf_l1_loss(pred, target)
@@ -86,6 +140,22 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
             pred.shape[0], N_RANDOM_SCENES, N_SPECULAR_SCENES,
             generator=generator, device=pred.device)
 
+    if kind not in ("rendering", "mixed"):
+        raise ValueError(f"unknown loss kind {kind!r}")
+    if renderer == "pathtracing":
+        render_fn = pathtrace.make_render_fn()
+        weight = None if kind == "rendering" else l1_weight
+
+        def traced_fn(pred, target, generator=None, scenes=None,
+                      samples=None):
+            scenes = draw(pred, generator, scenes)
+            if weight is None:
+                return rendering_loss(pred, target, scenes, render_fn,
+                                      generator, samples)
+            return mixed_loss(pred, target, scenes, weight, render_fn,
+                              generator, samples)
+
+        return traced_fn
     if kind == "rendering":
         def rendering_fn(pred, target, generator=None, scenes=None):
             return render_fused.rendering_loss_fused_planes(
@@ -93,11 +163,10 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
                 draw(pred, generator, scenes))
 
         return rendering_fn
-    if kind == "mixed":
-        def mixed_fn(pred, target, generator=None, scenes=None):
-            return render_fused.mixed_loss_fused_planes(
-                to_planes(pred), to_planes(target.to(pred.dtype)),
-                draw(pred, generator, scenes), l1_weight)
 
-        return mixed_fn
-    raise ValueError(f"unknown loss kind {kind!r}")
+    def mixed_fn(pred, target, generator=None, scenes=None):
+        return render_fused.mixed_loss_fused_planes(
+            to_planes(pred), to_planes(target.to(pred.dtype)),
+            draw(pred, generator, scenes), l1_weight)
+
+    return mixed_fn

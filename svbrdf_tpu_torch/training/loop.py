@@ -185,8 +185,13 @@ def run_training(args, device="cuda") -> TrainingRun:
 
 def _run_training(args, device) -> TrainingRun:
     args, model, optimizer, epoch_start = setup(args, device)
+    # The dataset's decode pool, if a prefetch started one, stops here.
+    with _build_dataset(args, "train") as data:
+        return _train(args, device, model, optimizer, epoch_start, data)
 
-    data = _build_dataset(args, "train")
+
+def _train(args, device, model, optimizer, epoch_start,
+           data) -> TrainingRun:
     device_cache = None
     if args.device_data_cache:
         device_cache = DeviceDataCache(data, device)
@@ -237,6 +242,8 @@ def _run_training(args, device) -> TrainingRun:
         for epoch in range(epoch_start, args.epochs):
             order = np.array(train_idx)
             data._host_rng.shuffle(order)
+            if device_cache is None:
+                data.prefetch(order[:batch_size])
             for i in range(batch_count):
                 idx = order[i * batch_size:(i + 1) * batch_size]
                 if len(idx) == 0:
@@ -257,9 +264,12 @@ def _run_training(args, device) -> TrainingRun:
                     if device_cache is not None:
                         raw = device_cache.raw_batch(idx)
                     else:
+                        raw = _to_device(data.raw_batch(idx), device)
+                        # After raw_batch: the pool decodes in request
+                        # order, so this batch's mixing partners (drawn
+                        # and requested inside raw_batch) go first.
                         data.prefetch(
                             order[(i + 1) * batch_size:(i + 2) * batch_size])
-                        raw = _to_device(data.raw_batch(idx), device)
                     generator.manual_seed(stream_seed(args.seed,
                                                       batch_index + 1))
                     loss = train_step(raw, step=batch_index + 1)

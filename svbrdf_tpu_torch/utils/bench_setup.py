@@ -1,6 +1,6 @@
-"""The port's training programs and their inputs: local renderer, material
-mixing, augmentation on, Adam at lr 1e-5, f32 or bf16 compute (with f32 or
-bf16-SR masters), and either the single-view model with the mixed loss
+"""The port's training programs and their inputs: local renderer (or the
+path tracer), material mixing, augmentation on, Adam at lr 1e-5, f32 or
+bf16 compute (with f32 or bf16-SR masters), and either the single-view model with the mixed loss
 (the main path) or the multi-view model (3 views, all synthesized) with
 the rendering-only loss. The same code as the CLI's builds the models,
 masters and optimizers (models.build_model, parallel/step).
@@ -87,6 +87,85 @@ def loss_inputs_near(batch: int, size: int, n_scenes: int,
     return pred.to(dtype), gt.to(dtype), scenes9
 
 
+def pathtrace_inputs(batch: int, size: int, spp=(4, 2), seed: int = 0,
+                     device="cuda") -> tuple:
+    """(pred, target NHWC (B, H, W, 12) maps, the 3 random + 6 specular
+    loss scenes per item, pathtrace.RenderSamples) for the path tracer,
+    made on the CPU from `seed` and moved to `device`: the same values on
+    every device. pred and target are two synthetic raw batches decoded."""
+    from svbrdf_tpu_torch.data import pipeline
+    from svbrdf_tpu_torch.ops import pathtrace, sampling
+    from svbrdf_tpu_torch.scene import Scene
+
+    dev = resolve_device(device)
+
+    def maps(s):
+        raw = synthetic_raw_batch(batch, size, 0, s)["svbrdf"]
+        return pipeline._decode_u8_svbrdf(torch.from_numpy(raw)).to(dev)
+
+    g = torch.Generator().manual_seed(seed)
+    scenes = sampling.generate_loss_scenes(batch, 3, 6, generator=g)
+    samples = pathtrace.draw_render_samples(g, spp, (batch, 9), size, size)
+    return (maps(seed + 1), maps(seed), scenes.to(dev),
+            pathtrace.RenderSamples(*(pathtrace.Samples(
+                *(x.to(dev) for x in s)) for s in samples)))
+
+
+def render_conditioning(scene, svbrdf: torch.Tensor, samples,
+                        trials: int = 4, seed: int = 0) -> torch.Tensor:
+    """The scale of f32 rounding's effect on each path-traced render value:
+    the most that flipping every map value by one f32 ulp (relative 2^-24,
+    random signs from `seed`) moves the float64 render (render_mc on the
+    float64 inputs), over `trials` draws. One ulp of n.h moves the Blinn
+    lobe pow(n.h, e) by up to e ulps (e reaches 2e4), so where f32 is
+    ill-conditioned this is large."""
+    from svbrdf_tpu_torch.ops import pathtrace
+
+    def f64(x):
+        return x.detach().double().cpu()
+
+    scene = type(scene)(*map(f64, (scene.camera_pos, scene.light_pos,
+                                   scene.light_color)))
+    samples = pathtrace.RenderSamples(*(pathtrace.Samples(*map(f64, s))
+                                        for s in samples))
+    svbrdf = f64(svbrdf)
+    base = pathtrace.render_mc(scene, svbrdf, samples)
+    g = torch.Generator().manual_seed(seed)
+    worst = torch.zeros_like(base)
+    for _ in range(trials):
+        sign = torch.randint(0, 2, svbrdf.shape, generator=g) * 2 - 1
+        moved = pathtrace.render_mc(scene, svbrdf * (1 + sign * 2.0 ** -24),
+                                    samples)
+        worst = torch.maximum(worst, (moved - base).abs())
+    return worst
+
+
+def hold_render(actual, ref, ref64, cond, rtol: float = 1e-5) -> dict:
+    """The path tracer's render tolerance (each a tensor of render values,
+    `cond` from render_conditioning): every value within rel `rtol` of
+    `ref`, or no further from the float64 `ref64` than 4x the largest of
+    `ref`'s own distance from it, rel `rtol` and `cond`; at most 1 % of
+    the values beyond rel `rtol`. Raises RuntimeError otherwise; returns
+    the share beyond rtol and the largest deviation from float64 over its
+    allowance."""
+    actual, ref, ref64, cond = (x.double().cpu()
+                                for x in (actual, ref, ref64, cond))
+    near = (actual - ref).abs() <= rtol * ref.abs()
+    allowed = 4 * torch.maximum(torch.maximum((ref - ref64).abs(),
+                                              rtol * ref64.abs()), cond)
+    dist = (actual - ref64).abs()
+    out = {"max_abs_err": float((actual - ref).abs().max()),
+           "beyond_rtol": float((~near).double().mean()),
+           "max_dist_over_allowed": float(
+               (dist / allowed.clamp_min(1e-300))[~near].max())
+           if bool((~near).any()) else 0.0}
+    bad = ~(near | (dist <= allowed))
+    if bool(bad.any()) or out["beyond_rtol"] > 0.01:
+        raise RuntimeError(f"path-traced renders: {int(bad.sum())} "
+                             f"values beyond both tolerances; {out}")
+    return out
+
+
 def kernel_ms(name: str, inputs, kernel=None, reps: int = 10,
               runs: int = 20) -> float:
     """Device time of one raw launch of loss kernel `name` on `inputs`
@@ -138,10 +217,11 @@ def build_program(model_kind: str = "single", loss_kind: str = "mixed",
                   batch: int = 8, size: int = 256, depth: int = 8,
                   num_filters: int = 64, seed: int = 0,
                   device="cuda", dtype=torch.float32,
-                  master_dtype=None) -> MainProgram:
+                  master_dtype=None, renderer: str = "local") -> MainProgram:
     """Build a training program at the given widths, with weights and data
     made from `seed`, on `device`: model_kind "single" (one input view) or
-    "multi" (3 views), loss_kind "mixed" or "rendering"; the model
+    "multi" (3 views), loss_kind "mixed" or "rendering" with `renderer`
+    "local" (the fused loss kernels) or "pathtracing"; the model
     computing in `dtype`, its masters cast by the policy `master_dtype`
     ('f32' | 'bf16sr'; None: the policy in force)."""
     if model_kind not in ("single", "multi"):
@@ -155,7 +235,7 @@ def build_program(model_kind: str = "single", loss_kind: str = "mixed",
             step_lib.set_master_dtype_policy(master_dtype)
         step_lib.master_cast(model)
     optimizer = make_optimizer(model.parameters(), 1e-5, dtype)
-    loss_fn = losses.make_loss_fn(loss_kind, "local")
+    loss_fn = losses.make_loss_fn(loss_kind, renderer)
     prep = PrepConfig(used_input_image_count=n_views, use_augmentation=True,
                       is_linear=False, mix_materials=True)
     generator = torch.Generator(device=dev).manual_seed(seed + 1)

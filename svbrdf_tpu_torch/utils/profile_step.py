@@ -1,18 +1,21 @@
 """Where a training path's train step spends its time on the card.
 
     python -m svbrdf_tpu_torch.utils.profile_step [--path PATH]
-        [--dtype DTYPE] [--out FILE]
+        [--dtype DTYPE] [--renderer RENDERER] [--out FILE]
 
 PATH is single-mixed (the main path: single-view model, mixed loss; the
 default) or multi-rendering (multi-view model with 3 synthesized views,
 rendering-only loss). DTYPE is the compute dtype, float32 (the default,
 TF32 off) or bfloat16 (TF32 settings left as torch has them, as the CLI's
 device.precision_scope does; the master-dtype policy in force, bf16sr
-unless SVBRDF_MASTER_DTYPE says f32). Builds that program
+unless SVBRDF_MASTER_DTYPE says f32). RENDERER is the loss's renderer,
+local (the default: the fused loss kernels) or pathtracing (the path
+tracer's unfused loss). Builds that program
 (bench_setup.build_program: depth 8, 64 filters, 256^2, batch 8) and, after
 warm-up, reports:
   - phases: CUDA-event medians of one step's parts (prepare, forward, loss,
-    backward, Adam) over STEPS steps, the forward and the Adam step as the
+    loss_backward: the loss's gradient for the maps, backward: the
+    model's, Adam) over STEPS steps, the forward and the Adam step as the
     train step runs them (its casts; the fused SR-Adam kernel for a bf16
     model);
   - kernels: torch.profiler device time per kernel name over STEPS steps
@@ -36,16 +39,17 @@ import time
 STEPS = 10  # timed train steps per measurement
 
 
-def _phase_times(program, steps):
+def phase_times(program, steps):
     import torch
 
     from svbrdf_tpu_torch.parallel.step import prepare
 
     step = program.train_step
-    names = ("prepare", "forward", "loss", "backward", "adam")
+    names = ("prepare", "forward", "loss", "loss_backward", "backward",
+             "adam")
     samples = {n: [] for n in names}
     for n in range(steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         ev[0].record()
         batch = prepare(program.raw, program.prep, program.generator)
         ev[1].record()
@@ -54,12 +58,14 @@ def _phase_times(program, steps):
         loss = step.loss_fn(pred, batch["svbrdf"], program.generator)
         ev[3].record()
         step.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        (dpred,) = torch.autograd.grad(loss, pred)
         ev[4].record()
+        pred.backward(dpred)
+        ev[5].record()
         step.apply_gradients(step.step_index + 1)
         step.step_index += 1
-        ev[5].record()
-        ev[5].synchronize()
+        ev[6].record()
+        ev[6].synchronize()
         for i, n in enumerate(names):
             samples[n].append(ev[i].elapsed_time(ev[i + 1]))
     return {n: statistics.median(v) for n, v in samples.items()}
@@ -136,6 +142,8 @@ def main(argv=None) -> None:
                         default="single-mixed")
     parser.add_argument("--dtype", choices=("float32", "bfloat16"),
                         default="float32")
+    parser.add_argument("--renderer", choices=("local", "pathtracing"),
+                        default="local")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
 
@@ -150,17 +158,19 @@ def main(argv=None) -> None:
 
     dtype = DTYPES[args.dtype]
     with precision_scope(dtype):
-        program = build_program(*PATHS[args.path], dtype=dtype)
+        program = build_program(*PATHS[args.path], dtype=dtype,
+                                renderer=args.renderer)
         for _ in range(3):
             program.train_step(program.raw)
         torch.cuda.synchronize()
         result = {"path": args.path, "dtype": args.dtype,
+                  "renderer": args.renderer,
                   "master_dtype": master_dtype_policy(),
                   "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
                            "matmul": torch.backends.cuda.matmul.allow_tf32},
                   "device": torch.cuda.get_device_name(0),
                   "torch": torch.__version__,
-                  "phases_ms": _phase_times(program, STEPS),
+                  "phases_ms": phase_times(program, STEPS),
                   "kernels": _kernel_times(program, STEPS)}
     text = json.dumps(result, indent=1)
     print(text)

@@ -664,3 +664,69 @@ def test_sr_adam_multi_splits_tables(cuda):
               else (torch.float32,) * 4, (0, 0, 0, 0)) for i in range(n)]
     s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, 7, 7 * 1000003, 99)
     _hold_multi(_multi_leaves(cuda, specs, seed=6), s, 2)
+
+
+def test_path_tracer_card_matches_cpu(cuda):
+    """The path tracer (torch ops) on the card against the CPU on the same
+    injected samples (B=2, S=9, 32^2, spp (4, 2)), as chip_smoke.py holds
+    it: renders by bench_setup.hold_render (rel 1e-5, or where f32 is
+    ill-conditioned against float64; the card sums 3-term dot products in
+    another order than the CPU); the mixed loss rel 1e-5; its gradient for
+    pred within 1e-4 of the CPU's (normwise) and as close to float64 as
+    the CPU's; loss and gradient exactly 0 for pred equal to target."""
+    from svbrdf_tpu_torch import losses
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+
+    loss_fn = losses.make_loss_fn("mixed", "pathtracing")
+
+    def run(device, cast=lambda x: x):
+        pred, target, scenes, samples = bench_setup.pathtrace_inputs(
+            2, 32, (4, 2), device=device)
+        scenes = Scene(*map(cast, (scenes.camera_pos, scenes.light_pos,
+                                   scenes.light_color)))
+        samples = pt.RenderSamples(*(pt.Samples(*map(cast, s))
+                                     for s in samples))
+        pred, target = cast(pred), cast(target)
+        render = pt.render_mc(scenes, pred[:, None], samples)
+        p = pred.clone().requires_grad_()
+        loss = loss_fn(p, target, scenes=scenes, samples=samples)
+        loss.backward()
+        return (render.double().cpu(), float(loss.detach()),
+                p.grad.double().cpu())
+
+    (rc, lc, gc), (rp, lp, gp) = run("cuda"), run("cpu")
+    r64, _, g64 = run("cpu", lambda x: x.double())
+    pred, _, scenes, samples = bench_setup.pathtrace_inputs(2, 32, (4, 2),
+                                                            device="cpu")
+    bench_setup.hold_render(rc, rp, r64, bench_setup.render_conditioning(
+        scenes, pred[:, None], samples))
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    assert float((gc - gp).norm() / gp.norm()) <= 1e-4
+    assert float((gc - g64).norm() / g64.norm()) <= (
+        2 * float((gp - g64).norm() / g64.norm()) + 1e-5)
+
+    target = bench_setup.pathtrace_inputs(2, 32, (4, 2), device="cuda")[1]
+    p = target.clone().requires_grad_()
+    zero = loss_fn(p, target, torch.Generator(device=cuda).manual_seed(1))
+    zero.backward()
+    assert float(zero.detach()) == 0.0
+    assert int(torch.count_nonzero(p.grad)) == 0
+
+
+def test_path_traced_full_width_step(cuda):
+    """A full-width path-traced train step (single view, mixed loss, depth
+    8, 64 filters, 256^2, batch 8, bf16 with bf16-SR masters, spp (16, 8)):
+    a finite loss, no loss kernel launched, one sr_adam launch."""
+    from svbrdf_tpu_torch.ops import sr_adam
+
+    with torch.backends.cudnn.flags(allow_tf32=True):
+        program = bench_setup.build_program(
+            "single", "mixed", 8, 256, 8, 64, seed=0, device="cuda",
+            dtype=BF16, master_dtype="bf16sr", renderer="pathtracing")
+        for wrapper in rf.CUDA_WRAPPERS.values():
+            wrapper.launches = 0
+        sr_adam.sr_adam_multi_cuda.launches = 0
+        loss = float(program.train_step(program.raw))
+    assert math.isfinite(loss)
+    assert all(w.launches == 0 for w in rf.CUDA_WRAPPERS.values())
+    assert sr_adam.sr_adam_multi_cuda.launches == 1

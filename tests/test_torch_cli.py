@@ -272,13 +272,49 @@ def test_test_mode_needs_a_model(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--renderer", "pathtracing"], "item 12"),
     (["--num-devices", "2"], "item 14"),
     (["--shard-spatial", "2"], "item 15"),
 ])
 def test_unported_flags_raise_naming_their_item(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         main_mod.main(_train_args(tmp_path, *flag))
+
+
+def test_pathtracing_trains_resumes_and_tests(tmp_path):
+    """--renderer pathtracing (the path tracer's unfused losses): train 1
+    epoch, resume to 2, test mode on the checkpoint."""
+    model_dir = tmp_path / "model"
+    traced = ["--renderer", "pathtracing"]
+    first, out1 = _run(_train_args(model_dir, *traced, "--epochs", "1",
+                                   "--retrain"))
+    assert "Using renderer 'pathtracing'" in out1
+    assert first.steps == 1 and math.isfinite(first.last_loss)
+    resumed, out2 = _run(_train_args(model_dir, *traced, "--epochs", "2"))
+    assert "Restored epoch 0" in out2 and "Restored optimizer state" in out2
+    assert resumed.steps >= 1 and math.isfinite(resumed.last_loss)
+    losses = [v for _, v in read_scalars(str(model_dir / "logs"))["loss"]]
+    assert len(losses) == first.steps + resumed.steps
+    assert all(map(math.isfinite, losses))
+    written, out3 = _run(["--mode", "test", "--input-dir", TEST,
+                          "--image-count", "10", "--model-dir",
+                          str(model_dir)] + traced + SMALL)
+    assert len(written) == 1
+    summary = json.loads((model_dir / "test_outputs" /
+                          "metrics.json").read_text())
+    assert all(math.isfinite(v) for v in summary["mean"].values())
+
+
+def test_pathtracing_validates(tmp_path):
+    """--renderer pathtracing with a validation split: the eval step runs
+    the path-traced loss under no_grad."""
+    data = _maps_only(tmp_path / "maps", 101)
+    run, out = _run(_train_args(tmp_path / "m", "--renderer", "pathtracing",
+                                "--epochs", "1", "--retrain",
+                                input_dir=data, count="0"))
+    assert "Validation samples: 1." in out
+    assert run.validation_batches == 1
+    val = re.search(r"validation loss: (\S+)", out)
+    assert val and math.isfinite(float(val.group(1)))
 
 
 @pytest.fixture(scope="module")
