@@ -92,7 +92,26 @@ Phases, each raising (and so exiting non-zero) on any failure:
      step of phase 5, each epoch's validation pass ms (epoch 0 decodes the
      strips through the dataset's decode pool of worker processes, later
      epochs read its caches: epoch 0's median against epoch 1's), the
-     decode ms of one strip, the checkpoint's save ms and size.
+     decode ms of one strip, the checkpoint's save ms and size. Every run
+     passes --num-devices 1, so that the default (every visible card)
+     cannot change what it times;
+  8. data parallel (parallel/mesh, the data-parallel step), each run with
+     the launch counters set to 0 just before and read just after:
+       - the CLI's defaults (bf16, bf16-SR) at full width for 1 epoch on
+         phase 7's corpus: plain, then through the launcher
+         (`parallel/multihost --num-processes 1`, a world-1 NCCL group),
+         then plain again, dropout's generators reseeded alike: each
+         run's median ms a step and launches (mixed_fwdgrad and sr_adam
+         once a step), the launcher's final weights against the plain
+         runs' (bit-equal where the plain runs are);
+       - world 2 on the card (two cards over NCCL where there are two,
+         else both ranks on cuda:0 over gloo): the main path's program at
+         full width, global batch 8, 5 f32 steps (TF32 off, dropout off)
+         against world 1's (the first step's loss rel 1e-5, every step's
+         1e-4, the update normwise 5e-2: cuDNN's backward differs by
+         batch size, DP_TOL),
+         then 5 bf16-SR steps; the replicas bit-identical after each
+         (all-gathered checksums), each rank's launches, ms a step.
 The next-to-last line is the JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -842,27 +861,17 @@ def phase_agreement() -> dict:
 
 
 def _zero_counts() -> None:
-    from svbrdf_tpu_torch.ops import render_fused as rf
-    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.utils import bench_setup
 
-    for wrapper in rf.CUDA_WRAPPERS.values():
-        wrapper.launches = 0
-        for dtype in wrapper.launches_by_dtype:
-            wrapper.launches_by_dtype[dtype] = 0
-    sr_adam.sr_adam_multi_cuda.launches = 0
+    bench_setup.zero_launch_counts()
 
 
 def _counts() -> dict:
     """Every launch counter: each loss kernel's by planes dtype (the bf16
     instantiation as <kernel>_bf16), and sr_adam's."""
-    from svbrdf_tpu_torch.ops import render_fused as rf
-    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.utils import bench_setup
 
-    counts = {k + rf.PLANE_DTYPES[dtype]: n
-              for k, w in rf.CUDA_WRAPPERS.items()
-              for dtype, n in w.launches_by_dtype.items()}
-    counts["sr_adam"] = sr_adam.sr_adam_multi_cuda.launches
-    return counts
+    return bench_setup.launch_counts()
 
 
 @contextlib.contextmanager
@@ -1392,9 +1401,9 @@ def _host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def _cli(name: str, argv: list):
-    """main(argv) with every launch counter set to 0 just before and read
-    just after: (result, printout, counts)."""
+def _cli(name: str, argv: list, entry=None):
+    """main(argv) (or entry(argv)) with every launch counter set to 0 just
+    before and read just after: (result, printout, counts)."""
     from svbrdf_tpu_torch.main import main as cli_main
 
     torch.cuda.synchronize()
@@ -1402,7 +1411,7 @@ def _cli(name: str, argv: list):
     start = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        result = cli_main(argv)
+        result = (entry or cli_main)(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     counts = _counts()
@@ -1533,7 +1542,8 @@ def phase_cli(build_program_ms: dict) -> dict:
     per_epoch = math.ceil(math.ceil(CLI["samples"] * 0.99) / CLI["batch"])
     width = ["--image-size", str(CLI["size"]), "--model-depth",
              str(CLI["depth"]), "--num-filters", str(CLI["num_filters"]),
-             "--batch-size", str(CLI["batch"]), "--gpu-id", "0"]
+             "--batch-size", str(CLI["batch"]), "--gpu-id", "0",
+             "--num-devices", "1"]
     out = {"runs": {}}
     with tempfile.TemporaryDirectory() as tmp:
         root = pathlib.Path(tmp)
@@ -1703,6 +1713,290 @@ def phase_cli(build_program_ms: dict) -> dict:
     return out
 
 
+# The data-parallel phase: the global batch of the main path, 5 steps a run
+# of world size 2, and the spawned ranks' time limit (s).
+DP = {"steps": 5, "timeout": 600}
+# World 2 against world 1 (f32, TF32 off, dropout off) at full width: the
+# first step's loss rel (the CPU tests' 1e-5; the same weights and draws),
+# every step's, and the update theta_5 - theta_0 normwise. After the first
+# step the weights differ: cuDNN takes other backward algorithms at batch 4
+# than at 8, and Adam's first steps, about lr * sign(g), magnify the
+# difference where a gradient is near 0 (the update 1.2e-2-1.5e-2 on an
+# H100, the fifth loss up to 5.0e-6, where the CPU shows 1.6e-5 and
+# 1.3e-7). So the same run is also made at 32^2 (depth 5, 8 filters,
+# global batch 4) with cuDNN off, held at the CPU tests' tolerances: a
+# fault of the reduction or of the rows' draws cannot hide there under
+# cuDNN's choice of algorithm; and with cuDNN on at 32^2, printed beside
+# it.
+DP_TOL = {"loss_rel_first": 1e-5, "loss_rel": 1e-4, "update": 5e-2}
+DP_EXACT = {"batch": 4, "size": 32, "depth": 5, "num_filters": 8}
+DP_TOL_EXACT = {"loss_rel": 1e-5, "update": 1e-4}
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _max_abs(a, b) -> float:
+    """The largest difference between two lists of tensors (as f32)."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def _update_normwise(run, ref) -> float:
+    num = sum(float(((b - a) - (rb - ra)).double().norm() ** 2)
+              for a, b, ra, rb in zip(run["params0"], run["params"],
+                                      ref["params0"], ref["params"]))
+    den = sum(float((rb - ra).double().norm() ** 2)
+              for ra, rb in zip(ref["params0"], ref["params"]))
+    return (num / den) ** 0.5
+
+
+def _dp_launcher_runs(card: str) -> dict:
+    """The CLI's default run (bf16, bf16-SR masters, TF32 as torch sets
+    it) at full width for 1 epoch on phase 7's corpus: plain, through the
+    launcher at world size 1 (NCCL), plain again; the default generators
+    reseeded before each, so dropout draws alike. Each run's launches, its
+    median ms a step, and the final weights against the first plain
+    run's."""
+    from svbrdf_tpu_torch.parallel import multihost
+
+    per_epoch = math.ceil(math.ceil(CLI["samples"] * 0.99) / CLI["batch"])
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        data = _cli_dataset(root)
+
+        def train(name):
+            return ["--mode", "train", "--input-dir", str(data),
+                    "--image-count", "0", "--used-image-count", "1",
+                    "--loss", "mixed", "--save-frequency", "1",
+                    "--validation-frequency", "1", "--model-dir",
+                    str(root / name), "--image-size", str(CLI["size"]),
+                    "--model-depth", str(CLI["depth"]), "--num-filters",
+                    str(CLI["num_filters"]), "--batch-size",
+                    str(CLI["batch"]), "--epochs", "1", "--retrain",
+                    "--gpu-id", "0"]
+
+        runs = {}
+        for name, argv, entry in (
+                ("plain_a", train("plain_a") + ["--num-devices", "1"], None),
+                ("launcher_world1", ["--num-processes", "1", "--"]
+                 + train("launcher_world1"), multihost.main),
+                ("plain_b", train("plain_b") + ["--num-devices", "1"],
+                 None)):
+            torch.manual_seed(0)
+            with _tf32(True, False):
+                run, text, counts = _cli(f"dp {name}", argv, entry)
+            if (run.steps, run.validation_batches) != (per_epoch, 1):
+                raise RuntimeError(f"dp {name}: {run.steps} steps, "
+                                   f"{run.validation_batches} validation "
+                                   f"batches")
+            _expect(counts, {"mixed_fwdgrad_bf16": run.steps,
+                             "mixed_fwd_bf16": run.validation_batches,
+                             "sr_adam": run.steps * _sr_adam_launches(
+                                 run.model)}, f"dp {name}")
+            if entry is not None and ("process 0/1" not in text
+                                      or "over nccl" not in text):
+                raise RuntimeError("dp launcher: not a world-1 NCCL group")
+            runs[name] = run
+            out[name] = {"launches": counts,
+                         "step_ms_median": run.timer.median_ms(),
+                         "last_loss": run.last_loss}
+            shutil.rmtree(root / name)  # a checkpoint is ~1 GB
+    params = {k: [p.detach() for p in r.model.parameters()]
+              for k, r in runs.items()}
+    plain = _max_abs(params["plain_a"], params["plain_b"])
+    dist = _max_abs(params["launcher_world1"], params["plain_a"])
+    deterministic = plain == 0.0
+    # Bit-equal when the plain runs are; else no further from a plain run
+    # than twice the plain runs' own distance (three draws of one
+    # nondeterministic run: the third need not be the nearest).
+    if dist > 2 * plain:
+        raise RuntimeError(f"dp launcher: weights {dist} from the plain "
+                           f"run's, the plain runs {plain} apart")
+    out.update(weights_max_abs_launcher_vs_plain=dist,
+               weights_max_abs_plain_vs_plain=plain,
+               plain_runs_bit_equal=deterministic)
+    log(f"dp [{card}] CLI defaults (bf16, bf16-SR), 1 epoch, "
+        f"{per_epoch} steps: median ms a step plain "
+        f"{out['plain_a']['step_ms_median']:.2f}, launcher world 1 (NCCL) "
+        f"{out['launcher_world1']['step_ms_median']:.2f}, plain "
+        f"{out['plain_b']['step_ms_median']:.2f}; launcher launches "
+        f"{_nonzero(out['launcher_world1']['launches'])} (mixed_fwdgrad "
+        f"and sr_adam once a step, mixed_fwd once a validation batch)")
+    log(f"dp [{card}] final weights: launcher vs plain max abs {dist:g}, "
+        f"plain vs plain {plain:g} ("
+        + ("the plain runs are bit-equal: cuDNN ran deterministically"
+           if deterministic else "the plain runs differ: cuDNN's backward "
+           "ran nondeterministically") + ")")
+    return out
+
+
+def _dp_world_two(card: str) -> dict:
+    """World 2 on the card: two ranks (on two cards over NCCL where there
+    are two, else both on cuda:0 over gloo) run the main path's
+    data-parallel program (bench_setup.data_parallel_runs) at full width,
+    global batch 8 (4 a rank): 5 f32 steps (TF32 off, dropout off) held
+    against world 1's on the same global batch, then 5 bf16-SR steps;
+    the replicas bit-identical after each, and each rank's launches."""
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    program = dict(model_kind="single", loss_kind="mixed",
+                   batch=MAIN["batch"], size=MAIN["size"],
+                   depth=MAIN["depth"], num_filters=MAIN["num_filters"],
+                   seed=0, device="cuda")
+    bf16 = dict(program, dtype=BF16, master_dtype="bf16sr")
+    small = dict(program, **DP_EXACT)
+    steps = DP["steps"]
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    two, two_bf16, two_small_off, two_small_on = (
+        bench_setup.data_parallel_runs(
+            2, [((program, steps), {}), ((bf16, steps), {}),
+                ((small, steps), {"cudnn": False}), ((small, steps), {})],
+            backend, DP["timeout"]))
+    spawn_s = time.perf_counter() - start
+    exact = _dp_exact(two_small_off, two_small_on, steps)
+    group1, group1_bf16 = bench_setup.data_parallel_runs(
+        1, [((program, steps), {}), ((bf16, steps), {})], None,
+        DP["timeout"])
+    one = bench_setup.train_steps(program, steps)
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(two["losses"],
+                                                   one["losses"]))
+    rel_first = abs(two["losses"][0] - one["losses"][0]) / abs(
+        one["losses"][0])
+    update = _update_normwise(two, one)
+    for name, run, kernel in (("f32", two, "mixed_fwdgrad"),
+                              ("bf16-SR", two_bf16, "mixed_fwdgrad_bf16")):
+        if len(set(run["checksums"])) != 1:
+            raise RuntimeError(f"dp world 2 {name}: replicas differ")
+        want = {kernel: steps}
+        if run is two_bf16:
+            want["sr_adam"] = steps
+        for r, counts in enumerate(run["launches"]):
+            _expect(counts, want, f"dp world 2 {name} rank {r}")
+    if (rel_first > DP_TOL["loss_rel_first"] or rel > DP_TOL["loss_rel"]
+            or update > DP_TOL["update"]):
+        raise RuntimeError(f"dp world 2 f32: first loss rel {rel_first:g}, "
+                           f"loss rel {rel:g}, update normwise {update:g}, "
+                           f"over {DP_TOL}")
+    shared = backend == "gloo"
+    ms = {"world2_f32": statistics.median(two["step_ms"][1:]),
+          "world2_bf16sr": statistics.median(two_bf16["step_ms"][1:]),
+          "world1_nccl_f32": statistics.median(group1["step_ms"][1:]),
+          "world1_nccl_bf16sr": statistics.median(
+              group1_bf16["step_ms"][1:]),
+          "world1_f32": statistics.median(one["step_ms"][1:])}
+    reduce_ms = {"world2_f32": two["reduce_ms"],
+                 "world2_bf16sr": two_bf16["reduce_ms"],
+                 "world1_nccl_f32": group1["reduce_ms"],
+                 "world1_nccl_bf16sr": group1_bf16["reduce_ms"]}
+    rel1 = max(abs(a - b) / abs(b) for a, b in zip(group1["losses"],
+                                                    one["losses"]))
+    rel1_first = abs(group1["losses"][0] - one["losses"][0]) / abs(
+        one["losses"][0])
+    for name, run in (("f32", group1), ("bf16-SR", group1_bf16)):
+        kernel = "mixed_fwdgrad" if run is group1 else "mixed_fwdgrad_bf16"
+        want = {kernel: steps, **({"sr_adam": steps}
+                                  if run is group1_bf16 else {})}
+        _expect(run["launches"][0], want, f"dp world 1 nccl {name}")
+    if rel1_first > DP_TOL["loss_rel_first"] or rel1 > DP_TOL["loss_rel"]:
+        raise RuntimeError(f"dp world 1 (NCCL group) f32: first loss rel "
+                           f"{rel1_first:g}, loss rel {rel1:g}")
+    log(f"dp [{card}] world 2 over {backend} ({n_cards} card(s)"
+        + (", both ranks on cuda:0" if shared else "") + f"): f32 losses "
+        f"{[round(v, 6) for v in two['losses']]} vs world 1 "
+        f"{[round(v, 6) for v in one['losses']]}, loss rel first step "
+        f"{rel_first:.3g}, any step {rel:.3g}, "
+        f"update normwise {update:.3g}; replicas bit-identical after f32 "
+        f"and bf16-SR; launches per rank f32 "
+        f"{[_nonzero(c) for c in two['launches']]}, bf16-SR "
+        f"{[_nonzero(c) for c in two_bf16['launches']]}")
+    log(f"dp [{card}] ms a step (host clock, the loss fetched; median of "
+        f"steps 2-{steps}): world 2 f32 {ms['world2_f32']:.2f}, bf16-SR "
+        f"{ms['world2_bf16sr']:.2f}"
+        + (" (not a scaling number: both ranks share one card)"
+           if shared else "") + f"; world 1 NCCL group f32 "
+        f"{ms['world1_nccl_f32']:.2f}, bf16-SR "
+        f"{ms['world1_nccl_bf16sr']:.2f}; plain world 1 f32 "
+        f"{ms['world1_f32']:.2f}; the two ranks' run {spawn_s:.1f} s with "
+        f"their start")
+    log(f"dp [{card}] gradient all-reduce (reduce_gradients, host ms "
+        f"synced, median of 5): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in reduce_ms.items())
+        + f"; world 1 NCCL group f32 losses vs plain: rel {rel1:.3g}")
+    return {"backend": backend, "cards": n_cards, "shared_card": shared,
+            "losses": two["losses"], "losses_world1": one["losses"],
+            "loss_rel": rel, "loss_rel_first": rel_first,
+            "update_normwise": update, "step_ms": ms,
+            "reduce_ms": reduce_ms, "world1_nccl_loss_rel": rel1,
+            "launches": {"f32": two["launches"],
+                         "bf16sr": two_bf16["launches"]},
+            "small_32": exact, "spawn_and_run_s": spawn_s}
+
+
+def _dp_exact(two_off: dict, two_on: dict, steps: int) -> dict:
+    """World 2 at 32^2 (DP_EXACT) against world 1 on the card, with cuDNN
+    off (held at DP_TOL_EXACT, the CPU tests' tolerances) and on
+    (printed), f32, TF32 off, dropout off; the replicas bit-identical."""
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    small = dict(model_kind="single", loss_kind="mixed", seed=0,
+                 device="cuda", **DP_EXACT)
+    out = {}
+    for name, two, cudnn in (("cudnn_off", two_off, False),
+                             ("cudnn_on", two_on, True)):
+        one = bench_setup.train_steps(small, steps, cudnn=cudnn)
+        if len(set(two["checksums"])) != 1:
+            raise RuntimeError(f"dp world 2 32^2 {name}: replicas differ")
+        for r, counts in enumerate(two["launches"]):
+            _expect(counts, {"mixed_fwdgrad": steps},
+                    f"dp world 2 32^2 {name} rank {r}")
+        out[name] = {
+            "loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(two["losses"], one["losses"])),
+            "update_normwise": _update_normwise(two, one)}
+    off = out["cudnn_off"]
+    if (off["loss_rel"] > DP_TOL_EXACT["loss_rel"]
+            or off["update_normwise"] > DP_TOL_EXACT["update"]):
+        raise RuntimeError(f"dp world 2 32^2 cuDNN off: loss rel "
+                           f"{off['loss_rel']:g}, update normwise "
+                           f"{off['update_normwise']:g}, over "
+                           f"{DP_TOL_EXACT}")
+    log(f"dp world 2 at 32^2 (depth {DP_EXACT['depth']}, "
+        f"{DP_EXACT['num_filters']} filters, global batch "
+        f"{DP_EXACT['batch']}, f32) vs world 1, {steps} steps: cuDNN off "
+        f"loss rel {off['loss_rel']:.3g}, update normwise "
+        f"{off['update_normwise']:.3g} (held at {DP_TOL_EXACT}); cuDNN on "
+        f"loss rel {out['cudnn_on']['loss_rel']:.3g}, update normwise "
+        f"{out['cudnn_on']['update_normwise']:.3g}; replicas "
+        f"bit-identical")
+    return out
+
+
+def phase_data_parallel() -> dict:
+    """The data-parallel phase (parallel/mesh, the data-parallel step):
+    the launcher at world size 1, and world size 2 on the card."""
+    card = _card()
+    start = time.perf_counter()
+    out = {"card": card, "launcher": _dp_launcher_runs(card),
+           "world2": _dp_world_two(card)}
+    out["seconds"] = time.perf_counter() - start
+    log(f"dp phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it "
@@ -1764,6 +2058,19 @@ def main() -> None:
     counts.update(phase_bf16_calls(inputs_bf16))
     times = kernel_times(inputs, inputs_bf16, rates)
     cli = phase_cli(steps_ms)
+    dp = phase_data_parallel()
+    launcher = dp["launcher"]["launcher_world1"]["launches"]
+
+    def dp_launches(name):
+        """A kernel's launches on the data-parallel path: the launcher's
+        world-1 run, and each rank's of world 2 (f32, bf16-SR)."""
+        return {"launcher_world1": {k: v for k, v in launcher.items()
+                                    if k in (name, name + "_bf16")},
+                "world2_per_rank": {
+                    mode: [{k: v for k, v in c.items()
+                            if k in (name, name + "_bf16")} for c in runs]
+                    for mode, runs in dp["world2"]["launches"].items()}}
+
     kernels = []
     for k in KERNELS:
         path, calls = KERNEL_PATH[k]
@@ -1791,7 +2098,8 @@ def main() -> None:
             bf16_launches={p: counts[p][k + "_bf16"] for p in BF16_PATHS},
             cli_launches={run: {"f32": c["launches"][k],
                                 "bf16": c["launches"][k + "_bf16"]}
-                          for run, c in cli["runs"].items()}))
+                          for run, c in cli["runs"].items()},
+            data_parallel_launches=dp_launches(k)))
     # sr_adam: launches from the bf16-SR main path; the times of one whole
     # optimizer step of that path's model (one launch a step).
     main_step = optimizer["single_mixed_bf16"]
@@ -1815,11 +2123,13 @@ def main() -> None:
         issue_us=main_step["issue_us"],
         optimizer_step=optimizer, library_ms=None,
         cli_launches={run: c["launches"]["sr_adam"]
-                      for run, c in cli["runs"].items()}))
+                      for run, c in cli["runs"].items()},
+        data_parallel_launches=dp_launches("sr_adam")))
     steps_ms["agreement_bf16"] = agreement_bf16
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "steps_ms": steps_ms,
-                      "cli": cli, "pathtrace": traced}))
+                      "cli": cli, "pathtrace": traced,
+                      "data_parallel": dp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -13,8 +13,6 @@ import argparse
 
 # Unported features: (flag, predicate on its value, ROADMAP Queue 1 item).
 _NOT_PORTED = (
-    ("--num-devices > 1", lambda a: a.num_devices > 1,
-     "14 (multi-GPU data parallel)"),
     ("--shard-spatial > 0", lambda a: a.shard_spatial > 0,
      "15 (spatial H-sharding)"),
 )
@@ -116,8 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "rewrites are TPU layouts of one computation, which "
                         "the port runs as upsample + pad + conv.")
     p.add_argument("--num-devices", dest="num_devices", type=int, default=0,
-                   help="Devices to train on (0 = one); more than one is "
-                        "not ported yet.")
+                   help="Devices to train on, data parallel (0 = every "
+                        "visible card; the CPU is one device). N > 1 "
+                        "starts N local ranks, rank r on cuda:r (NCCL), "
+                        "or with --gpu-id -1 on the CPU (gloo); the batch "
+                        "size splits over the largest divisor that fits. "
+                        "More than the visible cards raises.")
     p.add_argument("--shard-spatial", dest="shard_spatial", type=int,
                    default=0,
                    help="Shard the image height over N devices; not ported "

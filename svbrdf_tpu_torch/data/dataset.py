@@ -15,15 +15,20 @@ prepares one item on the host, drawing from a torch.Generator seeded from
 
 Strips not in the caches are decoded ahead of use by a pool of worker
 processes (data/prefetch.py) running the port's own PNG decoder, where the
-JAX package's pool runs libpng in threads. Not ported: the per-host file
-shard of multi-host training.
+JAX package's pool runs libpng in threads.
+
+Data-parallel training: a rank of one --num-devices launch reads the whole
+corpus and asks raw_batch for its rows of each global batch (the host RNG
+draws for the whole batch, so it advances on every rank as on one device);
+a process of the launcher (parallel/multihost) reads its own file shard
+(shard_files_for_host) with its own seed, as the JAX package's processes do.
 """
 
 from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -53,13 +58,27 @@ class SvbrdfDataset:
                  mix_materials: bool = False, no_svbrdf: bool = False,
                  is_linear: bool = False, random_crop: bool = False,
                  seed: int = 313, use_native_prefetch: bool = True,
-                 prefetch_threads: int = 2, cache_bytes: int = 1 << 30):
+                 prefetch_threads: int = 2, cache_bytes: int = 1 << 30,
+                 process_index: int = 0, process_count: int = 1):
         """use_native_prefetch / prefetch_threads keep the JAX package's
         names: with it on, `prefetch` hands the strips not yet cached to a
         pool of `prefetch_threads` worker processes running the port's own
-        decoder (started at the first prefetch; `close` stops them)."""
+        decoder (started at the first prefetch; `close` stops them).
+
+        With process_count > 1 (the launcher's processes, JAX's
+        shard_across_hosts) the dataset is process `process_index`'s file
+        shard, and its host RNG is seeded with seed * 1000 +
+        process_index, so processes draw independent partners."""
         self.data_directory = data_directory
         self.file_paths: List[str] = strips.list_sample_files(data_directory)
+        self.global_file_count = len(self.file_paths)
+        if process_count > 1:
+            self.file_paths = shard_files_for_host(
+                self.file_paths, process_index, process_count)
+            seed = seed * 1000 + process_index
+            print(f"Host {process_index}/{process_count}: "
+                  f"{len(self.file_paths)} of {self.global_file_count} "
+                  f"files")
         self.image_size = image_size
         self.scale_mode = scale_mode
         self.input_image_count = input_image_count
@@ -231,9 +250,28 @@ class SvbrdfDataset:
             generator=self._generator)
         return {"inputs": x[0].numpy(), "svbrdf": sv[0].numpy()}
 
-    def raw_batch(self, indices) -> Dict[str, np.ndarray]:
+    def draw_partners(self, n: int) -> List[int]:
+        """The mixing partners of n samples, drawn from the host RNG."""
+        return [int(self._host_rng.integers(0, len(self))) for _ in range(n)]
+
+    def skip_batch(self, indices) -> None:
+        """Advance the host RNG as raw_batch(indices) would, decoding
+        nothing (a data-parallel rank that leaves a batch to another)."""
+        if self.scale_mode == "crop" and self.random_crop:
+            raise ValueError("skipping a random-crop batch: its host RNG "
+                             "draws depend on every strip's decode")
+        if self.mix_materials:
+            self.draw_partners(len(indices))
+
+    def raw_batch(self, indices,
+                  rows: Optional[slice] = None) -> Dict[str, np.ndarray]:
         """Stack scaled raw samples (+ a mixing partner per sample, drawn
-        from the host RNG) for preparation on the device."""
+        from the host RNG) for preparation on the device.
+
+        With `rows`, only those rows of the batch (a data-parallel rank's):
+        the partners are drawn for every index, so the host RNG advances as
+        for the whole batch, and only the rows and their partners are
+        decoded."""
         indices = [int(i) for i in indices]
         drawn = None
         if self.mix_materials and not (self.scale_mode == "crop"
@@ -241,8 +279,14 @@ class SvbrdfDataset:
             # No crop anchor draws from the host RNG, so the partners are
             # drawn first (the same draws in the same order) and the pool
             # decodes them beside the batch's own samples.
-            drawn = [int(self._host_rng.integers(0, len(self)))
-                     for _ in indices]
+            drawn = self.draw_partners(len(indices))
+        if rows is not None:
+            if self.scale_mode == "crop" and self.random_crop:
+                raise ValueError("rows of a random-crop batch: its host RNG "
+                                 "draws depend on every strip's decode")
+            indices = indices[rows]
+            drawn = drawn[rows] if drawn is not None else None
+        if drawn is not None:
             self.prefetch(drawn)
         inputs, svbrdfs, partners = [], [], []
         for n, i in enumerate(indices):
@@ -260,6 +304,14 @@ class SvbrdfDataset:
         if self.mix_materials:
             batch["partner_svbrdf"] = np.stack(partners)
         return batch
+
+
+def shard_files_for_host(paths, process_index: int,
+                         process_count: int) -> List[str]:
+    """Process `process_index`'s shard of a file list for the launcher's
+    data-parallel training: the sorted files, round-robin by index."""
+    return [p for i, p in enumerate(sorted(paths))
+            if i % process_count == process_index]
 
 
 def split_train_validation(dataset_len: int, validation_split: float = 0.01,

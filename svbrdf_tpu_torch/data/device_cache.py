@@ -14,7 +14,7 @@ and its K-step gather serves the lax.scan program; neither is ported.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -70,15 +70,23 @@ class DeviceDataCache:
         idx = torch.from_numpy(np.asarray(indices, np.int64)).to(self.device)
         return torch.index_select(self._store[key], 0, idx)
 
-    def raw_batch(self, indices) -> Dict[str, torch.Tensor]:
+    def raw_batch(self, indices,
+                  rows: Optional[slice] = None) -> Dict[str, torch.Tensor]:
         """On-device uint8 batch (+ mixing partners when the dataset
-        mixes), shaped as SvbrdfDataset.raw_batch's host arrays."""
-        batch = {k: self._gather(k, indices) for k in self._store}
+        mixes), shaped as SvbrdfDataset.raw_batch's host arrays; with
+        `rows`, those rows of it (the partners drawn for every index, as
+        SvbrdfDataset.raw_batch draws them)."""
+        indices = list(indices)
+        partners = None
         if self._dataset.mix_materials:
             # One host-RNG draw per sample, as SvbrdfDataset.raw_batch
             # makes them: the cached and host pipelines give the same
             # partners for the same seed.
-            partners = [self._dataset._host_rng.integers(0, len(self))
-                        for _ in range(len(indices))]
+            partners = self._dataset.draw_partners(len(indices))
+        if rows is not None:
+            indices = indices[rows]
+            partners = partners[rows] if partners is not None else None
+        batch = {k: self._gather(k, indices) for k in self._store}
+        if partners is not None:
             batch["partner_svbrdf"] = self._gather("svbrdf", partners)
         return batch

@@ -4,7 +4,9 @@ gamma.
 Counterpart of svbrdf_tpu/data/pipeline.py (spatial target only). Every
 random draw comes from the `generator` argument, on the batch's device, and
 each can instead be passed in (alphas, input scenes, noise std, noise) so
-that tests can give both frameworks the same numbers. The scaling functions
+that tests can give both frameworks the same numbers, and a data-parallel
+rank its rows of the global batch's draws (draw_prepare_inputs). The
+scaling functions
 at the end (center crop, bilinear resize, scale_sample) fit samples to the
 model's size on the host, for the dataset's float path.
 """
@@ -96,6 +98,40 @@ def generate_input_scenes(batch: int, count: int, use_augmentation: bool = True,
     return Scene(view_pos, light_pos, light_color)
 
 
+def _draw_alphas(batch: int, generator, device) -> torch.Tensor:
+    """Mixing weights (B,) ~ U(0.1, 0.9)."""
+    return 0.1 + 0.8 * torch.rand(batch, generator=generator, device=device)
+
+
+def _draw_noise_std(batch: int, count: int, generator,
+                    device) -> torch.Tensor:
+    """Per-photo noise std (B, count, 1, 1, 1), log-normal around 0.005."""
+    return torch.exp(math.log(0.005) + 0.3 * torch.randn(
+        (batch, count, 1, 1, 1), generator=generator, device=device))
+
+
+def draw_prepare_inputs(batch: int, n_read: int, height: int, width: int,
+                        used_input_image_count: int, use_augmentation: bool,
+                        mix: bool, *, generator: torch.Generator,
+                        device=None) -> dict:
+    """What prepare_batch draws from `generator` for `batch` items with
+    `n_read` photos read of height x width (alphas when `mix`, then the
+    synthesis' scenes, noise std and noise for the missing photos), in its
+    order, as the keyword arguments that hand prepare_batch those draws."""
+    draws = {}
+    if mix:
+        draws["alphas"] = _draw_alphas(batch, generator, device)
+    count = used_input_image_count - n_read
+    if count > 0:
+        draws["scenes"] = generate_input_scenes(
+            batch, count, use_augmentation, generator=generator,
+            device=device)
+        draws["noise_std"] = _draw_noise_std(batch, count, generator, device)
+        draws["noise"] = torch.randn((batch, count, height, width, 3),
+                                     generator=generator, device=device)
+    return draws
+
+
 def synthesize_inputs(svbrdf: torch.Tensor, count: int,
                       use_augmentation: bool = True, *,
                       generator: torch.Generator = None, scenes: Scene = None,
@@ -113,8 +149,7 @@ def synthesize_inputs(svbrdf: torch.Tensor, count: int,
                                        generator=generator, device=dev)
     renders = render.render(scenes, svbrdf[:, None])
     if noise_std is None:
-        noise_std = torch.exp(math.log(0.005) + 0.3 * torch.randn(
-            (batch, count, 1, 1, 1), generator=generator, device=dev))
+        noise_std = _draw_noise_std(batch, count, generator, dev)
     if noise is None:
         noise = torch.randn(renders.shape, generator=generator, device=dev)
     return torch.clamp(renders + noise_std * noise, 0.0, 1.0)
@@ -158,9 +193,8 @@ def prepare_batch(raw_inputs: torch.Tensor, raw_svbrdfs: torch.Tensor,
         if partner_svbrdfs.dtype == torch.uint8:
             partner_svbrdfs = _decode_u8_svbrdf(partner_svbrdfs)
         if alphas is None:
-            alphas = 0.1 + 0.8 * torch.rand(
-                raw_svbrdfs.shape[0], generator=generator,
-                device=raw_svbrdfs.device)
+            alphas = _draw_alphas(raw_svbrdfs.shape[0], generator,
+                                  raw_svbrdfs.device)
         raw_svbrdfs = mix_materials(raw_svbrdfs, partner_svbrdfs,
                                     alphas.reshape(-1, 1, 1, 1))
     inputs, svbrdfs = prepare_sample(

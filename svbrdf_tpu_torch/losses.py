@@ -109,7 +109,7 @@ def to_planes(svbrdf: torch.Tensor) -> torch.Tensor:
 
 
 def make_loss_fn(kind: str = "mixed", renderer: str = "local",
-                 l1_weight: float = 0.1):
+                 l1_weight: float = 0.1, spp=(16, 8)):
     """Build loss_fn(pred, target, generator=None, scenes=None) -> scalar.
 
     pred/target are NHWC (B, H, W, 12). The rendering terms draw 3 random
@@ -119,11 +119,12 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
     CUDA tensors, their plain versions for CPU tensors; the target is cast
     to pred's dtype (f32 or bf16 planes) and gets no gradient. With the
     path tracer (renderer "pathtracing") they are the unfused
-    rendering_loss / mixed_loss over ops/pathtrace.make_render_fn() (16
-    forward, 8 backward samples), as in the JAX package: the generator
+    rendering_loss / mixed_loss over ops/pathtrace.make_render_fn(spp)
+    (16 forward, 8 backward samples), as in the JAX package: the generator
     draws the scenes, then the render samples, unless the loss fn is given
     `samples=` (pathtrace.RenderSamples); the target keeps its dtype.
-    kind "l1" is plain.
+    kind "l1" is plain. The fn's `draws` names what it draws, in order
+    (draw_loss_inputs), and a path-traced fn's `spp` its samples.
     """
     if renderer not in ("local", "pathtracing"):
         raise ValueError(f"unknown renderer {renderer!r}")
@@ -131,6 +132,7 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
         def l1_fn(pred, target, generator=None, scenes=None):
             return svbrdf_l1_loss(pred, target)
 
+        l1_fn.draws = ()
         return l1_fn
 
     def draw(pred, generator, scenes):
@@ -143,7 +145,7 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
     if kind not in ("rendering", "mixed"):
         raise ValueError(f"unknown loss kind {kind!r}")
     if renderer == "pathtracing":
-        render_fn = pathtrace.make_render_fn()
+        render_fn = pathtrace.make_render_fn(spp)
         weight = None if kind == "rendering" else l1_weight
 
         def traced_fn(pred, target, generator=None, scenes=None,
@@ -155,6 +157,8 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
             return mixed_loss(pred, target, scenes, weight, render_fn,
                               generator, samples)
 
+        traced_fn.draws = ("scenes", "samples")
+        traced_fn.spp = tuple(spp)
         return traced_fn
     if kind == "rendering":
         def rendering_fn(pred, target, generator=None, scenes=None):
@@ -162,6 +166,7 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
                 to_planes(pred), to_planes(target.to(pred.dtype)),
                 draw(pred, generator, scenes))
 
+        rendering_fn.draws = ("scenes",)
         return rendering_fn
 
     def mixed_fn(pred, target, generator=None, scenes=None):
@@ -169,4 +174,28 @@ def make_loss_fn(kind: str = "mixed", renderer: str = "local",
             to_planes(pred), to_planes(target.to(pred.dtype)),
             draw(pred, generator, scenes), l1_weight)
 
+    mixed_fn.draws = ("scenes",)
     return mixed_fn
+
+
+def draw_loss_inputs(loss_fn, batch: int, height: int, width: int,
+                     generator: torch.Generator, device=None, scenes=None,
+                     samples=None) -> dict:
+    """What a make_loss_fn loss draws from `generator` for `batch` items of
+    height x width (loss_fn.draws: the scenes, then a path-traced loss's
+    render samples), in its order, as the keyword arguments that hand the
+    loss those draws; `scenes` or `samples` given are kept, not drawn."""
+    draws = {}
+    if "scenes" in loss_fn.draws:
+        draws["scenes"] = scenes if scenes is not None else (
+            sampling.generate_loss_scenes(batch, N_RANDOM_SCENES,
+                                          N_SPECULAR_SCENES,
+                                          generator=generator,
+                                          device=device))
+    if "samples" in loss_fn.draws:
+        draws["samples"] = samples if samples is not None else (
+            pathtrace.draw_render_samples(
+                generator, loss_fn.spp,
+                (batch, N_RANDOM_SCENES + N_SPECULAR_SCENES), height, width,
+                device))
+    return draws

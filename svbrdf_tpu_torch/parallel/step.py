@@ -1,10 +1,12 @@
 """Train, eval and predict steps.
 
-Counterpart of svbrdf_tpu/parallel/step.py on one device: on-device batch
-preparation -> model -> loss -> backward -> Adam. PyTorch runs eagerly, so
-a step is a plain callable; the random draws of preparation and of the loss
-scenes come from the step's torch.Generator, and dropout from torch's
-default generator of the device.
+Counterpart of svbrdf_tpu/parallel/step.py: on-device batch preparation
+-> model -> loss -> backward -> Adam. PyTorch runs eagerly, so a step is a
+plain callable; the random draws of preparation and of the loss scenes come
+from the step's torch.Generator, and dropout from torch's default generator
+of the device. On one device that is TrainStep; on a rank of a data group
+(parallel/mesh), DataParallelTrainStep, which runs the step one device runs
+on the same global batch, the order of the gradient reduction aside.
 
 Precision, as in the JAX package: a model computing in bf16 (its
 `compute_dtype`) gets its prepared inputs and its f32 maps cast to bf16 at
@@ -22,9 +24,14 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from svbrdf_tpu_torch import losses
 from svbrdf_tpu_torch.data import pipeline
+from svbrdf_tpu_torch.ops.pathtrace import RenderSamples, Samples
+from svbrdf_tpu_torch.parallel import mesh
 from svbrdf_tpu_torch.parallel.optimizer import AdamBf16SR
+from svbrdf_tpu_torch.scene import Scene
 
 
 class PrepConfig(NamedTuple):
@@ -37,15 +44,72 @@ class PrepConfig(NamedTuple):
 
 
 def prepare(raw_batch: dict, prep: PrepConfig,
-            generator: torch.Generator) -> dict:
+            generator: Optional[torch.Generator], **draws) -> dict:
     """Run pipeline.prepare_batch on a raw batch {'inputs', 'svbrdf'[,
-    'partner_svbrdf']} of tensors on the device."""
+    'partner_svbrdf']} of tensors on the device; `draws` (as
+    pipeline.draw_prepare_inputs makes them) instead of the generator's."""
     return pipeline.prepare_batch(
         raw_batch["inputs"], raw_batch["svbrdf"],
-        raw_batch.get("partner_svbrdf") if prep.mix_materials else None,
+        _partners(raw_batch, prep),
         used_input_image_count=prep.used_input_image_count,
         use_augmentation=prep.use_augmentation, is_linear=prep.is_linear,
-        generator=generator)
+        generator=generator, **draws)
+
+
+def _partners(raw_batch: dict, prep: PrepConfig):
+    return raw_batch.get("partner_svbrdf") if prep.mix_materials else None
+
+
+def _rows(value, lo: int, hi: int):
+    """Rows lo:hi of a draw for a batch: a tensor's, a Scene's fields', or
+    path-tracer samples' (the offsets' batch axis is their second)."""
+    if isinstance(value, Scene):
+        return Scene(*(f[lo:hi] for f in (value.camera_pos, value.light_pos,
+                                          value.light_color)))
+    if isinstance(value, RenderSamples):
+        return RenderSamples(*(Samples(s.offsets[:, lo:hi], s.shift[lo:hi])
+                               for s in value))
+    return value[lo:hi]
+
+
+def _span(n_rows: int, group) -> tuple:
+    """(lo, hi, total): rank group.rank's n_rows rows of the global batch
+    of world * n_rows items."""
+    lo = group.rank * n_rows
+    return lo, lo + n_rows, n_rows * group.world
+
+
+def prepare_rows(raw_rows: dict, prep: PrepConfig,
+                 generator: torch.Generator, group) -> tuple:
+    """Prepare this rank's rows of a global batch: the draws are made for
+    the whole batch (pipeline.draw_prepare_inputs, so `generator` advances
+    as one device's would) and the rank keeps its rows. Returns (prepared
+    rows, their span as _span gives it)."""
+    svbrdf = raw_rows["svbrdf"]
+    span = _span(svbrdf.shape[0], group)
+    draws = pipeline.draw_prepare_inputs(
+        span[2], raw_rows["inputs"].shape[1], svbrdf.shape[1],
+        svbrdf.shape[2], prep.used_input_image_count, prep.use_augmentation,
+        _partners(raw_rows, prep) is not None, generator=generator,
+        device=svbrdf.device)
+    batch = prepare(raw_rows, prep, None,
+                    **{k: _rows(v, *span[:2]) for k, v in draws.items()})
+    return batch, span
+
+
+def loss_rows(loss_fn: Callable, pred: torch.Tensor, target: torch.Tensor,
+              generator: torch.Generator, span: tuple, scenes=None,
+              samples=None) -> torch.Tensor:
+    """The loss of this rank's rows (the mean over them): its draws made
+    for the global batch of span[2] items (losses.draw_loss_inputs; given
+    scenes or samples are the global batch's) and cut to the rank's
+    rows."""
+    lo, hi, total = span
+    draws = losses.draw_loss_inputs(loss_fn, total, pred.shape[1],
+                                    pred.shape[2], generator, pred.device,
+                                    scenes, samples)
+    return loss_fn(pred, target, generator,
+                   **{k: _rows(v, lo, hi) for k, v in draws.items()})
 
 
 def compute_dtype(model) -> torch.dtype:
@@ -199,9 +263,118 @@ class TrainStep:
                            step=step)
 
 
+# Entropy word of the dropout streams of ranks > 0.
+_DROPOUT_STREAM = 23
+
+
+def seed_dropout(seed: int, rank: int) -> None:
+    """Give rank `rank` > 0 dropout masks of its own: torch's default
+    generators (the CPU's and every card's) reseeded from (seed, rank).
+    Every process starts them from the same default seed, so unseeded
+    ranks would draw the same masks for their rows. Rank 0 keeps what one
+    device does."""
+    if rank > 0:
+        torch.manual_seed(stream_seed(seed, rank, _DROPOUT_STREAM))
+
+
+@torch.no_grad()
+def reduce_gradients(params, loss: torch.Tensor, group) -> torch.Tensor:
+    """Average the gradients of `params` (those that have one) and `loss`
+    over the data group in place: one all-reduce per gradient dtype, in
+    that dtype (a bf16 master's gradient in bf16, as the JAX step reduces
+    its gradient tree in the leaves' dtypes; the loss with the f32 ones),
+    each rank's share scaled by 1 / world before the sum, as DDP scales it.
+    Every rank receives the same sums. Returns the group's mean loss."""
+    loss = loss.detach().float().reshape(1)
+    by_dtype = {torch.float32: [loss]}
+    for p in params:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for tensors in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        flat.mul_(1.0 / group.world)
+        dist.all_reduce(flat)
+        torch._foreach_copy_(tensors, [
+            part.view_as(t) for part, t in zip(
+                flat.split([t.numel() for t in tensors]), tensors)])
+    return loss[0]
+
+
+class DataParallelTrainStep(TrainStep):
+    """TrainStep on one rank of a data group (parallel/mesh.DataGroup):
+    world size N runs the step world size 1 runs on the same global batch,
+    the order of the gradient reduction aside.
+
+    The raw batch it is given is this rank's rows of the global batch
+    (world x rows items; rank r holds rows r * rows .. (r + 1) * rows - 1).
+    Every draw of the step (mixing alphas, the synthesized photos' scenes
+    and noise, the loss scenes, the path tracer's samples) is made for the
+    global batch from the step's generator, seeded alike on every rank, in
+    TrainStep's order, and the rank keeps its rows (prepare_rows,
+    loss_rows). Each rank's loss is the mean over its rows; after the
+    backward reduce_gradients averages the gradients and the loss over the
+    group, so every rank applies the same update with the same master salt
+    and the replicas stay bit-identical.
+
+    The gradients are reduced by one explicit all-reduce per dtype after
+    the backward, not by DistributedDataParallel: the models hold
+    parameters their forward never reads (enc1's merge, the single-view
+    model's last global-track stage), on which DDP without
+    find_unused_parameters raises at the second step, and with it walks
+    the graph every step; the JAX step, too, reduces its gradient tree once
+    after the backward; and the .grad tensors stay the ones autograd made
+    (not views into DDP's buckets), so sr_adam's launch plan and its one
+    launch a step are as on one device.
+
+    At construction the weights, buffers and optimizer state are broadcast
+    from rank 0 (mesh.replicate_tree) and ranks > 0 reseed dropout
+    (seed_dropout). update() and __call__ return the group's mean loss."""
+
+    def __init__(self, model, optimizer, loss_fn: Callable, prep: PrepConfig,
+                 generator: torch.Generator, group, seed: int = 0):
+        super().__init__(model, optimizer, loss_fn, prep, generator, seed)
+        self.group = group
+        self.params = list(model.parameters())
+        mesh.replicate_tree(
+            self.params + list(model.buffers())
+            + [v for state in optimizer.state.values()
+               for v in state.values() if isinstance(v, torch.Tensor)],
+            group)
+        seed_dropout(seed, group.rank)
+
+    def update(self, batch: dict, scenes=None, step: Optional[int] = None,
+               samples=None, span: Optional[tuple] = None) -> torch.Tensor:
+        """A step on this rank's prepared rows; `scenes` / `samples`, if
+        given, are the global batch's loss draws."""
+        step = self.step_index + 1 if step is None else step
+        if span is None:
+            span = _span(batch["svbrdf"].shape[0], self.group)
+        pred = self.forward(batch["inputs"])
+        loss = loss_rows(self.loss_fn, pred, batch["svbrdf"], self.generator,
+                         span, scenes, samples)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        loss = reduce_gradients(self.params, loss, self.group)
+        self.apply_gradients(step)
+        self.step_index = step
+        return loss
+
+    def __call__(self, raw_batch: dict,
+                 step: Optional[int] = None) -> torch.Tensor:
+        batch, span = prepare_rows(raw_batch, self.prep, self.generator,
+                                   self.group)
+        return self.update(batch, step=step, span=span)
+
+
 def make_train_step(model, optimizer, loss_fn: Callable, prep: PrepConfig,
-                    generator: torch.Generator, seed: int = 0) -> TrainStep:
-    return TrainStep(model, optimizer, loss_fn, prep, generator, seed)
+                    generator: torch.Generator, seed: int = 0,
+                    group=None) -> TrainStep:
+    """A TrainStep, or with a data group (parallel/mesh.DataGroup) a
+    DataParallelTrainStep."""
+    if group is None:
+        return TrainStep(model, optimizer, loss_fn, prep, generator, seed)
+    return DataParallelTrainStep(model, optimizer, loss_fn, prep, generator,
+                                 group, seed)
 
 
 @contextmanager
@@ -217,17 +390,29 @@ def _eval_mode(model):
 
 
 def make_eval_step(model, loss_fn: Callable, prep: PrepConfig,
-                   generator: torch.Generator):
+                   generator: torch.Generator, group=None):
     """Validation step: eval(raw_batch, scenes=None) -> loss with dropout
     off, the same loss, value only (under no_grad the value-only kernel
-    runs); a bf16 model's inputs and maps cast as in TrainStep."""
+    runs); a bf16 model's inputs and maps cast as in TrainStep.
+
+    With a data group the raw batch is this rank's rows of a global batch,
+    drawn for as DataParallelTrainStep draws (scenes given are the global
+    batch's), and the loss is the mean over the rank's rows; it runs no
+    collective."""
     dt = compute_dtype(model)
 
     def eval_step(raw_batch: dict, scenes=None) -> torch.Tensor:
         with torch.no_grad(), _eval_mode(model):
-            batch = prepare(raw_batch, prep, generator)
+            if group is None:
+                batch = prepare(raw_batch, prep, generator)
+            else:
+                batch, span = prepare_rows(raw_batch, prep, generator, group)
             pred = model(batch["inputs"].to(dt)).to(dt)
-            return loss_fn(pred, batch["svbrdf"], generator, scenes=scenes)
+            if group is None:
+                return loss_fn(pred, batch["svbrdf"], generator,
+                               scenes=scenes)
+            return loss_rows(loss_fn, pred, batch["svbrdf"], generator, span,
+                             scenes)
 
     return eval_step
 

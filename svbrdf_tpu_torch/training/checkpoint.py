@@ -13,7 +13,8 @@ Checkpoint.load picks the file up from a model directory and ports the
 weights. The restored architecture arguments override the CLI; loading is
 optional (a missing checkpoint is an error only in test mode). A legacy
 bare `model.data` state dict, with an optional `state.json` holding the
-epoch, is read too.
+epoch, is read too. In data-parallel training rank 0 writes the file and
+the other ranks wait for it at a barrier; every rank restores.
 
 Restoring across precisions: the weights load into an f32 model, which the
 trainer then casts to its master dtypes (parallel/step.master_cast); Adam's
@@ -30,6 +31,8 @@ import pathlib
 from typing import Any, Dict, Optional
 
 import torch
+
+from svbrdf_tpu_torch.parallel import mesh
 
 CHECKPOINT_FILE = "checkpoint.tar"
 LEGACY_FILE = "model.data"
@@ -95,10 +98,16 @@ class Checkpoint:
     def save(model_dir, model, optimizer, epoch: int, model_type: str,
              use_coords: bool, omit_optimizer_state: bool = False,
              model_depth: int = 8, num_filters: int = 64,
-             master_dtype: Optional[str] = None) -> pathlib.Path:
+             master_dtype: Optional[str] = None,
+             group=None) -> pathlib.Path:
         """Write <model_dir>/checkpoint.tar, the weights in f32; returns
-        its path."""
+        its path. With a data group (parallel/mesh.DataGroup) rank 0 writes
+        it and every rank returns once it is written."""
         d = pathlib.Path(model_dir)
+        path = d / CHECKPOINT_FILE
+        if group is not None and not group.is_main:
+            mesh.sync_hosts(group, "checkpoint_saved")
+            return path
         d.mkdir(parents=True, exist_ok=True)
         weights = {k: v.float() if v.is_floating_point() else v
                    for k, v in model.state_dict().items()}
@@ -110,12 +119,12 @@ class Checkpoint:
         blob["num_filters"] = int(num_filters)
         if master_dtype is not None:
             blob["master_dtype"] = master_dtype
-        path = d / CHECKPOINT_FILE
         # Written beside and renamed, so a run killed mid-save keeps the
         # previous checkpoint.
         tmp = path.with_suffix(".tar.tmp")
         torch.save(blob, tmp)
         tmp.replace(path)
+        mesh.sync_hosts(group, "checkpoint_saved")
         return path
 
     # -- queries / selective restore ------------------------------------

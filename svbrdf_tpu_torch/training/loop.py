@@ -21,9 +21,18 @@ record, else SVBRDF_MASTER_DTYPE) picks the master-dtype policy for the
 run (parallel/step.master_dtype_scope), and the checkpoint records the
 policy in force.
 
-Not ported: the multi-device and multi-host branches (ROADMAP Queue 1 item
-14), the lax.scan chunk programs (the port dispatches each step) and AOT
-compilation (TPU mechanisms).
+Data parallel (run_training's `group`, a parallel/mesh.DataGroup): every
+rank trains a replica through parallel/step.DataParallelTrainStep. Ranks of
+one --num-devices launch (process_count 1) read the whole corpus and feed
+their rows of each global batch, so the run is world size 1's on the same
+global batches; the launcher's processes (process_count = world) read their
+own file shards and wrap their local orders to one step count, as the JAX
+package's processes do. Rank 0 alone writes the logs and the checkpoint;
+validation sums are reduced over the group, so every rank logs the same
+val_loss; in test mode rank 0 alone predicts.
+
+Not ported: the lax.scan chunk programs (the port dispatches each step) and
+AOT compilation (TPU mechanisms).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from __future__ import annotations
 import math
 import pathlib
 import shutil
+import warnings
 from contextlib import ExitStack, nullcontext
 from dataclasses import dataclass
 from typing import Optional
@@ -46,6 +56,7 @@ from svbrdf_tpu_torch.data.dataset import (SvbrdfDataset,
 from svbrdf_tpu_torch.data.device_cache import DeviceDataCache
 from svbrdf_tpu_torch.device import precision_scope, resolve_device
 from svbrdf_tpu_torch.models import build_model
+from svbrdf_tpu_torch.parallel import mesh as mesh_lib
 from svbrdf_tpu_torch.parallel import step as step_lib
 from svbrdf_tpu_torch.parallel.step import (PrepConfig, make_eval_step,
                                             make_optimizer, make_predict_fn,
@@ -88,7 +99,9 @@ class TrainingRun:
     optimizer: torch.optim.Optimizer
 
 
-def _build_dataset(args, mode: str) -> SvbrdfDataset:
+def _build_dataset(args, mode: str, group=None) -> SvbrdfDataset:
+    # The launcher's processes each read their own file shard in training.
+    sharded = mode == "train" and group is not None
     return SvbrdfDataset(
         data_directory=args.input_dir,
         image_size=args.image_size,
@@ -100,7 +113,55 @@ def _build_dataset(args, mode: str) -> SvbrdfDataset:
         no_svbrdf=args.no_svbrdf_input,
         is_linear=args.linear_input,
         seed=args.seed,
+        process_index=group.process_index if sharded else 0,
+        process_count=group.process_count if sharded else 1,
     )
+
+
+class _NullWriter:
+    """No-op SummaryWriter for ranks other than 0 (one writer per run)."""
+
+    def add_scalar(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
+def _mesh_size_for_batch(batch_size: int, n_available: int) -> int:
+    """Largest divisor of batch_size that fits the available devices
+    (batches split evenly across the ranks)."""
+    return max(d for d in range(1, n_available + 1) if batch_size % d == 0)
+
+
+def _make_training_mesh(batch_size: int, n_avail: int,
+                        device_type: str = "cuda",
+                        available: Optional[int] = None) -> int:
+    """The data group's size: the largest divisor of the batch size that
+    fits n_avail devices, more than `available` refused (mesh.make_mesh);
+    warns loudly when that idles devices (an invisible throughput loss)."""
+    mesh_lib.make_mesh(n_avail, device_type, available)
+    mesh_size = _mesh_size_for_batch(batch_size, n_avail)
+    if mesh_size < n_avail:
+        warnings.warn(
+            f"batch size {batch_size} is not divisible by {n_avail} "
+            f"devices; using a {mesh_size}-device mesh and IDLING "
+            f"{n_avail - mesh_size} device(s). Pick a batch size "
+            f"divisible by the device count to use the full slice.",
+            stacklevel=2)
+    return mesh_size
+
+
+def training_world(args, device) -> int:
+    """The ranks a train run from one command takes: --num-devices (0:
+    every visible card; the CPU counts as one device), refused beyond the
+    visible cards, cut to the largest divisor of the batch size."""
+    if torch.device(device).type == "cpu":
+        return _make_training_mesh(args.batch_size,
+                                   max(1, args.num_devices), "cpu")
+    visible = torch.cuda.device_count()
+    return _make_training_mesh(args.batch_size,
+                               args.num_devices or visible, "cuda", visible)
 
 
 def _loss_kind(name: str) -> str:
@@ -154,52 +215,101 @@ def _to_device(raw: dict, device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in raw.items()}
 
 
+def _raw_batch(source, indices, rows):
+    """source.raw_batch of `indices`, or of their `rows` (a rank's)."""
+    if rows is None:
+        return source.raw_batch(indices)
+    return source.raw_batch(indices, rows)
+
+
 def _validation_sums(eval_step, generator, data, val_idx, batch_size, seed,
-                     epoch, device):
+                     epoch, device, group=None, eval_rows=None):
     """Sample-weighted (loss_sum, sample_count, batches) over the
     validation split: full batches, then a trailing partial batch at its
     true size, so no sample counts twice. Each batch draws from its own
-    (seed, epoch, batch start) stream."""
+    (seed, epoch, batch start) stream.
+
+    With the ranks of one launch (`group`, and `eval_rows`, the eval step
+    of a rank's rows) each full batch is split across the ranks and the
+    partial one runs on rank 0 alone (the others advance their host RNG
+    past it); the sums are this rank's share."""
     total, count, batches = 0.0, 0, 0
     for lo in range(0, len(val_idx), batch_size):
         vidx = np.asarray(val_idx[lo:lo + batch_size])
-        raw = _to_device(data.raw_batch(vidx), device)
+        rows = None
+        if group is not None:
+            if len(vidx) == batch_size:
+                rows = group.rows(batch_size)
+            elif not group.is_main:
+                data.skip_batch(vidx)
+                continue
+        raw = _to_device(_raw_batch(data, vidx, rows), device)
         generator.manual_seed(stream_seed(seed, _VALIDATION_STREAM, epoch,
                                           lo))
-        total += float(eval_step(raw)) * len(vidx)
-        count += len(vidx)
+        n = len(vidx) if rows is None else rows.stop - rows.start
+        total += float((eval_step if rows is None else eval_rows)(raw)) * n
+        count += n
         batches += 1
     return total, count, batches
 
 
-def run_training(args, device="cuda") -> TrainingRun:
+def run_training(args, device="cuda", group=None) -> TrainingRun:
     """Train on args.input_dir; writes <model_dir>/checkpoint.tar and
     <model_dir>/logs. Raises FloatingPointError (after saving) on a
     non-finite loss. The master-dtype policy and the TF32 settings are the
-    run's and are restored when it ends."""
-    device = resolve_device(device)
+    run's and are restored when it ends. With a data group
+    (parallel/mesh.DataGroup) this is one rank's part of a data-parallel
+    run on the group's device."""
+    device = resolve_device(device) if group is None else group.device
     with step_lib.master_dtype_scope(), precision_scope(
             resolve_dtype(args.dtype, device)):
-        return _run_training(args, device)
+        return _run_training(args, device, group)
 
 
-def _run_training(args, device) -> TrainingRun:
+def _run_training(args, device, group) -> TrainingRun:
+    if group is not None:
+        if group.process_count > 1:
+            # The launcher: every process's rows are a share of each step.
+            size = _make_training_mesh(args.batch_size,
+                                       args.num_devices or group.world,
+                                       device.type, group.world)
+            if size != group.world:
+                raise ValueError(
+                    f"multi-process training needs a batch size divisible "
+                    f"across ALL {group.world} processes (got "
+                    f"{args.batch_size}); a smaller group would leave some "
+                    f"process out")
+        print(f"Data group: {group.world} rank(s) over {group.backend}, "
+              f"rank {group.rank} on {device}"
+              + (f" ({group.process_count} processes)"
+                 if group.process_count > 1 else ""))
     args, model, optimizer, epoch_start = setup(args, device)
     # The dataset's decode pool, if a prefetch started one, stops here.
-    with _build_dataset(args, "train") as data:
-        return _train(args, device, model, optimizer, epoch_start, data)
+    with _build_dataset(args, "train", group) as data:
+        return _train(args, device, model, optimizer, epoch_start, data,
+                      group)
 
 
-def _train(args, device, model, optimizer, epoch_start,
-           data) -> TrainingRun:
+def _train(args, device, model, optimizer, epoch_start, data,
+           group) -> TrainingRun:
+    pc = group.process_count if group is not None else 1
+    is_main = group is None or group.is_main
     device_cache = None
     if args.device_data_cache:
+        if pc > 1:
+            raise ValueError("--device-data-cache is single-process only "
+                             "(each process would need the full corpus)")
         device_cache = DeviceDataCache(data, device)
         print(f"Device data cache: {len(device_cache)} samples, "
               f"{device_cache.nbytes / 1e9:.2f} GB on {device}")
     if args.steps_per_call > 1 and device_cache is None:
         raise ValueError("--steps-per-call > 1 needs --device-data-cache "
                          "(batches must already be on device)")
+    # The launcher: each process's share of a step is a local batch of its
+    # own shard; in one launch a rank feeds its rows of the global batch.
+    local_batch = mesh_lib.local_batch_size(args.batch_size, pc)
+    rows = (group.rows(args.batch_size)
+            if group is not None and pc == 1 else None)
     train_idx, val_idx = split_train_validation(len(data), 0.01, args.seed)
     print(f"Training samples: {len(train_idx)}.")
     print(f"Validation samples: {len(val_idx)}.")
@@ -210,18 +320,31 @@ def _train(args, device, model, optimizer, epoch_start,
     loss_fn = losses_lib.make_loss_fn(_loss_kind(args.loss), args.renderer)
     generator = torch.Generator(device=device)
     train_step = make_train_step(model, optimizer, loss_fn, prep, generator,
-                                 seed=args.seed)
+                                 seed=args.seed, group=group)
     eval_step = make_eval_step(model, loss_fn, prep, generator)
+    eval_rows = (make_eval_step(model, loss_fn, prep, generator, group)
+                 if rows is not None else None)
     print(f"Using renderer '{args.renderer}' on {device}")
 
     checkpoint_dir = pathlib.Path(args.model_dir)
     stats_dir = checkpoint_dir / "logs"
-    if args.retrain and stats_dir.exists():
+    if is_main and args.retrain and stats_dir.exists():
         shutil.rmtree(stats_dir)
-    writer = SummaryWriter(str(stats_dir))
+    writer = SummaryWriter(str(stats_dir)) if is_main else _NullWriter()
 
     batch_size = args.batch_size
-    batch_count = max(1, int(math.ceil(len(train_idx) / batch_size)))
+    if pc > 1:
+        # Every process takes the same number of steps (each is a
+        # collective): derived from the global file count, with each
+        # process's local order wrapped to fill it.
+        global_train_len = int(math.ceil(data.global_file_count * 0.99))
+        batch_count = max(1, int(math.ceil(global_train_len / batch_size)))
+    else:
+        batch_count = max(1, int(math.ceil(len(train_idx) / batch_size)))
+    step_size = local_batch
+
+    def mine(idx):
+        return idx if rows is None else idx[rows]
 
     def save(epoch):
         Checkpoint.save(checkpoint_dir, model, optimizer, epoch,
@@ -229,7 +352,8 @@ def _train(args, device, model, optimizer, epoch_start,
                         args.omit_optimizer_state_save,
                         model_depth=args.model_depth,
                         num_filters=args.num_filters,
-                        master_dtype=step_lib.master_dtype_policy())
+                        master_dtype=step_lib.master_dtype_policy(),
+                        group=group)
 
     print(f"Training from epoch {epoch_start} to {args.epochs}")
     sync = torch.cuda.synchronize if device.type == "cuda" else None
@@ -242,17 +366,20 @@ def _train(args, device, model, optimizer, epoch_start,
         for epoch in range(epoch_start, args.epochs):
             order = np.array(train_idx)
             data._host_rng.shuffle(order)
+            if pc > 1:
+                order = np.resize(order, batch_count * local_batch)
             if device_cache is None:
-                data.prefetch(order[:batch_size])
+                data.prefetch(mine(order[:step_size]))
             for i in range(batch_count):
-                idx = order[i * batch_size:(i + 1) * batch_size]
+                idx = order[i * step_size:(i + 1) * step_size]
                 if len(idx) == 0:
                     continue
-                if len(idx) < batch_size:
+                if len(idx) < step_size:
                     # Pad the final batch to a full one by wrapping.
-                    idx = np.resize(idx, batch_size)
+                    idx = np.resize(idx, step_size)
                 batch_index = epoch * batch_count + i
-                if args.profile_dir and steps == _PROFILE_STEPS[0]:
+                if (args.profile_dir and is_main
+                        and steps == _PROFILE_STEPS[0]):
                     profiling.enter_context(trace_steps(args.profile_dir))
                 elif steps == _PROFILE_STEPS[1]:
                     profiling.close()
@@ -262,14 +389,15 @@ def _train(args, device, model, optimizer, epoch_start,
                 # assembly, the host-to-device copy and the train step.
                 with timer.measure() if fetch else nullcontext():
                     if device_cache is not None:
-                        raw = device_cache.raw_batch(idx)
+                        raw = _raw_batch(device_cache, idx, rows)
                     else:
-                        raw = _to_device(data.raw_batch(idx), device)
+                        raw = _to_device(_raw_batch(data, idx, rows),
+                                         device)
                         # After raw_batch: the pool decodes in request
                         # order, so this batch's mixing partners (drawn
                         # and requested inside raw_batch) go first.
-                        data.prefetch(
-                            order[(i + 1) * batch_size:(i + 2) * batch_size])
+                        data.prefetch(mine(
+                            order[(i + 1) * step_size:(i + 2) * step_size]))
                     generator.manual_seed(stream_seed(args.seed,
                                                       batch_index + 1))
                     loss = train_step(raw, step=batch_index + 1)
@@ -289,15 +417,25 @@ def _train(args, device, model, optimizer, epoch_start,
 
             if epoch % args.save_frequency == 0:
                 save(epoch)
-            if epoch % args.validation_frequency == 0 and len(val_idx) > 0:
+            # The launcher's processes validate their own shards in local
+            # batches, and each must reach the sums' reduction, with or
+            # without samples; the ranks of one launch split the batches.
+            if (epoch % args.validation_frequency == 0
+                    and (len(val_idx) > 0 or pc > 1)):
                 with validation_timer.measure():
                     total, count, batches = _validation_sums(
-                        eval_step, generator, data, val_idx, batch_size,
-                        args.seed, epoch, device)
+                        eval_step, generator, data, val_idx, local_batch,
+                        args.seed, epoch, device,
+                        group if rows is not None else None, eval_rows)
+                    if group is not None:
+                        total, count = mesh_lib.all_reduce_sum(
+                            [total, count], group)
                 validation_batches += batches
-                val_loss = total / count
-                print(f"Epoch {epoch}, validation loss: {val_loss:f}")
-                writer.add_scalar("val_loss", val_loss, epoch * batch_count)
+                if count > 0:
+                    val_loss = total / count
+                    print(f"Epoch {epoch}, validation loss: {val_loss:f}")
+                    writer.add_scalar("val_loss", val_loss,
+                                      epoch * batch_count)
 
     save(args.epochs - 1 if args.epochs > epoch_start else epoch_start)
     writer.close()
@@ -308,22 +446,25 @@ def _train(args, device, model, optimizer, epoch_start,
 
 
 def run_test(args, device="cuda", out_dir: Optional[str] = None,
-             validation_split_only: bool = False) -> list:
+             validation_split_only: bool = False, group=None) -> list:
     """Predict SVBRDFs one sample at a time and save comparison grids.
 
     Grids go to <model_dir>/test_outputs (or out_dir), with metrics.json
     when the samples carry maps. With `validation_split_only` only the
     held-out 1 % is visualized (all samples when the split is empty).
-    Returns the written grid paths.
+    Returns the written grid paths. With a data group every rank restores
+    the checkpoint and rank 0 alone predicts; the others return [].
     """
-    device = resolve_device(device)
+    device = resolve_device(device) if group is None else group.device
     with step_lib.master_dtype_scope(), precision_scope(
             resolve_dtype(args.dtype, device)):
-        return _run_test(args, device, out_dir, validation_split_only)
+        return _run_test(args, device, out_dir, validation_split_only, group)
 
 
-def _run_test(args, device, out_dir, validation_split_only) -> list:
+def _run_test(args, device, out_dir, validation_split_only, group) -> list:
     args, model, _optimizer, epoch = setup(args, device)
+    if group is not None and not group.is_main:
+        return []
 
     export_path = getattr(args, "export_torch_checkpoint", None)
     if export_path:
@@ -340,8 +481,21 @@ def _run_test(args, device, out_dir, validation_split_only) -> list:
 
     indices = range(len(data))
     if validation_split_only:
-        _train_idx, val_idx = split_train_validation(len(data), 0.01,
-                                                     args.seed)
+        pc = group.process_count if group is not None else 1
+        if pc > 1:
+            # The launcher's training held out 1 % of each process's file
+            # shard (sorted files, round-robin by index): each process's
+            # local split mapped back to dataset indices.
+            val_global = []
+            for p in range(pc):
+                local_len = len(range(p, len(data), pc))
+                _tr, val = split_train_validation(local_len, 0.01,
+                                                  args.seed)
+                val_global += [int(v) * pc + p for v in val]
+            val_idx = np.asarray(sorted(val_global))
+        else:
+            _train_idx, val_idx = split_train_validation(len(data), 0.01,
+                                                         args.seed)
         if len(val_idx) > 0:
             indices = [int(i) for i in val_idx]
 

@@ -12,16 +12,21 @@ chip_smoke.py drives, so the two cannot drift apart.
 
 from __future__ import annotations
 
+import os
+import tempfile
+import time
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from svbrdf_tpu_torch import losses
-from svbrdf_tpu_torch.device import resolve_device
+from svbrdf_tpu_torch.device import precision_scope, resolve_device
 from svbrdf_tpu_torch.models import build_model
+from svbrdf_tpu_torch.parallel import mesh
 from svbrdf_tpu_torch.parallel import step as step_lib
+from svbrdf_tpu_torch.parallel.mesh import shard_batch
 from svbrdf_tpu_torch.parallel.step import (PrepConfig, TrainStep,
                                             make_eval_step, make_optimizer,
                                             make_predict_fn, make_train_step)
@@ -217,16 +222,30 @@ def build_program(model_kind: str = "single", loss_kind: str = "mixed",
                   batch: int = 8, size: int = 256, depth: int = 8,
                   num_filters: int = 64, seed: int = 0,
                   device="cuda", dtype=torch.float32,
-                  master_dtype=None, renderer: str = "local") -> MainProgram:
+                  master_dtype=None, renderer: str = "local",
+                  group=None, spp=(16, 8)) -> MainProgram:
     """Build a training program at the given widths, with weights and data
     made from `seed`, on `device`: model_kind "single" (one input view) or
     "multi" (3 views), loss_kind "mixed" or "rendering" with `renderer`
-    "local" (the fused loss kernels) or "pathtracing"; the model
-    computing in `dtype`, its masters cast by the policy `master_dtype`
-    ('f32' | 'bf16sr'; None: the policy in force)."""
+    "local" (the fused loss kernels) or "pathtracing" (at `spp`); the
+    model computing in `dtype`, its masters cast by the policy
+    `master_dtype` ('f32' | 'bf16sr'; None: the policy in force).
+
+    With a data group (parallel/mesh.DataGroup) it is that rank's part of
+    the data-parallel program on the group's device: `batch` is the global
+    batch, `raw` the rank's rows of it, and the train and eval steps draw
+    for the global batch (parallel/step.DataParallelTrainStep). `device`
+    must then name the group's device (its type; its index where given):
+    a program asked for on the card never runs on a CPU rank."""
     if model_kind not in ("single", "multi"):
         raise ValueError(f"unknown model kind {model_kind!r}")
     dev = resolve_device(device)
+    if group is not None:
+        if dev.type != group.device.type or dev.index not in (
+                None, group.device.index):
+            raise ValueError(f"program device {str(dev)!r} is not the "
+                             f"data group's {str(group.device)!r}")
+        dev = group.device
     n_views = 3 if model_kind == "multi" else 1
     model = build_model(model_kind, False, depth, num_filters, device=dev,
                         seed=seed, dtype=dtype)
@@ -235,17 +254,19 @@ def build_program(model_kind: str = "single", loss_kind: str = "mixed",
             step_lib.set_master_dtype_policy(master_dtype)
         step_lib.master_cast(model)
     optimizer = make_optimizer(model.parameters(), 1e-5, dtype)
-    loss_fn = losses.make_loss_fn(loss_kind, renderer)
+    loss_fn = losses.make_loss_fn(loss_kind, renderer, spp=spp)
     prep = PrepConfig(used_input_image_count=n_views, use_augmentation=True,
                       is_linear=False, mix_materials=True)
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
-    raw = {k: torch.from_numpy(v).to(dev)
-           for k, v in synthetic_raw_batch(batch, size, 0, seed).items()}
+    raw = synthetic_raw_batch(batch, size, 0, seed)
+    if group is not None:
+        raw = shard_batch(raw, group)
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
     return MainProgram(
         model=model,
         train_step=make_train_step(model, optimizer, loss_fn, prep,
-                                   generator, seed=seed),
-        eval_step=make_eval_step(model, loss_fn, prep, generator),
+                                   generator, seed=seed, group=group),
+        eval_step=make_eval_step(model, loss_fn, prep, generator, group),
         predict=make_predict_fn(model), raw=raw, prep=prep,
         generator=generator)
 
@@ -256,3 +277,156 @@ def build_main_program(batch: int = 8, size: int = 256, depth: int = 8,
     """Build the single-view mixed-loss training program (the main path)."""
     return build_program("single", "mixed", batch, size, depth, num_filters,
                          seed, device)
+
+
+def zero_launch_counts() -> None:
+    """Set every kernel launch counter to 0."""
+    from svbrdf_tpu_torch.ops import render_fused as rf
+    from svbrdf_tpu_torch.ops import sr_adam
+
+    for wrapper in rf.CUDA_WRAPPERS.values():
+        wrapper.launches = 0
+        for dtype in wrapper.launches_by_dtype:
+            wrapper.launches_by_dtype[dtype] = 0
+    sr_adam.sr_adam_multi_cuda.launches = 0
+
+
+def launch_counts() -> dict:
+    """Every launch counter: each loss kernel's by planes dtype (the bf16
+    instantiation as <kernel>_bf16), and sr_adam's."""
+    from svbrdf_tpu_torch.ops import render_fused as rf
+    from svbrdf_tpu_torch.ops import sr_adam
+
+    counts = {k + rf.PLANE_DTYPES[dtype]: n
+              for k, w in rf.CUDA_WRAPPERS.items()
+              for dtype, n in w.launches_by_dtype.items()}
+    counts["sr_adam"] = sr_adam.sr_adam_multi_cuda.launches
+    return counts
+
+
+def train_steps(program: dict, steps: int, group=None,
+                state: Optional[dict] = None,
+                batch: Optional[dict] = None, scenes=None,
+                cudnn: bool = True) -> dict:
+    """`steps` train steps of build_program(**program, group=group): world
+    size 1 without a group, else this rank's part of the data-parallel
+    run. Dropout off (ranks > 0 draw masks of their own, so runs of two
+    world sizes compare only without it); `state`, a state dict, replaces the
+    seeded weights; with `batch` (a prepared global batch on the CPU) and
+    `scenes` (one global scene set a step) each step is update() on the
+    rank's rows of them, else a step on the program's raw batch. The card's
+    TF32 settings are the CLI's for the program's dtype
+    (device.precision_scope: off for f32); `cudnn` False runs the steps
+    with cuDNN off (torch's own convolutions, whose results do not depend
+    on the algorithm cuDNN picks for a batch size).
+
+    Returns {"losses": the group's mean loss a step, "step_ms": host time
+    a step (synced by the loss's fetch), "params0" / "params": the weights
+    before and after (f32, on the CPU), "launches": the kernel launches of
+    the steps on each rank}, with a group also "checksums": each rank's
+    replica checksum (mesh.replica_checksums), and "reduce_ms": the host
+    time of one reduce_gradients of the last step's gradients over the
+    group, synced (the wait for the slower rank included; median of 5)."""
+    # Only cuDNN's on/off switch: torch.backends.cudnn.flags would also
+    # reset its TF32 setting, which precision_scope owns.
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        with precision_scope(program.get("dtype", torch.float32)):
+            return _train_steps(program, steps, group, state, batch, scenes)
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+def _train_steps(program, steps, group, state, batch, scenes) -> dict:
+    prog = build_program(**program, group=group)
+    model = prog.model
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.eval()
+    params0 = [p.detach().float().cpu().clone() for p in model.parameters()]
+    dev = next(model.parameters()).device
+    if batch is not None:
+        rows = slice(None) if group is None else group.rows(
+            len(batch["svbrdf"]))
+        batch = {k: v[rows].to(dev) for k, v in batch.items()}
+    zero_launch_counts()
+    losses, step_ms = [], []
+    for k in range(steps):
+        start = time.perf_counter()
+        if batch is None:
+            loss = prog.train_step(prog.raw)
+        else:
+            loss = prog.train_step.update(
+                batch, scenes=scenes[k].to(dev) if scenes else None)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - start) * 1e3)
+    out = {"losses": losses, "step_ms": step_ms, "params0": params0,
+           "params": [p.detach().float().cpu() for p in model.parameters()],
+           "launches": [launch_counts()]}
+    if group is not None:
+        out["reduce_ms"] = _reduce_ms(prog.train_step, group, dev)
+        launches = [None] * group.world
+        torch.distributed.all_gather_object(launches, out["launches"][0],
+                                            group=group.host_group)
+        out["launches"] = launches
+        out["checksums"] = mesh.replica_checksums(model.parameters(), group)
+    return out
+
+
+def _reduce_ms(train_step, group, dev, runs: int = 5) -> float:
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    loss = torch.zeros((), device=dev)
+    times = []
+    for _ in range(runs):
+        sync()
+        start = time.perf_counter()
+        step_lib.reduce_gradients(train_step.params, loss, group)
+        sync()
+        times.append((time.perf_counter() - start) * 1e3)
+    return float(np.median(times))
+
+
+def _steps_rank(rank: int, world: int, address: str, device_type: str,
+                backend: Optional[str], jobs: list, out_path: str) -> None:
+    device = ("cpu" if device_type == "cpu"
+              else f"cuda:{rank if backend in (None, 'nccl') else 0}")
+    group = mesh.init_group(world, rank, device, address, backend=backend)
+    results = []
+    for args, kwargs in jobs:
+        results.append(train_steps(*args, group=group, **kwargs))
+        results[-1]["backend"] = group.backend
+    if group.is_main:
+        torch.save(results, out_path)
+    mesh.destroy_group()
+
+
+def data_parallel_runs(world: int, jobs: list,
+                       backend: Optional[str] = None,
+                       timeout: Optional[float] = None) -> list:
+    """train_steps(*args, group=..., **kwargs) for each (args, kwargs) of
+    `jobs`, in turn, over `world` ranks started for them (mesh.spawn,
+    `timeout` seconds at most), on the device type that every job's
+    program asks for (build_program's default is the card; jobs that ask
+    for two types raise before a rank starts): rank r on the CPU (gloo) or
+    on cuda:r (NCCL); with backend 'gloo' and a card every rank on cuda:0.
+    Returns rank 0's results, each with the backend."""
+    types = {torch.device(args[0].get("device", "cuda")).type
+             for args, _ in jobs}
+    if len(types) != 1:
+        raise ValueError(f"the jobs ask for programs on {sorted(types)}; "
+                         f"the ranks run on one device type")
+    (device_type,) = types
+    if backend != "gloo":
+        mesh.make_mesh(world, device_type)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "rank0.pt")
+        mesh.spawn(_steps_rank, world,
+                   (world, f"tcp://localhost:{mesh.free_port()}",
+                    device_type, backend, jobs, out_path), timeout)
+        return torch.load(out_path, weights_only=False)

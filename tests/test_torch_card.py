@@ -28,6 +28,7 @@ chip_smoke.py holds it. TF32 is off for every test.
 import itertools
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -463,7 +464,7 @@ def test_cli_trains_resumes_and_tests_on_the_card(cuda, tmp_path):
     common = ["--image-count", "10", "--image-size", "32", "--model-depth",
               "5", "--num-filters", "8", "--batch-size", "2",
               "--model-dir", str(tmp_path / "m"), "--gpu-id", "0",
-              "--dtype", "float32"]
+              "--num-devices", "1", "--dtype", "float32"]
     train = ["--mode", "train", "--input-dir", str(data / "train"),
              "--save-frequency", "1", "--validation-frequency", "1"] + common
     runs = []
@@ -730,3 +731,82 @@ def test_path_traced_full_width_step(cuda):
     assert math.isfinite(loss)
     assert all(w.launches == 0 for w in rf.CUDA_WRAPPERS.values())
     assert sr_adam.sr_adam_multi_cuda.launches == 1
+
+
+def _dp_program(**extra):
+    return dict(model_kind="single", loss_kind="mixed", batch=4, size=32,
+                depth=5, num_filters=8, seed=0, device="cuda", **extra)
+
+
+def _update_normwise(run, ref):
+    num = sum(float(((b - a) - (rb - ra)).double().norm() ** 2)
+              for a, b, ra, rb in zip(run["params0"], run["params"],
+                                      ref["params0"], ref["params"]))
+    den = sum(float((rb - ra).double().norm() ** 2)
+              for ra, rb in zip(ref["params0"], ref["params"]))
+    return (num / den) ** 0.5
+
+
+def _assert_losses(losses, ref):
+    """The first step's loss (the same weights and draws) rel 1e-5, every
+    step's rel 1e-4 (after it the weights part: cuDNN, see below)."""
+    np.testing.assert_allclose(losses[0], ref[0], rtol=1e-5)
+    np.testing.assert_allclose(losses, ref, rtol=1e-4)
+
+
+def test_data_parallel_world_one_over_nccl(cuda):
+    """The data-parallel step in a world-1 NCCL group (what the launcher
+    runs on one card) against the plain step on the card: the losses as
+    test_data_parallel_world_two_on_the_card holds them (bit-equal where
+    cuDNN runs deterministically), mixed_fwdgrad once a step."""
+    (one,) = bench_setup.data_parallel_runs(
+        1, [((_dp_program(), 3), {})], timeout=300)
+    plain = bench_setup.train_steps(_dp_program(), 3)
+    assert one["backend"] == "nccl"
+    _assert_losses(one["losses"], plain["losses"])
+    assert one["launches"][0]["mixed_fwdgrad"] == 3
+
+
+def test_data_parallel_world_two_on_the_card(cuda):
+    """World 2 on the card (two cards over NCCL where there are two, else
+    both ranks on cuda:0 over gloo) against world 1 on the same global
+    batch, f32: the first step's loss rel 1e-5, every step's 1e-4, the
+    update normwise 5e-2, not the CPU's 1e-5 and 1e-4: cuDNN's backward
+    takes other algorithms at batch 2 than at 4, so the weights part after
+    the first step and Adam's first steps magnify that (the same run with
+    cuDNN off is held at the CPU's tolerances below); then bf16-SR; the
+    replicas bit-identical after each, mixed_fwdgrad (and sr_adam in
+    bf16-SR) once a step on each rank."""
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    bf16 = _dp_program(dtype=torch.bfloat16, master_dtype="bf16sr")
+    two, two_bf16 = bench_setup.data_parallel_runs(
+        2, [((_dp_program(), 3), {}), ((bf16, 3), {})], backend,
+        timeout=300)
+    one = bench_setup.train_steps(_dp_program(), 3)
+    _assert_losses(two["losses"], one["losses"])
+    assert _update_normwise(two, one) <= 5e-2
+    for run, kernel in ((two, "mixed_fwdgrad"),
+                        (two_bf16, "mixed_fwdgrad_bf16")):
+        assert run["backend"] == backend
+        assert len(set(run["checksums"])) == 1
+        for counts in run["launches"]:
+            assert counts[kernel] == 3
+    assert [c["sr_adam"] for c in two_bf16["launches"]] == [3, 3]
+
+
+def test_data_parallel_world_two_on_the_card_without_cudnn(cuda):
+    """World 2 on the card against world 1 on the same global batch with
+    cuDNN off in the ranks and in the reference (torch's own convolutions,
+    whose sums do not follow cuDNN's choice of algorithm for a batch size),
+    f32, 5 steps: the CPU tests' tolerances, each step's loss rel 1e-5 and
+    the update normwise 1e-4, so that a fault of the gradient reduction or
+    of the rows' draws cannot hide under cuDNN; replicas bit-identical."""
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    (two,) = bench_setup.data_parallel_runs(
+        2, [((_dp_program(), 5), {"cudnn": False})], backend,
+        timeout=300)
+    one = bench_setup.train_steps(_dp_program(), 5, cudnn=False)
+    np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
+    assert _update_normwise(two, one) <= 1e-4
+    assert len(set(two["checksums"])) == 1
+    assert [c["mixed_fwdgrad"] for c in two["launches"]] == [5, 5]
