@@ -25,7 +25,10 @@ Phases, each raising (and so exiting non-zero) on any failure:
      full-width model (single view, multi view) in the bf16-SR dtypes, with
      random moments, at a count past 2148 and master salts that wrap; and
      its stochastic rounding unbiased on the card (the mean over 400 salts
-     within rel 1e-3);
+     within rel 1e-3); and the 'bf16' state mode (SVBRDF_OPT_STATE=bf16:
+     f32 parameters and gradients, bf16 mu, f32 nu, the launch's flag for
+     optax's bf16-mu order) over every leaf of the full-width single-view
+     model at step counts 1 and 2148, its launches counted;
   4. agreement: a small single-view mixed-loss model and a small multi-view
      rendering-loss model: train step, eval loss and prediction on the card
      against the same program on the CPU; and a small single-view bf16
@@ -111,7 +114,30 @@ Phases, each raising (and so exiting non-zero) on any failure:
          1e-4, the update normwise 5e-2: cuDNN's backward differs by
          batch size, DP_TOL),
          then 5 bf16-SR steps; the replicas bit-identical after each
-         (all-gathered checksums), each rank's launches, ms a step.
+         (all-gathered checksums), each rank's launches, ms a step;
+  9. the tail (the inference API and the tools) at full width, each run
+     with every launch counter set to 0 just before and read just after:
+       - data/toy.generate_toy_dataset on the card: 8 train and 8 test
+         256^2 strips of 10 photos (ms a strip), the train directory
+         filled with symlinks to 101 files;
+       - the CLI on those photo strips at its defaults (bf16, bf16-SR),
+         --image-count 10 --used-image-count 1, 1 epoch: mixed_fwdgrad_bf16
+         and sr_adam once a step, mixed_fwd_bf16 once a validation batch,
+         every other counter 0; its median ms a step beside phase 7's
+         maps-only run at the same precision;
+       - SvbrdfEstimator.from_checkpoint on its checkpoint: predict on 8
+         test photos bit-equal to a fresh model restored from the same
+         file, predict_to_files' 8 strips read back at (256, 1024, 3),
+         predict ms at batch 8 and ms a photo file to file;
+       - experiments/map_recovery: the diffuse map of a 256^2 toy material
+         over 200 steps under 6 fixed scenes (last loss < 0.3 x the
+         first, ms a step); at 16^2, 10 steps on the card against the same
+         call on the CPU (loss rel 1e-4, maps 1e-4);
+       - viz.turntable_frames: 8 frames of 384^2 written as a GIF (its
+         header, frames, delays and loop block read back);
+       - the four examples' main(argv) once each, each writing its file;
+       - utils/flops.mfu of the main path's f32 and bf16-SR train steps
+         (phases 5-6) against this card's peaks.
 The next-to-last line is the JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -131,6 +157,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 # The least operations per pixel that each kernel's function needs. Each
@@ -245,9 +272,6 @@ SR_ADAM = {"name": "sr_adam", "route": "cuda",
 # square root counted as one operation each), p + u 1: 14 FP32; the hash's
 # integer operations are not counted. Bytes: each value read or written once.
 SR_ADAM_FP32_PER_ELEMENT = 14
-# The kernel's vector loops by their 16-byte loads and stores a pass (8
-# elements): every tensor bf16 (one each), every tensor f32 (two each).
-SR_ADAM_LOOPS = {"bf16": (4, 3), "f32": (8, 6)}
 
 MAIN = {"batch": 8, "size": 256, "depth": 8, "num_filters": 64,
         "n_scenes": 9, "train_steps": 5}
@@ -598,13 +622,18 @@ def _hold_bf16(name, label, out, inputs, inputs32) -> dict:
 # state, and under 'bf16' state; 1-D leaves (f32 masters; f32 moments under
 # 'bf16sr', a bf16 mu under 'bf16').
 F32 = torch.float32
+# Each combination's (p, g, mu, nu) dtypes and whether its launch takes the
+# 'bf16' state mode's flag (optax's bf16-mu order).
 SR_COMBOS = {
-    "conv": {"bf16 masters, bf16sr state": (BF16, BF16, BF16, BF16),
-             "f32 masters, bf16sr state": (F32, F32, BF16, BF16),
-             "f32 masters, bf16 state": (F32, F32, BF16, F32)},
-    "1-D": {"bf16sr state": (F32, F32, F32, F32),
-            "bf16 state": (F32, F32, BF16, F32)},
+    "conv": {"bf16 masters, bf16sr state": ((BF16, BF16, BF16, BF16), False),
+             "f32 masters, bf16sr state": ((F32, F32, BF16, BF16), False),
+             "f32 masters, bf16 state": ((F32, F32, BF16, F32), True)},
+    "1-D": {"bf16sr state": ((F32, F32, F32, F32), False),
+            "bf16 state": ((F32, F32, BF16, F32), True)},
 }
+# The 'bf16' state mode over every leaf of the full-width single-view
+# model: the Adam step counts.
+SR_BF16_STATE_COUNTS = (1, 2148)
 # (Adam step count, master salt): salts at 0, the largest and another, the
 # counts past 2147, where JAX's int32 moment salt count * 1000003 wraps.
 SR_STEPS = ((1, 0), (2148, 2 ** 31 - 2), (5000, 123456789))
@@ -636,7 +665,7 @@ def phase_sr_adam() -> dict:
     g = torch.Generator(device="cuda").manual_seed(11)
     out = {"checks": [], "max_abs_err": 0.0}
     for kind, shape in _sr_leaf_shapes().items():
-        for label, dtypes in SR_COMBOS[kind].items():
+        for label, (dtypes, bf16_mu) in SR_COMBOS[kind].items():
             for count, salt in SR_STEPS:
                 scales = (0.02, 1e-3, 1e-4)
                 leaf = [(torch.randn(shape, generator=g, device="cuda")
@@ -644,7 +673,8 @@ def phase_sr_adam() -> dict:
                 leaf.append((torch.rand(shape, generator=g, device="cuda")
                              * 1e-6).to(dtypes[3]))
                 s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, count,
-                                     count * 1000003 + 7, salt + 7)
+                                     count * 1000003 + 7, salt + 7,
+                                     bf16_mu_product=bf16_mu)
                 kern = [t.clone() for t in leaf]
                 plain = [t.clone() for t in leaf]
                 sr_adam.sr_adam_update_cuda(*kern, s)
@@ -688,15 +718,69 @@ def phase_sr_adam() -> dict:
     out["unbiased_max_rel"] = rel
     out["models"] = {kind: _sr_adam_model_check(kind, g)
                      for kind in ("single", "multi")}
+    # The 'bf16' state mode (SVBRDF_OPT_STATE=bf16): f32 parameters and
+    # gradients, bf16 mu, f32 nu, the launch's flag set; its launches
+    # counted from 0.
+    sr_adam.sr_adam_multi_cuda.launches = 0
+    out["bf16_state"] = {count: _sr_adam_model_check("single", g, "bf16",
+                                                     count)
+                         for count in SR_BF16_STATE_COUNTS}
+    out["bf16_state_launches"] = sr_adam.sr_adam_multi_cuda.launches
+    log(f"sr_adam 'bf16' state mode: every leaf of the single-view model at "
+        f"counts {SR_BF16_STATE_COUNTS}, bit-exact, "
+        f"{out['bf16_state_launches']} launch(es)")
+    out["bf16_state_times"] = _sr_adam_bf16_state_times(g)
     return out
 
 
-def _sr_adam_model_check(kind: str, g) -> dict:
+def _sr_adam_bf16_state_times(g) -> dict:
+    """One multi-tensor update of every leaf of the full-width single-view
+    model in the 'bf16' state mode's dtypes (f32 p and g, bf16 mu, f32 nu:
+    24 bytes an element read and written), CUDA-event median of 20: the
+    mode's kernel (the flag) beside sr_adam_kernel on the same leaves, and
+    the bytes' bound."""
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    leaves = []
+    for i, p in enumerate(build_model("single", False, MAIN["depth"],
+                                      MAIN["num_filters"],
+                                      device="cuda").parameters()):
+        shape = tuple(p.shape)
+        leaves.append(sr_adam.SrLeaf(
+            i, torch.randn(shape, generator=g, device="cuda") * 0.02,
+            torch.randn(shape, generator=g, device="cuda") * 1e-3,
+            torch.zeros(shape, dtype=BF16, device="cuda"),
+            torch.zeros(shape, device="cuda")))
+    elements = sum(lf.p.numel() for lf in leaves)
+    s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, 2148, 2148 * 1000003, 0,
+                         bf16_mu_product=True)
+    plans = {}
+    out = {"elements": elements,
+           "ms": cuda_ms(lambda: sr_adam.sr_adam_multi_cuda(leaves, s,
+                                                            plans)),
+           "sr_adam_kernel_ms": cuda_ms(lambda: sr_adam.sr_adam_multi_cuda(
+               leaves, s._replace(bf16_mu_product=False), plans)),
+           "bound_ms": elements * 24 / card_rates(
+               torch.cuda.get_device_name(0))["bytes"] * 1e3,
+           "bound_by": "bytes"}
+    log(f"sr_adam 'bf16' state mode, one update of {elements} elements: "
+        f"{out['ms']:.4f} ms (sr_adam_kernel on the same leaves "
+        f"{out['sr_adam_kernel_ms']:.4f} ms), bound {out['bound_ms']:.4f} ms "
+        f"(bytes)")
+    return out
+
+
+def _sr_adam_model_check(kind: str, g, state: str = "bf16sr",
+                         count: int = 2148) -> dict:
     """Every leaf of the full-width `kind` model in one multi-tensor call,
-    in the bf16-SR main path's dtypes (>=2-D leaves: bf16 master, gradient
-    and moments; 1-D: f32), random gradients and moments, count 2148 and a
-    master salt that wraps with the leaf index: bit-exact against the
-    plain version, one launch per table."""
+    random gradients and moments, Adam step `count` and a master salt that
+    wraps with the leaf index: bit-exact against the plain version, one
+    launch per table. state 'bf16sr': the bf16-SR main path's dtypes
+    (>=2-D leaves: bf16 master, gradient and moments; 1-D: f32); 'bf16':
+    the 'bf16' state mode's (f32 parameters and gradients, bf16 mu, f32
+    nu, optax's bf16-mu order)."""
     from svbrdf_tpu_torch.models import build_model
     from svbrdf_tpu_torch.ops import sr_adam
     from svbrdf_tpu_torch.parallel import optimizer as opt
@@ -707,13 +791,14 @@ def _sr_adam_model_check(kind: str, g) -> dict:
     leaves = []
     for i, shape in enumerate(shapes):
         dt = BF16 if len(shape) >= 2 else F32
-        ts = [(torch.randn(shape, generator=g, device="cuda") * sc).to(dt)
-              for sc in (0.02, 1e-3, 1e-4)]
+        dts = (dt,) * 4 if state == "bf16sr" else (F32, F32, BF16, F32)
+        ts = [(torch.randn(shape, generator=g, device="cuda") * sc).to(d)
+              for sc, d in zip((0.02, 1e-3, 1e-4), dts)]
         ts.append((torch.rand(shape, generator=g, device="cuda")
-                   * 1e-6).to(dt))
+                   * 1e-6).to(dts[3]))
         leaves.append(sr_adam.SrLeaf(i, *ts))
-    s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, 2148, 2148 * 1000003,
-                         2 ** 32 - 40)
+    s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, count, count * 1000003,
+                         2 ** 32 - 40, bf16_mu_product=state == "bf16")
     copy = [sr_adam.SrLeaf(lf.index, *(t.clone() for t in lf[1:]))
             for lf in leaves]
     before = sr_adam.sr_adam_multi_cuda.launches
@@ -727,14 +812,14 @@ def _sr_adam_model_check(kind: str, g) -> dict:
               zip(copy, leaves) for a, b in zip(x[1:], y[1:]) if a.numel())
     tables = math.ceil(len(leaves) / sr_adam.max_leaves())
     elements = sum(math.prod(shape) for shape in shapes)
-    log(f"sr_adam multi-tensor, every leaf of the full-width {kind}-view "
-        f"model ({len(leaves)} leaves, {elements} elements, {launches} "
-        f"launch(es)): kernel vs plain "
+    log(f"sr_adam multi-tensor [{state} state, count {count}], every leaf "
+        f"of the full-width {kind}-view model ({len(leaves)} leaves, "
+        f"{elements} elements, {launches} launch(es)): kernel vs plain "
         f"{'bit-exact' if equal else 'DIFFERENT'} (max abs err {err:.3g})")
     if not equal or launches != tables:
-        raise RuntimeError(f"sr_adam multi-tensor on the {kind}-view model: "
-                           f"equal {equal}, {launches} launches for "
-                           f"{tables} table(s)")
+        raise RuntimeError(f"sr_adam multi-tensor [{state} state] on the "
+                           f"{kind}-view model: equal {equal}, {launches} "
+                           f"launches for {tables} table(s)")
     return {"leaves": len(leaves), "elements": elements,
             "launches": launches, "equal": equal, "max_abs_err": err}
 
@@ -1278,10 +1363,11 @@ def _plain_optimizer_updates():
 
 def sr_adam_code(build_log: str) -> dict:
     """The SR-Adam kernel's registers (ptxas, from phase 2's log; None
-    where the library was built before this run) and, per vector loop
-    (SR_ADAM_LOOPS), its static SASS instructions per element: the loop's
-    instructions (cuobjdump -sass of the built library, the division's
-    slow-path calls inside it included) over its 8 elements."""
+    where the library was built before this run), SASS total, blocks per
+    SM by its registers and, per vector loop (compare_builds.SR_ADAM_LOOPS),
+    its static SASS instructions per element (cuobjdump -sass of the built
+    library: compare_builds.sr_adam_code); the 'bf16' state mode's kernel
+    under "bf16mu"."""
     from svbrdf_tpu_torch.ops import _build
     from svbrdf_tpu_torch.utils import compare_builds
 
@@ -1289,24 +1375,21 @@ def sr_adam_code(build_log: str) -> dict:
     sass = subprocess.run([cuobjdump, "-sass",
                            str(_build.library_path("sr_adam"))], check=True,
                           capture_output=True, text=True).stdout
-    loops = compare_builds.sass_loops(sass, "sr_adam")
-    out = {"registers": compare_builds.ptxas_lines(build_log).get(
-        "sr_adam", {}).get("registers"),
-        "sass_total": compare_builds.parse_sass(sass)["sr_adam"]["total"],
-        "loops": {}}
-    for kind, (ldg, stg) in SR_ADAM_LOOPS.items():
-        found = [loop for loop in loops
-                 if (loop["ldg128"], loop["stg128"]) == (ldg, stg)]
-        if not found:
-            raise RuntimeError(f"sr_adam: no {kind} vector loop ({ldg} "
-                               f"16-byte loads, {stg} stores) in the SASS")
-        out["loops"][kind] = dict(found[0], per_element=found[0][
-            "instructions"] / 8)
+    code = compare_builds.sr_adam_code(sass, build_log)
+    if set(code) != {"sr_adam", "sr_adam_bf16mu"}:
+        raise RuntimeError(f"sr_adam: kernels {sorted(code)} in the SASS")
+    out = dict(code["sr_adam"], bf16mu=code["sr_adam_bf16mu"])
+    for kind in compare_builds.SR_ADAM_LOOPS:
+        if kind not in out["loops"]:
+            raise RuntimeError(f"sr_adam: no {kind} vector loop in the SASS")
     log(f"sr_adam code: {out['registers']} registers, "
-        f"{out['sass_total']} SASS instructions; vector loops "
+        f"{out['sass_total']} SASS instructions, "
+        f"{out.get('blocks_per_sm')} blocks per SM; vector loops "
         + ", ".join(f"{k} {v['instructions']} instructions / 8 elements "
                     f"= {v['per_element']:.2f} a element"
-                    for k, v in out["loops"].items()))
+                    for k, v in out["loops"].items())
+        + f"; the 'bf16' state mode's kernel: {out['bf16mu']['registers']} "
+        f"registers, {out['bf16mu']['sass_total']} SASS instructions")
     return out
 
 
@@ -1997,6 +2080,321 @@ def phase_data_parallel() -> dict:
     return out
 
 
+# The tail's phase (9): the inference API and the tools at full width. The
+# toy corpus: TAIL["strips"] strips with 10 photos each (train) and as many
+# test strips, symlinks up to CLI["samples"] training files (the 1 % split
+# holds one out; 13 steps of 8 an epoch). Every run of the phase is on
+# TAIL["device"], and checked to be.
+TAIL = {"device": "cuda", "size": 256, "photos": 10, "strips": 8,
+        "recovery_steps": 200, "recovery_scenes": 6, "small_size": 16,
+        "small_steps": 10, "frames": 8, "sensor": 384, "predict_batch": 8,
+        "example_recovery_steps": 50}
+# Map recovery card vs CPU at 16^2 (the CPU tests' rule against JAX).
+TAIL_TOL = {"loss_rel": 1e-4, "maps_abs": 1e-4}
+
+
+def _quiet(fn, *args, **kwargs):
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def _tail_run(name: str, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after: torch ops and host work, so every count must be 0."""
+    torch.cuda.synchronize()
+    _zero_counts()
+    start = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = _counts()
+    _expect(counts, {}, f"tail {name}")
+    log(f"tail {name} ({seconds:.2f} s): launches {_nonzero(counts)}")
+    return result, seconds, counts
+
+
+def _tail_data(root: pathlib.Path) -> dict:
+    """The toy corpus, generated on the card: TAIL["strips"] train and
+    test strips of 10 photos; the train directory filled with symlinks up
+    to CLI["samples"] files; the first photo of each test strip as a photo
+    file."""
+    from svbrdf_tpu_torch.data import png, strips, toy
+
+    n = TAIL["strips"]
+    written, seconds, counts = _tail_run("toy data", lambda: _quiet(
+        toy.generate_toy_dataset, str(root / "toy"), n, n, TAIL["size"],
+        TAIL["photos"], seed=313, device=TAIL["device"]))
+    train = root / "toy" / "train"
+    for k in range(n, CLI["samples"]):
+        (train / f"link_{k:03d}.png").symlink_to(
+            train / f"toy_train_{k % n:02d}.png")
+    size = TAIL["size"]
+    photos = []
+    for path in written[n:]:
+        strip = strips.read_image_u8(path)
+        if strip.shape != (size, (TAIL["photos"] + 4) * size, 3):
+            raise RuntimeError(f"tail toy data: {path} is {strip.shape}")
+        photo = root / "photos" / pathlib.Path(path).name
+        photo.parent.mkdir(exist_ok=True)
+        png.write_png_rgb8(str(photo), strip[:, :size])
+        photos.append(str(photo))
+    ms = seconds / len(written) * 1e3
+    log(f"tail toy data: {len(written)} strips of {TAIL['photos']} photos "
+        f"at {size}^2 in {seconds:.2f} s, {ms:.1f} ms a strip (maps on the "
+        f"host, photos rendered on the card, PNG written)")
+    return {"train": train, "test": written[n:], "photos": photos,
+            "ms_per_strip": ms, "launches": _nonzero(counts)}
+
+
+def _tail_cli(train: pathlib.Path, model_dir: pathlib.Path, cli: dict
+              ) -> dict:
+    """The CLI on photo strips at its defaults (bf16, bf16-SR) for 1
+    epoch: mixed_fwdgrad_bf16 and sr_adam once a step, mixed_fwd_bf16 once
+    a validation batch."""
+    per_epoch = math.ceil(math.ceil(CLI["samples"] * 0.99) / CLI["batch"])
+    argv = ["--mode", "train", "--input-dir", str(train), "--image-count",
+            str(TAIL["photos"]), "--used-image-count", "1", "--loss",
+            "mixed", "--epochs", "1", "--retrain", "--save-frequency", "1",
+            "--validation-frequency", "1", "--model-dir", str(model_dir),
+            "--image-size", str(CLI["size"]), "--model-depth",
+            str(CLI["depth"]), "--num-filters", str(CLI["num_filters"]),
+            "--batch-size", str(CLI["batch"]), "--gpu-id", "0",
+            "--num-devices", "1"]
+    with _tf32(True, False):
+        run, _, counts = _cli_train(
+            "photo_strips_default", argv,
+            ("mixed_fwdgrad_bf16", "mixed_fwd_bf16"), per_epoch, 1,
+            sr_adam=True)
+    maps_only = cli["runs"]["single_mixed_default"]
+    out = {"steps": run.steps, "validation_batches": run.validation_batches,
+           "step_ms_median": run.timer.median_ms(),
+           "maps_only_epoch0_step_ms": maps_only["epoch_step_ms_medians"][0],
+           "maps_only_step_ms_median": maps_only["step_ms_median"],
+           "launches": counts}
+    log(f"tail cli on photo strips (bf16, bf16-SR, 1 epoch, decoded "
+        f"through the pool): median {out['step_ms_median']:.2f} ms a step; "
+        f"phase 7's maps-only run at the same precision: epoch 0 "
+        f"{out['maps_only_epoch0_step_ms']:.2f} ms, both epochs "
+        f"{out['maps_only_step_ms_median']:.2f} ms")
+    return out
+
+
+def _tail_estimator(model_dir: pathlib.Path, data: dict, root: pathlib.Path
+                    ) -> dict:
+    """SvbrdfEstimator on the card: predict on 8 test photos bit-equal to a
+    fresh model restored from the same checkpoint; predict_to_files; the
+    times."""
+    from svbrdf_tpu_torch.data import strips
+    from svbrdf_tpu_torch.estimator import SvbrdfEstimator
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.parallel.step import make_predict_fn
+    from svbrdf_tpu_torch.training.checkpoint import Checkpoint
+
+    est, _, _ = _tail_run("estimator load", lambda: _quiet(
+        SvbrdfEstimator.from_checkpoint, model_dir, device=TAIL["device"]))
+    if est.device.type != TAIL["device"]:
+        raise RuntimeError(f"tail estimator: on {est.device}")
+    photos = data["photos"][:TAIL["predict_batch"]]
+    images = np.stack([strips.read_image(p) for p in photos]) ** 2.2
+    maps, _, counts = _tail_run("estimator predict",
+                                lambda: est.predict(images))
+    fresh = build_model("single", False, CLI["depth"], CLI["num_filters"],
+                        device=TAIL["device"], seed=1)
+    _quiet(lambda: Checkpoint.load(model_dir).restore_params(fresh))
+    direct = make_predict_fn(fresh)(torch.from_numpy(images).to(
+        TAIL["device"]))
+    if not np.array_equal(maps, direct.cpu().numpy()):
+        raise RuntimeError("tail estimator: predict differs from a fresh "
+                           "model restored from the checkpoint")
+    size = TAIL["size"]
+    if maps.shape != (len(photos), size, size, 12) \
+            or not np.isfinite(maps).all():
+        raise RuntimeError(f"tail estimator: maps {maps.shape}")
+    out_dir = root / "predicted"
+    written, _, _ = _tail_run("estimator files", lambda: est.predict_to_files(
+        photos, str(out_dir)))
+    for path in written:
+        if strips.read_image_u8(path).shape != (size, 4 * size, 3):
+            raise RuntimeError(f"tail estimator: {path} misread")
+    predict_ms = cuda_ms(lambda: est.predict(images))
+    files_ms = _host_ms(lambda: est.predict_to_files(photos, str(out_dir)),
+                        reps=3) / len(photos)
+    log(f"tail estimator: predict of {len(photos)} photos bit-equal to a "
+        f"fresh restored model; {len(written)} map strips read back at "
+        f"({size}, {4 * size}, 3); predict {predict_ms:.2f} ms at batch "
+        f"{len(photos)} (CUDA events, median of 20, numpy in and out), "
+        f"{files_ms:.2f} ms a photo file to file (host clock, median of 3)")
+    return {"predict_ms": predict_ms, "files_ms_per_photo": files_ms,
+            "written": len(written), "launches": _nonzero(counts)}
+
+
+def _tail_recovery() -> dict:
+    """Map recovery at 256^2 on the card (diffuse, 200 fixed-scene steps,
+    6 scenes): converges; at 16^2, 10 steps card against CPU."""
+    from svbrdf_tpu_torch.data import toy
+    from svbrdf_tpu_torch.experiments import recover_maps
+    from svbrdf_tpu_torch.ops import sampling
+    from svbrdf_tpu_torch.scene import Scene
+
+    def scenes(seed):
+        drawn = sampling.generate_loss_scenes(
+            1, TAIL["recovery_scenes"] // 2,
+            TAIL["recovery_scenes"] - TAIL["recovery_scenes"] // 2,
+            generator=torch.Generator().manual_seed(seed))
+        return Scene(drawn.camera_pos[0], drawn.light_pos[0],
+                     drawn.light_color[0])
+
+    target = toy.make_toy_svbrdf(np.random.default_rng(5), TAIL["size"])
+    steps = TAIL["recovery_steps"]
+    dev = TAIL["device"]
+    result, seconds, counts = _tail_run("map recovery", lambda: recover_maps(
+        torch.Generator(device=dev).manual_seed(0), target,
+        optimize=("diffuse",), steps=steps, scenes=scenes(1), device=dev))
+    trace = result.losses.cpu()
+    first, last = float(trace[0]), float(trace[-1])
+    if result.svbrdf.device.type != dev or not last < 0.3 * first:
+        raise RuntimeError(f"tail map recovery on {result.svbrdf.device}: "
+                           f"loss {first} -> {last}")
+    small = toy.make_toy_svbrdf(np.random.default_rng(6), TAIL["small_size"])
+    card, cpu = (recover_maps(torch.Generator(device=d).manual_seed(0),
+                              small, optimize=("diffuse",),
+                              steps=TAIL["small_steps"], scenes=scenes(2),
+                              device=d) for d in (dev, "cpu"))
+    loss_rel = float(((card.losses.cpu() - cpu.losses).abs()
+                      / cpu.losses.abs()).max())
+    maps_abs = float((card.svbrdf.cpu() - cpu.svbrdf).abs().max())
+    out = {"first_loss": first, "last_loss": last,
+           "ms_per_step": seconds / steps * 1e3,
+           "small_loss_rel": loss_rel, "small_maps_abs": maps_abs,
+           "launches": _nonzero(counts)}
+    log(f"tail map recovery ({TAIL['size']}^2, diffuse, {steps} steps, "
+        f"{TAIL['recovery_scenes']} fixed scenes): loss {first:.5f} -> "
+        f"{last:.5f} ({last / first:.3f}x); {out['ms_per_step']:.2f} ms a "
+        f"step; at {TAIL['small_size']}^2, {TAIL['small_steps']} steps card "
+        f"vs CPU: loss rel {loss_rel:.3g} (limit {TAIL_TOL['loss_rel']}), "
+        f"maps {maps_abs:.3g} (limit {TAIL_TOL['maps_abs']})")
+    if loss_rel > TAIL_TOL["loss_rel"] or maps_abs > TAIL_TOL["maps_abs"]:
+        raise RuntimeError(f"tail map recovery card vs CPU: loss rel "
+                           f"{loss_rel:.3g}, maps {maps_abs:.3g}")
+    return out
+
+
+def _tail_turntable(root: pathlib.Path) -> dict:
+    """8 frames of 384^2 from a 256^2 toy map, written as a GIF."""
+    from svbrdf_tpu_torch import viz
+    from svbrdf_tpu_torch.data import gif, toy
+
+    target = toy.make_toy_svbrdf(np.random.default_rng(7), TAIL["size"])
+    path = root / "turntable.gif"
+    sensor = (TAIL["sensor"], TAIL["sensor"])
+
+    def run():
+        frames = viz.turntable_frames(target, n_frames=TAIL["frames"],
+                                      sensor_size=sensor,
+                                      device=TAIL["device"])
+        viz.save_animation(str(path), frames)
+        return frames
+
+    frames, seconds, counts = _tail_run("turntable", run)
+    info = gif.gif_info(str(path))
+    if (info != {"size": sensor, "frames": TAIL["frames"],
+                 "delays_cs": [7] * TAIL["frames"], "loop": 0}
+            or max(float(f.mean()) for f in frames) <= 0.05):
+        raise RuntimeError(f"tail turntable: {info}")
+    log(f"tail turntable: {TAIL['frames']} frames of {sensor} from a "
+        f"{TAIL['size']}^2 map in {seconds:.2f} s; GIF89a {info}, "
+        f"{path.stat().st_size} bytes")
+    return {"seconds": seconds, "gif": info, "bytes": path.stat().st_size,
+            "launches": _nonzero(counts)}
+
+
+def _tail_examples(root: pathlib.Path, model_dir: pathlib.Path,
+                   data: dict) -> dict:
+    """Each of the four examples' main(argv) once on the toy strips."""
+    from svbrdf_tpu_torch.examples import (predict, recover_maps,
+                                           renderer_compare, turntable)
+
+    strip = data["test"][0]
+    out = root / "examples"
+    out.mkdir()
+    runs = {
+        "predict": (predict.main, [str(model_dir), str(out / "predict"),
+                                   *data["photos"][:2]],
+                    [out / "predict" / (pathlib.Path(p).stem
+                                        + "_svbrdf.png")
+                     for p in data["photos"][:2]]),
+        "turntable": (turntable.main, [strip, str(out / "t.gif"), "4"],
+                      [out / "t.gif"]),
+        "renderer_compare": (renderer_compare.main,
+                             [strip, str(out / "compare.png")],
+                             [out / "compare.png"]),
+        "recover_maps": (recover_maps.main,
+                         [strip, "diffuse", str(out / "recovered.png"),
+                          str(TAIL["example_recovery_steps"])],
+                         [out / "recovered.png"]),
+    }
+    result = {}
+    for name, (main_fn, argv, files) in runs.items():
+        argv = argv + ["--device", TAIL["device"]]
+        _, seconds, counts = _tail_run(f"example {name}",
+                                       lambda: _quiet(main_fn, argv))
+        missing = [str(f) for f in files if not f.is_file()]
+        if missing:
+            raise RuntimeError(f"tail example {name} wrote no {missing}")
+        result[name] = {"seconds": seconds, "launches": _nonzero(counts)}
+    log("tail examples: " + ", ".join(f"{k} {v['seconds']:.2f} s"
+                                     for k, v in result.items()))
+    return result
+
+
+def _tail_mfu(steps_ms: dict) -> dict:
+    """utils/flops.mfu of the main path's train-step medians (phases
+    5-6): bf16-SR against the card's bf16 peak, f32 against its f32 one."""
+    from svbrdf_tpu_torch.utils import flops
+
+    name = torch.cuda.get_device_name(0)
+    out = {"card": _card()}
+    for label, path, dtype in (("bf16_bf16sr", "single_mixed_bf16",
+                                "bfloat16"),
+                               ("f32", "single_mixed", "float32")):
+        ms = steps_ms[path]["train_step"]
+        out[label] = {"train_step_ms": ms, "mfu": flops.mfu(
+            ms / 1e3, MAIN["batch"], MAIN["size"], dtype, device_name=name),
+            "peak_flops": flops.peak_flops(name, dtype)}
+    out["train_step_flops"] = flops.train_step_flops(MAIN["batch"],
+                                                     MAIN["size"])
+    log(f"tail MFU ({out['card']}): bf16-SR train step "
+        f"{out['bf16_bf16sr']['train_step_ms']:.2f} ms -> "
+        f"{out['bf16_bf16sr']['mfu']:.4%} of "
+        f"{out['bf16_bf16sr']['peak_flops'] / 1e12:g} TFLOP/s; f32 "
+        f"{out['f32']['train_step_ms']:.2f} ms -> {out['f32']['mfu']:.4%} "
+        f"of {out['f32']['peak_flops'] / 1e12:g} TFLOP/s "
+        f"({out['train_step_flops']} model FLOPs a step)")
+    return out
+
+
+def phase_tail(steps_ms: dict, cli: dict) -> dict:
+    """Phase 9: toy photo strips made on the card -> the CLI trains on them
+    -> the estimator predicts from its checkpoint -> map recovery -> a
+    turntable GIF -> the four examples; and the main path's MFU."""
+    start = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        data = _tail_data(root)
+        out["toy_data"] = {k: data[k] for k in ("ms_per_strip", "launches")}
+        model_dir = root / "model"
+        out["cli"] = _tail_cli(data["train"], model_dir, cli)
+        out["estimator"] = _tail_estimator(model_dir, data, root)
+        out["map_recovery"] = _tail_recovery()
+        out["turntable"] = _tail_turntable(root)
+        out["examples"] = _tail_examples(root, model_dir, data)
+    out["mfu"] = _tail_mfu(steps_ms)
+    out["seconds"] = time.perf_counter() - start
+    log(f"tail phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it "
@@ -2059,6 +2457,7 @@ def main() -> None:
     times = kernel_times(inputs, inputs_bf16, rates)
     cli = phase_cli(steps_ms)
     dp = phase_data_parallel()
+    tail = phase_tail(steps_ms, cli)
     launcher = dp["launcher"]["launcher_world1"]["launches"]
 
     def dp_launches(name):
@@ -2099,7 +2498,9 @@ def main() -> None:
             cli_launches={run: {"f32": c["launches"][k],
                                 "bf16": c["launches"][k + "_bf16"]}
                           for run, c in cli["runs"].items()},
-            data_parallel_launches=dp_launches(k)))
+            data_parallel_launches=dp_launches(k),
+            tail_cli_launches={"f32": tail["cli"]["launches"][k],
+                               "bf16": tail["cli"]["launches"][k + "_bf16"]}))
     # sr_adam: launches from the bf16-SR main path; the times of one whole
     # optimizer step of that path's model (one launch a step).
     main_step = optimizer["single_mixed_bf16"]
@@ -2124,12 +2525,15 @@ def main() -> None:
         optimizer_step=optimizer, library_ms=None,
         cli_launches={run: c["launches"]["sr_adam"]
                       for run, c in cli["runs"].items()},
-        data_parallel_launches=dp_launches("sr_adam")))
+        data_parallel_launches=dp_launches("sr_adam"),
+        tail_cli_launches=tail["cli"]["launches"]["sr_adam"],
+        bf16_state_launches=sr_checks["bf16_state_launches"],
+        bf16_state_code=code["bf16mu"]))
     steps_ms["agreement_bf16"] = agreement_bf16
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "steps_ms": steps_ms,
                       "cli": cli, "pathtrace": traced,
-                      "data_parallel": dp}))
+                      "data_parallel": dp, "tail": tail}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -22,6 +22,14 @@
 // master_salt + i, in uint32. g, p, mu and nu are each f32 or bf16, per
 // leaf.
 //
+// In the 'bf16' state mode (optax.adam(mu_dtype=bfloat16)) the launch's
+// flag picks the other kernel, which forms mu' in optax's order instead:
+//   mu' = f32(bf16(mu * bf16(b1))) + g * (1 - b1)
+// the product of two bf16 values exact in f32 and rounded once to bf16;
+// u is computed from that f32 mu' and only the stored mu is rounded. The
+// two kernels share every other line, so sr_adam_kernel's code is the
+// same as without the second one.
+//
 // Rounding: the plain version's ops in its order, IEEE division and
 // sqrtf, no contraction into FMAs (built with -fmad=false, ops/_build.py),
 // the hash in uint32: bit-exact with the plain version.
@@ -172,13 +180,21 @@ __device__ __forceinline__ void store1_sr(__nv_bfloat16* a, float x,
       sr_bits(x, idx, salt)));
 }
 
-// The update of one element, in the plain version's order.
+// The update of one element, in the plain version's order; kBf16Mu: the
+// first moment's product with b1 in bf16, as optax forms a bf16 mu.
 struct Moments {
   float mu, nu, u;
 };
+template <bool kBf16Mu>
 __device__ __forceinline__ Moments adam(float g32, float mu, float nu,
                                         const Scalars& s) {
-  const float mu32 = mu * s.b1 + g32 * s.omb1;
+  float mu32;
+  if constexpr (kBf16Mu) {
+    const float b1 = __bfloat162float(__float2bfloat16_rn(s.b1));
+    mu32 = __bfloat162float(__float2bfloat16_rn(mu * b1)) + g32 * s.omb1;
+  } else {
+    mu32 = mu * s.b1 + g32 * s.omb1;
+  }
   const float nu32 = nu * s.b2 + g32 * g32 * s.omb2;
   float u = (mu32 / s.bc1) / (sqrtf(nu32 / s.bc2) + s.eps);
   u = u * s.neg_lr;
@@ -186,7 +202,7 @@ __device__ __forceinline__ Moments adam(float g32, float mu, float nu,
 }
 
 // One chunk of one leaf: elements [first, first + len).
-template <class P, class G, class M, class N>
+template <bool kBf16Mu, class P, class G, class M, class N>
 __device__ __forceinline__ void update_chunk(const Leaf& leaf,
                                              long long first, int len,
                                              const Scalars& s) {
@@ -210,7 +226,7 @@ __device__ __forceinline__ void update_chunk(const Leaf& leaf,
     load8(p + j, pv);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
-      const Moments m = adam(gv[k], mv[k], nv[k], s);
+      const Moments m = adam<kBf16Mu>(gv[k], mv[k], nv[k], s);
       mv[k] = m.mu;
       nv[k] = m.nu;
       pv[k] = pv[k] + m.u;
@@ -225,7 +241,8 @@ __device__ __forceinline__ void update_chunk(const Leaf& leaf,
     });
   }
   for (int j = n_vec * kVec + threadIdx.x; j < len; j += kThreads) {
-    const Moments m = adam(to_f32(g[j]), to_f32(mu[j]), to_f32(nu[j]), s);
+    const Moments m =
+        adam<kBf16Mu>(to_f32(g[j]), to_f32(mu[j]), to_f32(nu[j]), s);
     const unsigned idx = base + static_cast<unsigned>(j);
     store1_rn(mu + j, m.mu);
     store1_sr(nu + j, m.nu, idx, nu_salt);
@@ -237,28 +254,43 @@ template <bool kBf16>
 using Storage = std::conditional_t<kBf16, __nv_bfloat16, float>;
 
 // The body for the leaf's dtype code, one comparison at a time.
-template <int kCode = 0>
+template <bool kBf16Mu, int kCode = 0>
 __device__ __forceinline__ void dispatch(const Leaf& leaf, long long first,
                                          int len, const Scalars& s) {
   if constexpr (kCode < 16) {
     if ((leaf.code & 15) == kCode) {
-      update_chunk<Storage<(kCode & 1) != 0>, Storage<(kCode & 2) != 0>,
-                   Storage<(kCode & 4) != 0>, Storage<(kCode & 8) != 0>>(
-          leaf, first, len, s);
+      update_chunk<kBf16Mu, Storage<(kCode & 1) != 0>,
+                   Storage<(kCode & 2) != 0>, Storage<(kCode & 4) != 0>,
+                   Storage<(kCode & 8) != 0>>(leaf, first, len, s);
     } else {
-      dispatch<kCode + 1>(leaf, first, len, s);
+      dispatch<kBf16Mu, kCode + 1>(leaf, first, len, s);
     }
   }
 }
 
 // One block per chunk; chunks[3 * b .. 3 * b + 2] = (table entry, first
 // element, length) of block b.
+template <bool kBf16Mu>
+__device__ __forceinline__ void update_block(const Table& table,
+                                             const long long* chunks) {
+  const long long* c = chunks + 3 * static_cast<long long>(blockIdx.x);
+  const Leaf& leaf = table.leaves[static_cast<int>(__ldg(c))];
+  dispatch<kBf16Mu>(leaf, __ldg(c + 1), static_cast<int>(__ldg(c + 2)),
+                    table.s);
+}
+
 __global__ void __launch_bounds__(kThreads)
 sr_adam_kernel(const __grid_constant__ Table table,
                const long long* __restrict__ chunks) {
-  const long long* c = chunks + 3 * static_cast<long long>(blockIdx.x);
-  const Leaf& leaf = table.leaves[static_cast<int>(__ldg(c))];
-  dispatch(leaf, __ldg(c + 1), static_cast<int>(__ldg(c + 2)), table.s);
+  update_block<false>(table, chunks);
+}
+
+// The 'bf16' state mode's update (optax's bf16 mu), launched when the
+// launch's flag asks for it.
+__global__ void __launch_bounds__(kThreads)
+sr_adam_bf16mu_kernel(const __grid_constant__ Table table,
+                      const long long* __restrict__ chunks) {
+  update_block<true>(table, chunks);
 }
 
 }  // namespace
@@ -270,13 +302,15 @@ int svbrdf_sr_adam_max_leaves(void) { return kMaxLeaves; }
 
 // The update of n_leaves leaves in place, one launch: `leaves` points to
 // n_leaves packed Leaf records on the host, `chunks` to n_chunks (entry,
-// first element, length) int64 triples on the device. Returns the CUDA
-// error of the launch (0: launched).
+// first element, length) int64 triples on the device; bf16_mu_product
+// nonzero: the first moment in optax's bf16-mu order (the 'bf16' state
+// mode). Returns the CUDA error of the launch (0: launched).
 int svbrdf_sr_adam_multi(const void* leaves, int n_leaves,
                          const long long* chunks, long long n_chunks,
                          unsigned nu_base, unsigned master_salt, float b1,
                          float omb1, float b2, float omb2, float bc1,
-                         float bc2, float eps, float neg_lr, void* stream) {
+                         float bc2, float eps, float neg_lr,
+                         int bf16_mu_product, void* stream) {
   if (n_leaves < 0 || n_leaves > kMaxLeaves || n_chunks < 0 ||
       n_chunks > 0x7FFFFFFFLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -286,8 +320,13 @@ int svbrdf_sr_adam_multi(const void* leaves, int n_leaves,
   table.s = Scalars{b1, omb1, b2, omb2, bc1, bc2, eps, neg_lr, nu_base,
                     master_salt};
   std::memcpy(table.leaves, leaves, sizeof(Leaf) * n_leaves);
-  sr_adam_kernel<<<static_cast<unsigned>(n_chunks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(table, chunks);
+  const unsigned blocks = static_cast<unsigned>(n_chunks);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16_mu_product) {
+    sr_adam_bf16mu_kernel<<<blocks, kThreads, 0, st>>>(table, chunks);
+  } else {
+    sr_adam_kernel<<<blocks, kThreads, 0, st>>>(table, chunks);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,93 @@
+"""High-level inference API: checkpoint -> SVBRDF maps.
+
+Counterpart of svbrdf_tpu/estimator.py:
+
+    est = SvbrdfEstimator.from_checkpoint("./model")   # on the card
+    maps = est.predict(images)            # (B, H, W, 12) NHWC, numpy
+    est.predict_to_files(["photo.png"], "./out")
+
+The model runs on the device it was made on: the card unless the caller
+passes device="cpu" (device.resolve_device; without a card that raises).
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from svbrdf_tpu_torch.data import strips
+from svbrdf_tpu_torch.device import resolve_device
+from svbrdf_tpu_torch.models import build_model
+from svbrdf_tpu_torch.ops import codecs
+from svbrdf_tpu_torch.parallel.step import make_predict_fn
+from svbrdf_tpu_torch.training.checkpoint import Checkpoint
+
+
+class SvbrdfEstimator:
+    def __init__(self, model):
+        self.model = model
+        self.device = next(model.parameters()).device
+        self._predict = make_predict_fn(model)
+
+    @classmethod
+    def from_checkpoint(cls, model_dir, dtype=torch.float32,
+                        image_size: int = 256,
+                        device="cuda") -> "SvbrdfEstimator":
+        """Accepts every model-dir layout the port's `Checkpoint.load`
+        accepts: a `checkpoint.tar` or a legacy `model.data` (+ `state.json`);
+        a directory that holds only the JAX package's Orbax state raises
+        with the command that exports it. The architecture comes from the
+        checkpoint itself (restore_args), as the CLI resolves it. The model
+        computes in `dtype` on `device`; `image_size` is accepted as the
+        JAX package's is (the port's models need no sample to be made)."""
+        dev = resolve_device(device)
+        ck = Checkpoint.load(pathlib.Path(model_dir))
+        if not ck.is_valid():
+            raise FileNotFoundError(f"no checkpoint in '{model_dir}'")
+        spec = argparse.Namespace(model_type="single", use_coords=False,
+                                  model_depth=8, num_filters=64)
+        spec = ck.restore_args(spec)
+        model = build_model(spec.model_type, use_coords=spec.use_coords,
+                            depth=spec.model_depth,
+                            num_filters=spec.num_filters, device=dev,
+                            dtype=dtype)
+        ck.restore_params(model)
+        return cls(model)
+
+    def predict(self, images) -> np.ndarray:
+        """images: (B, H, W, 3) or (B, N, H, W, 3) linear RGB in [0, 1],
+        numpy or a tensor -> (B, H, W, 12) packed SVBRDF, f32 numpy."""
+        x = (images if isinstance(images, torch.Tensor)
+             else torch.from_numpy(np.asarray(images, np.float32)))
+        x = x.to(self.device, torch.float32)
+        return self._predict(x).float().cpu().numpy()
+
+    def predict_from_photos(self, paths: Sequence[str],
+                            is_linear: bool = False) -> np.ndarray:
+        """Photograph files -> SVBRDF maps (single batch)."""
+        imgs = np.stack([strips.read_image(p) for p in paths])
+        if not is_linear:
+            imgs = np.clip(imgs, 0.0, 1.0) ** 2.2
+        return self.predict(imgs)
+
+    def predict_to_files(self, paths: Sequence[str], out_dir: str,
+                         is_linear: bool = False) -> list:
+        """Write per-input [normals|diffuse|roughness|specular] map strips,
+        <out_dir>/<photo stem>_svbrdf.png; returns their paths."""
+        out = pathlib.Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        svbrdfs = self.predict_from_photos(paths, is_linear)
+        written = []
+        for path, sv in zip(paths, svbrdfs):
+            maps = codecs.unpack_svbrdf(torch.from_numpy(sv))
+            strip = torch.cat([codecs.encode_as_unit_interval(maps.normals),
+                               maps.diffuse, maps.roughness, maps.specular],
+                              dim=1)
+            target = out / (pathlib.Path(path).stem + "_svbrdf.png")
+            strips.write_image(str(target), strip.numpy())
+            written.append(str(target))
+        return written

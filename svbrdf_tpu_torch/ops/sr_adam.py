@@ -4,7 +4,9 @@
 (SrLeaf: index, p, g, mu, nu) and its two moments in place on the card, in
 one launch per table of at most `max_leaves()` leaves: Adam in f32 with the
 scalars of `s` (parallel/optimizer.AdamScalars), mu stored
-round-to-nearest, a bf16 nu and a bf16 p stochastically rounded. Leaf i
+round-to-nearest, a bf16 nu and a bf16 p stochastically rounded; with
+s.bf16_mu_product (the 'bf16' state mode) the launch's flag picks the
+kernel that forms mu in optax's bf16-mu order. Leaf i
 takes the salts `leaf_salts(s, i)`: s.nu_salt + i and s.master_salt + i in
 uint32. Its plain version is parallel/optimizer.sr_adam_multi_plain,
 bit-exact with it; parallel/optimizer.update_leaves picks the one for the
@@ -99,10 +101,11 @@ def _kernel():
         lib = _build.load(SOURCE)
         fn = lib.svbrdf_sr_adam_multi
         # leaves, n_leaves, chunks, n_chunks; two salt bases; eight floats;
-        # stream
+        # the bf16-mu flag; stream
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                         ctypes.c_longlong] + [ctypes.c_uint] * 2
-                       + [ctypes.c_float] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 8
+                       + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.svbrdf_sr_adam_max_leaves.restype = ctypes.c_int
         _FN["multi"] = fn
@@ -178,7 +181,7 @@ class _Plan:
                         table.chunks.data_ptr(), table.n_chunks,
                         s.nu_salt & _MASK32, s.master_salt & _MASK32, s.b1,
                         s.omb1, s.b2, s.omb2, s.bc1, s.bc2, s.eps, s.neg_lr,
-                        stream)
+                        int(s.bf16_mu_product), stream)
             if rc != 0:
                 raise RuntimeError(f"sr_adam kernel launch failed: CUDA "
                                    f"error {rc}")

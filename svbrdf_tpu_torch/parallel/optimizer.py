@@ -18,9 +18,11 @@ AdamBf16SR computes optax's Adam (bias-corrected, eps outside the square
 root) in f32 and stores the state in the dtypes of its precision:
   - 'bf16sr': >=2-D leaves keep mu bf16 (round to nearest) and nu bf16
     (stochastically rounded); 1-D leaves keep f32 moments;
-  - 'bf16': mu bf16 (round to nearest), nu f32, every leaf
-    (optax.adam(mu_dtype=bfloat16); optax rounds b1 * mu to bf16 before the
-    sum, this class takes mu in f32 as 'bf16sr' does);
+  - 'bf16': mu bf16 (round to nearest), nu f32, every leaf, in the order
+    of optax.adam(mu_dtype=bfloat16): b1 enters as bf16(b1) = 0.8984375
+    and its product with the bf16 mu (exact in f32) is rounded to bf16
+    before the f32 sum with (1 - b1) * g; u is computed from that f32 sum,
+    and only the stored mu is rounded (AdamScalars.bf16_mu_product);
   - 'f32': f32 moments.
 A bf16 parameter (a bf16 master) is updated as sr_bf16(p + u, salt + i)
 with the caller's master salt; an f32 one as p + u. The state's keys are
@@ -118,6 +120,7 @@ class AdamScalars(NamedTuple):
     neg_lr: float
     nu_salt: int
     master_salt: int
+    bf16_mu_product: bool = False
 
 
 def _f32(x) -> float:
@@ -134,15 +137,18 @@ def _bias_correction(b: float, count: int) -> float:
 
 
 def adam_scalars(lr: float, betas: tuple, eps: float, count: int,
-                 nu_salt: int, master_salt: int = 0) -> AdamScalars:
+                 nu_salt: int, master_salt: int = 0,
+                 bf16_mu_product: bool = False) -> AdamScalars:
     """The scalars as the JAX update forms them in f32: b1 and 1 - b1 from
-    Python floats, the bias corrections by _bias_correction."""
+    Python floats, the bias corrections by _bias_correction (with b1 as it
+    is, also where bf16_mu_product rounds it for the product)."""
     b1, b2 = betas
     return AdamScalars(
         b1=_f32(b1), omb1=_f32(1.0 - b1), b2=_f32(b2), omb2=_f32(1.0 - b2),
         bc1=_bias_correction(b1, count), bc2=_bias_correction(b2, count),
         eps=_f32(eps), neg_lr=_f32(-lr), nu_salt=u32(nu_salt),
-        master_salt=u32(master_salt))
+        master_salt=u32(master_salt),
+        bf16_mu_product=bool(bf16_mu_product))
 
 
 @torch.no_grad()
@@ -150,14 +156,20 @@ def adam_update_plain(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                       nu: torch.Tensor, s: AdamScalars) -> None:
     """One leaf's update in place, in f32: mu stored round-to-nearest, nu
     through sr_bf16 when it is bf16, p through sr_bf16 with the master salt
-    when it is bf16, else p + u. The bias corrections divide as tensors on
-    p's device (torch takes a division by a Python number on the card as a
-    product with its reciprocal; the kernel and JAX divide)."""
+    when it is bf16, else p + u; with s.bf16_mu_product the product b1 * mu
+    is taken with bf16(b1) and rounded to bf16 before the sum. The bias
+    corrections divide as tensors on p's device (torch takes a division by
+    a Python number on the card as a product with its reciprocal; the
+    kernel and JAX divide)."""
     def scalar(v):
         return torch.tensor(v, dtype=torch.float32, device=p.device)
 
     g32 = g.float()
-    mu32 = mu.float() * s.b1 + g32 * s.omb1
+    if s.bf16_mu_product:
+        b1 = float(torch.tensor(s.b1).to(torch.bfloat16))
+        mu32 = (mu.float() * b1).to(torch.bfloat16).float() + g32 * s.omb1
+    else:
+        mu32 = mu.float() * s.b1 + g32 * s.omb1
     nu32 = nu.float() * s.b2 + g32 * g32 * s.omb2
     u = (mu32 / scalar(s.bc1)) / (torch.sqrt(nu32 / scalar(s.bc2)) + s.eps)
     u = u * s.neg_lr
@@ -258,7 +270,8 @@ class AdamBf16SR(torch.optim.Optimizer):
         for group, count, leaves in buckets.values():
             s = adam_scalars(group["lr"], group["betas"], group["eps"], count,
                              count * _SALT_STEP,
-                             0 if master_salt is None else master_salt)
+                             0 if master_salt is None else master_salt,
+                             bf16_mu_product=self.precision == "bf16")
             update_leaves(leaves, s, plans)
         return loss
 

@@ -8,9 +8,14 @@ with `git archive COMMIT svbrdf_tpu_torch/csrc | tar -x -C DIR
 --strip-components=2`, or a variant of the current one) with the same C
 interface: the launch entries of ops/render_fused._ENTRIES and
 svbrdf_<source>_threads. The package's own csrc/ is always compared, as
-"csrc". For every tree, both sources are built with the package's nvcc
-flags (ops/_build.NVCC_FLAGS) into DIR/_build, one nvcc per source, all
-started together, and for each of the five kernels, and for each one's
+"csrc". For every tree, the three sources are built with the package's
+nvcc flags (ops/_build.NVCC_FLAGS) into DIR/_build, one nvcc per source,
+all started together. For the SR-Adam kernel (sr_adam.cu) of each tree,
+and its 'bf16' state mode's kernel where the tree has one, it reports the
+ptxas registers and spills, the SASS total, the SASS instructions per
+element of its all-bf16 and all-f32 vector loops and the blocks of 256
+threads that fit one SM by those registers (sr_adam_code). For each of the
+five loss kernels, and for each one's
 bf16 instantiation where the tree has one (reported as <kernel>_bf16, on
 the same inputs cast to bf16), it reports:
   - ptxas registers and spill bytes;
@@ -46,6 +51,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("mixed_loss", "rendering_loss")
+SR_SOURCE = "sr_adam"
 # A part of each kernel's mangled name in the SASS: the current sources'
 # (each instance for float or __nv_bfloat16 planes), then those of the trees
 # whose kernels took f32 planes only: 3b4bfd6 (rendering_fwdgrad_kernel
@@ -64,10 +70,14 @@ SASS_NAMES = {
     "render_fwdgrad_both": ("rendering_both_kernel",
                             "rendering_fwdgrad_kernelILb1E",
                             "rendering_loss_kernelILb1ELb1E"),
-    # csrc/sr_adam.cu's kernel (chip_smoke.py reads its registers and
-    # loops; this tool builds the loss sources only).
+    # csrc/sr_adam.cu's kernels: the update, and the 'bf16' state mode's.
     "sr_adam": ("sr_adam_kernel",),
+    "sr_adam_bf16mu": ("sr_adam_bf16mu_kernel",),
 }
+# The SR-Adam kernel's vector loops by their 16-byte loads and stores a pass
+# (8 elements): every tensor bf16 (one each), every tensor f32 (two each).
+SR_ADAM_LOOPS = {"bf16": (4, 3), "f32": (8, 6)}
+SR_ADAM_THREADS = 256
 BF16_MANGLED = "__nv_bfloat16"
 SASS_OPS = ("FADD", "FMUL", "FFMA", "MUFU.RCP", "MUFU.RSQ", "MUFU.LG2",
             "MUFU.EX2", "MUFU.SQRT", "BRA", "CALL", "LDS", "STS", "LDL",
@@ -89,7 +99,7 @@ def build(trees: dict) -> dict:
     for name, csrc in trees.items():
         out = csrc / "_build"
         out.mkdir(exist_ok=True)
-        for source in SOURCES:
+        for source in SOURCES + (SR_SOURCE,):
             cmd = [nvcc, *_build.NVCC_FLAGS, "-o",
                    str(out / f"lib{source}.so"), str(csrc / f"{source}.cu")]
             procs.append((name, subprocess.Popen(
@@ -224,6 +234,44 @@ def sass_loops(text: str, kernel: str) -> list:
     return sorted(loops, key=lambda loop: loop["instructions"])
 
 
+def blocks_by_registers(registers: int, threads: int = SR_ADAM_THREADS
+                        ) -> int:
+    """Blocks of `threads` threads that fit one SM of compute capability
+    9.0 by registers alone (a kernel without shared memory): each warp's
+    registers allocated in units of 256, 64K registers, 2048 threads and
+    32 blocks an SM."""
+    per_warp = -(-registers * 32 // 256) * 256
+    per_block = per_warp * (threads // 32)
+    return min(65536 // per_block, 2048 // threads, 32)
+
+
+def sr_adam_code(sass: str, ptxas: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads", "sass_total",
+    "blocks_per_sm", "loops": {kind: loop + per_element}}} for each SR-Adam
+    kernel in a library's SASS text (cuobjdump -sass) and its ptxas log
+    (registers None where the log has none). A loop of SR_ADAM_LOOPS is
+    the smallest with its 16-byte loads and stores; its instructions, the
+    division's slow-path calls inside it included, over its 8 elements are
+    its instructions per element."""
+    regs, totals, out = ptxas_lines(ptxas), parse_sass(sass), {}
+    for kernel in ("sr_adam", "sr_adam_bf16mu"):
+        if kernel not in totals:
+            continue
+        entry = {"registers": None, **regs.get(kernel, {}),
+                 "sass_total": totals[kernel]["total"], "loops": {}}
+        if entry["registers"] is not None:
+            entry["blocks_per_sm"] = blocks_by_registers(entry["registers"])
+        loops = sass_loops(sass, kernel)
+        for kind, (ldg, stg) in SR_ADAM_LOOPS.items():
+            found = [loop for loop in loops
+                     if (loop["ldg128"], loop["stg128"]) == (ldg, stg)]
+            if found:
+                entry["loops"][kind] = dict(
+                    found[0], per_element=found[0]["instructions"] / 8)
+        out[kernel] = entry
+    return out
+
+
 class Tree:
     """The kernels of one built tree, bound as render_fused binds the
     package's own: {(name, plane dtype): (C entry, threads)} for every
@@ -339,8 +387,15 @@ def main(argv=None) -> None:
     inputs = {dtype: (loss_inputs(8, 256, 9, dtype=dtype),
                       loss_inputs_near(8, 256, 9, dtype=dtype))
               for dtype in rf.PLANE_DTYPES}
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     built = {}
     for name, csrc in trees.items():
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(csrc / "_build" / f"lib{SR_SOURCE}.so")],
+            check=True, capture_output=True, text=True).stdout
+        result.setdefault("sr_adam", {})[name] = sr_adam_code(sass,
+                                                              logs[name])
+        log(f"{name} sr_adam: {json.dumps(result['sr_adam'][name])}")
         regs = ptxas_lines(logs[name])
         mix = {}
         for source in SOURCES:

@@ -20,9 +20,9 @@ large: a normal's gradient sums 27 terms per pixel, some scaled by
 held normwise (_assert_both_close, test_both_kernel_within_tolerance). A
 bf16 kernel computes what its f32 instantiation computes on the upcast
 planes, each gradient rounded once to bf16. The fused SR-Adam kernel
-(csrc/sr_adam.cu) is bit-exact against its plain version; a bf16 step with
-bf16-SR masters on the card is held to the same step on the CPU as
-chip_smoke.py holds it. TF32 is off for every test.
+(csrc/sr_adam.cu) is bit-exact against its plain version, in its 'bf16'
+state mode too; a bf16 step with bf16-SR masters on the card is held to
+the same step on the CPU as chip_smoke.py holds it. TF32 is off for every test.
 """
 
 import itertools
@@ -665,6 +665,36 @@ def test_sr_adam_multi_splits_tables(cuda):
               else (torch.float32,) * 4, (0, 0, 0, 0)) for i in range(n)]
     s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, 7, 7 * 1000003, 99)
     _hold_multi(_multi_leaves(cuda, specs, seed=6), s, 2)
+
+
+@pytest.mark.parametrize("count", [1, 2148])
+def test_sr_adam_bf16_state_mode_matches_plain(cuda, count):
+    """The 'bf16' state mode (optax's bf16-mu order, the launch's flag): a
+    table of every (p, g, mu, nu) dtype combination, the mode's own (f32 p
+    and g, bf16 mu, f32 nu) among them, with tails, bit-exact against the
+    plain version in one launch; and the flag changes mu (it is not the
+    other kernel under another name)."""
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    combos = list(itertools.product((torch.float32, BF16), repeat=4))
+    specs = [(k, 8 * (k + 1) * 29 + k % 5, dts, (0, 0, 0, 0))
+             for k, dts in enumerate(combos)]
+    specs.append((16, 4096 * 64 + 3, (torch.float32, torch.float32, BF16,
+                                      torch.float32), (0, 0, 0, 0)))
+    s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, count,
+                         count * 1000003, 2 ** 31 - 2, bf16_mu_product=True)
+    leaves = _multi_leaves(cuda, specs, seed=7)
+    _hold_multi(leaves, s, 1)
+    from svbrdf_tpu_torch.ops import sr_adam
+
+    flagged = [sr_adam.SrLeaf(lf.index, *(t.clone() for t in lf[1:]))
+               for lf in leaves[-1:]]
+    plain = [sr_adam.SrLeaf(lf.index, *(t.clone() for t in lf[1:]))
+             for lf in leaves[-1:]]
+    sr_adam.sr_adam_multi_cuda(flagged, s)
+    sr_adam.sr_adam_multi_cuda(plain, s._replace(bf16_mu_product=False))
+    torch.cuda.synchronize()
+    assert not torch.equal(flagged[0].mu, plain[0].mu)
 
 
 def test_path_tracer_card_matches_cpu(cuda):

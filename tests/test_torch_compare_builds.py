@@ -214,3 +214,36 @@ LOOP_SASS = """\
 ])
 def test_sass_loops(kernel, loops):
     assert compare_builds.sass_loops(LOOP_SASS, kernel) == loops
+
+
+@pytest.mark.parametrize("registers, blocks", [
+    # 70 registers: 2304 a warp, 18432 a block of 256 threads: 3 an SM.
+    (70, 3), (64, 4), (32, 8), (128, 2), (255, 1)])
+def test_blocks_by_registers(registers, blocks):
+    assert compare_builds.blocks_by_registers(registers) == blocks
+
+
+SR_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121sr_adam_bf16mu_kernelENS_5TableEPKx' for 'sm_90a'
+ptxas info    : Used 72 registers, used 0 barriers, 10288 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114sr_adam_kernelENS_5TableEPKx' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 70 registers, used 0 barriers, 10288 bytes cmem[0]
+"""
+
+
+def test_sr_adam_code_reads_both_kernels():
+    """The update's kernel and the 'bf16' state mode's are told apart (the
+    second's name holds sr_adam_ but not sr_adam_kernel): each gets its
+    own registers, blocks per SM, SASS total and loops."""
+    sass = LOOP_SASS.split("\t\tFunction : _ZN46")[0]
+    both = sass + sass.replace("14sr_adam_kernel", "21sr_adam_bf16mu_kernel")
+    code = compare_builds.sr_adam_code(both, SR_PTXAS)
+    assert set(code) == {"sr_adam", "sr_adam_bf16mu"}
+    assert code["sr_adam"]["registers"] == 70
+    assert code["sr_adam"]["blocks_per_sm"] == 3
+    assert code["sr_adam_bf16mu"]["registers"] == 72
+    assert code["sr_adam"]["sass_total"] == 12
+    assert code["sr_adam"]["loops"] == {}  # no loop of 4/3 or 8/6 vectors
+    assert compare_builds.sr_adam_code(sass, "")["sr_adam"]["registers"] \
+        is None

@@ -8,11 +8,18 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from svbrdf_tpu_torch import main as main_mod
+from svbrdf_tpu_torch import viz
+from svbrdf_tpu_torch.data import toy
 from svbrdf_tpu_torch.device import resolve_device
+from svbrdf_tpu_torch.estimator import SvbrdfEstimator
+from svbrdf_tpu_torch.examples import (predict, recover_maps,
+                                       renderer_compare, turntable)
+from svbrdf_tpu_torch.experiments import map_recovery
 from svbrdf_tpu_torch.models import MultiViewModel, SingleViewModel
 from svbrdf_tpu_torch.ops import _build
 from svbrdf_tpu_torch.utils import bench_setup
@@ -34,6 +41,17 @@ for name in names:
 import chip_smoke
 print(len(names))
 """
+# Modules the import test must reach: the inference API and the tools
+# (estimator, toy data, map recovery, the GIF writer, FLOP accounting, the
+# examples) among them.
+_TAIL = ("svbrdf_tpu_torch.estimator", "svbrdf_tpu_torch.data.toy",
+         "svbrdf_tpu_torch.data.gif", "svbrdf_tpu_torch.experiments",
+         "svbrdf_tpu_torch.experiments.map_recovery",
+         "svbrdf_tpu_torch.utils.flops", "svbrdf_tpu_torch.viz",
+         "svbrdf_tpu_torch.examples.predict",
+         "svbrdf_tpu_torch.examples.turntable",
+         "svbrdf_tpu_torch.examples.renderer_compare",
+         "svbrdf_tpu_torch.examples.recover_maps")
 
 
 def test_imports_without_jax_or_the_jax_package():
@@ -42,7 +60,17 @@ def test_imports_without_jax_or_the_jax_package():
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 14  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 56  # every module was imported
+
+
+def test_the_import_walk_reaches_the_tail_modules():
+    import pkgutil
+
+    import svbrdf_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(svbrdf_tpu_torch.__path__,
+                                                   "svbrdf_tpu_torch.")}
+    assert set(_TAIL) <= names
 
 
 def _needs_no_card():
@@ -59,6 +87,17 @@ def _needs_no_card():
     lambda: bench_setup.build_program("multi", "rendering", 2, 32, 5, 8),
     lambda: main_mod.main(["--mode", "train", "--input-dir", "data/train",
                            "--image-count", "10", "--model-dir", "unused"]),
+    lambda: SvbrdfEstimator.from_checkpoint("unused"),
+    lambda: toy.generate_toy_dataset("unused"),
+    lambda: toy.render_photos(np.zeros((4, 4, 12), np.float32), None),
+    lambda: map_recovery.recover_maps(None, np.zeros((4, 4, 12))),
+    lambda: viz.turntable_frames(np.zeros((4, 4, 12), np.float32)),
+    lambda: predict.main(["unused", "unused", "unused.png"]),
+    lambda: turntable.main(["data/train/toy_train_00.png", "unused.gif"]),
+    lambda: renderer_compare.main(["data/train/toy_train_00.png",
+                                   "unused.png"]),
+    lambda: recover_maps.main(["data/train/toy_train_00.png", "diffuse",
+                               "unused.png"]),
 ])
 def test_entry_points_raise_without_a_card(entry):
     _needs_no_card()

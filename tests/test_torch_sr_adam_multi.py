@@ -179,7 +179,8 @@ def test_multi_plain_bit_equal_to_the_leaf_loop(precision):
 
 class _LeafLoopAdamBf16SR(opt.AdamBf16SR):
     """AdamBf16SR with the step it had before the multi-tensor one: one
-    update per leaf, each count incremented and read on its own."""
+    update per leaf, each count incremented and read on its own (the
+    'bf16' state mode in optax's bf16-mu order, as the step forms it)."""
 
     @torch.no_grad()
     def step(self, closure=None, master_salt=None):
@@ -190,7 +191,8 @@ class _LeafLoopAdamBf16SR(opt.AdamBf16SR):
             state["step"] += 1
             count = int(state["step"])
             s = opt.adam_scalars(group["lr"], group["betas"], group["eps"],
-                                 count, 0)._replace(
+                                 count, 0, bf16_mu_product=(
+                                     self.precision == "bf16"))._replace(
                 nu_salt=opt.u32(count * opt._SALT_STEP + i),
                 master_salt=opt.u32(0 if master_salt is None
                                     else master_salt + i))
