@@ -137,7 +137,29 @@ Phases, each raising (and so exiting non-zero) on any failure:
          header, frames, delays and loop block read back);
        - the four examples' main(argv) once each, each writing its file;
        - utils/flops.mfu of the main path's f32 and bf16-SR train steps
-         (phases 5-6) against this card's peaks.
+         (phases 5-6) against this card's peaks;
+ 10. spatial H-sharding (--shard-spatial; parallel/spatial,
+     training/spatial_loop), each run with every launch counter set to 0
+     just before and read just after:
+       - render_fwdgrad and render_fwd on the two row halves of the 256^2
+         input set (row offset 0 and 128, global height 256) against their
+         plain versions by phase 3's rules; the halves' losses sum to the
+         whole image's (rel 1e-6);
+       - world 2 (two cards over NCCL where there are two, else both ranks
+         on cuda:0 over gloo): the main path's program at full width, the
+         height split over the ranks, 5 f32 steps (TF32 off, dropout off)
+         against world 1 (DP_TOL), and at 32^2 with cuDNN off
+         (DP_TOL_EXACT); an eval step and predict against one device's;
+         the replicas bit-identical; render_fwdgrad once a train step and
+         render_fwd once an eval step on each rank, every other counter 0;
+         each rank's peak device memory at 256^2 batch 8 and 1024^2 batch 2
+         beside one device's; ms a step and the collectives' host ms;
+       - the CLI at its defaults with --shard-spatial 2 for 1 epoch on
+         phase 7's corpus, main.main(argv, group) in the two ranks: the
+         launches, the checkpoint's meta (upconv 'fold', master_dtype
+         'f32'), a fresh model restored from it predicting the same bits;
+       - dryrun.run_spatial(2), which with one card must raise the no-card
+         error.
 The next-to-last line is the JSON `kernels` record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -2395,6 +2417,384 @@ def phase_tail(steps_ms: dict, cli: dict) -> dict:
     return out
 
 
+# The spatial phase (10): --shard-spatial at world 2 (parallel/spatial,
+# training/spatial_loop). The main path's single-view mixed program at full
+# width (MAIN), the height split over 2 ranks (two cards over NCCL where
+# there are two, else both ranks on cuda:0 over gloo, as phase 8), 5 f32
+# steps (TF32 off, dropout off) held against world 1 as phase 8 holds data
+# parallel (DP_TOL: cuDNN picks its algorithms by the shard's shape), and
+# at 32^2 with cuDNN off at DP_TOL_EXACT; each rank's peak device memory at
+# the shapes of SPATIAL["memory"] (f32, SPATIAL["memory_steps"] steps)
+# beside one device's; eval and predict (the gathered maps within
+# SPATIAL["maps_abs"] of one device's); the two rendering kernels at row
+# offset SPATIAL["offset"] of MAIN["size"] against their plain versions;
+# the CLI with --shard-spatial 2 for 1 epoch on phase 7's corpus; and
+# dryrun.run_spatial(2), which needs two cards.
+SPATIAL = {"steps": 5, "timeout": 900, "memory_steps": 2,
+           "memory": ((256, 8), (1024, 2)), "offset": 128, "runs": 5,
+           "maps_abs": 1e-4}
+
+
+def _spatial_eval_rank(program: dict, images, runs: int, group) -> dict:
+    """In a rank of the spatial group: the eval step on the program's raw
+    batch and the sharded predict of `images`, each once with every launch
+    counter set to 0 just before and read just after, then `runs` times
+    more under spatial.timed_collectives (host clock, synced): the group's
+    eval loss, the maps gathered on rank 0, each call's launches, median
+    ms and collectives' ms and calls."""
+    from svbrdf_tpu_torch.device import precision_scope
+    from svbrdf_tpu_torch.parallel import spatial
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    dev = group.device
+    out = {}
+    with precision_scope(torch.float32):
+        prog = bench_setup.build_program(**program, space=group)
+        images = images.to(dev)
+        for name, fn in (("eval", lambda: prog.eval_step(prog.raw)),
+                         ("predict", lambda: prog.predict(images))):
+            torch.cuda.synchronize(dev)
+            bench_setup.zero_launch_counts()
+            value = fn()
+            torch.cuda.synchronize(dev)
+            out[f"{name}_launches"] = bench_setup.launch_counts()
+            times = []
+            with spatial.timed_collectives(dev) as collectives:
+                for _ in range(runs):
+                    start = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize(dev)
+                    times.append((time.perf_counter() - start) * 1e3)
+            out[f"{name}_ms"] = statistics.median(times)
+            out[f"{name}_collective_ms"] = collectives["ms"] / runs
+            out[f"{name}_collective_calls"] = collectives["calls"] / runs
+            out[name] = value
+    out["eval"] = float(out["eval"])
+    maps = spatial.gather_maps(out.pop("predict"), group)
+    out["maps"] = None if maps is None else maps.cpu()
+    return out
+
+
+def _spatial_cli_rank(argv: list, images, group) -> dict:
+    """In a rank of the spatial group: main.main(argv, group) with every
+    launch counter set to 0 just before and read just after; the run's
+    steps, validation batches, last loss, median ms a step, printout, the
+    sr_adam launches a step its optimizer takes, and on rank 0 the trained
+    model's maps of `images` (unsharded predict)."""
+    from svbrdf_tpu_torch import main as cli_main
+    from svbrdf_tpu_torch.parallel.optimizer import AdamBf16SR
+    from svbrdf_tpu_torch.parallel.step import make_predict_fn
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    torch.cuda.synchronize(group.device)
+    bench_setup.zero_launch_counts()
+    text = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        run = cli_main.main(argv, group)
+    torch.cuda.synchronize(group.device)
+    out = {"seconds": time.perf_counter() - start,
+           "launches": bench_setup.launch_counts(), "steps": run.steps,
+           "validation_batches": run.validation_batches,
+           "last_loss": run.last_loss,
+           "step_ms_median": run.timer.median_ms(), "text": text.getvalue(),
+           "sr_adam_per_step": (_sr_adam_launches(run.model)
+                                if isinstance(run.optimizer, AdamBf16SR)
+                                else 0)}
+    if group.is_main:
+        out["maps"] = make_predict_fn(run.model)(
+            images.to(group.device)).cpu()
+    return out
+
+
+def _peak_bytes(fn) -> tuple:
+    """(fn(), the device's peak allocation while it ran, less what was
+    allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, torch.cuda.max_memory_allocated() - base
+
+
+def _spatial_offset_kernels(inputs) -> dict:
+    """render_fwdgrad and render_fwd on the two row halves of `inputs`
+    (rows 0 and SPATIAL["offset"] of the global height), each against its
+    plain version at the same offset by phase 3's rules (loss rel 1e-5;
+    render_fwdgrad's gradient within 1e-6 of its max |value|), and the
+    halves' losses summed against the whole image's (rel 1e-6), the
+    halves' gradients put together against the whole's (the same rule)."""
+    from svbrdf_tpu_torch.ops import render_fused as rf
+
+    pred_t, gt_t, scenes9 = inputs
+    height = pred_t.shape[2]
+    cut = SPATIAL["offset"]
+    out = {}
+    for name in ("render_fwdgrad", "render_fwd"):
+        wrapper, plain = rf.CUDA_WRAPPERS[name], rf.PLAIN_VERSIONS[name]
+        whole = _outputs(wrapper(pred_t, gt_t, scenes9))
+        halves, errs = [], {}
+        for lo, hi in ((0, cut), (cut, height)):
+            args = (pred_t[:, :, lo:hi].contiguous(),
+                    gt_t[:, :, lo:hi].contiguous(), scenes9, lo, height)
+            got, ref = _outputs(wrapper(*args)), _outputs(plain(*args))
+            torch.cuda.synchronize()
+            rel = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+            grad = (float((got[1] - ref[1]).abs().max())
+                    / float(ref[1].abs().max())) if len(got) > 1 else 0.0
+            if rel > 1e-5 or grad > 1e-6:
+                raise RuntimeError(f"{name} at row offset {lo}: loss rel "
+                                   f"{rel:.3g}, gradient {grad:.3g} of its "
+                                   f"max from its plain version")
+            errs[f"offset_{lo}"] = {"loss_rel": rel, "grad_rel_max": grad}
+            halves.append(got)
+        total = float(halves[0][0]) + float(halves[1][0])
+        sum_rel = abs(total - float(whole[0])) / abs(float(whole[0]))
+        grad_sum = 0.0
+        if len(whole) > 1:
+            joined = torch.cat([h[1] for h in halves], dim=2)
+            grad_sum = (float((joined - whole[1]).abs().max())
+                        / float(whole[1].abs().max()))
+        if sum_rel > 1e-6 or grad_sum > 1e-6:
+            raise RuntimeError(f"{name}: the halves sum to {total!r} against "
+                               f"the whole's {float(whole[0])!r} (rel "
+                               f"{sum_rel:.3g}), gradients {grad_sum:.3g}")
+        out[name] = dict(errs, halves_sum_rel=sum_rel,
+                         halves_grad_rel_max=grad_sum)
+        log(f"spatial {name} at row offsets 0 and {cut} of {height}: vs "
+            f"plain loss rel {errs['offset_0']['loss_rel']:.3g} / "
+            f"{errs[f'offset_{cut}']['loss_rel']:.3g}, gradient "
+            f"{errs['offset_0']['grad_rel_max']:.3g} / "
+            f"{errs[f'offset_{cut}']['grad_rel_max']:.3g} of its max; the "
+            f"halves' losses sum to the whole's at rel {sum_rel:.3g}, "
+            f"gradients {grad_sum:.3g}")
+    return out
+
+
+def _spatial_cli(backend: str, images) -> dict:
+    """The CLI at its defaults with --shard-spatial 2, 1 epoch on phase 7's
+    corpus, main.main(argv, group) in the two ranks: every rank's launches
+    (render_fwdgrad once a train step, render_fwd once a validation batch,
+    sr_adam as its optimizer takes it, 0 else), finite losses, the
+    checkpoint's meta (upconv 'fold', master_dtype 'f32'), and a fresh
+    model restored from it predicting the trained model's bits."""
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.parallel.step import make_predict_fn
+    from svbrdf_tpu_torch.training.checkpoint import Checkpoint
+    from svbrdf_tpu_torch.training.loop import resolve_dtype
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    per_epoch = math.ceil(math.ceil(CLI["samples"] * 0.99) / CLI["batch"])
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        data = _cli_dataset(root)
+        model_dir = root / "spatial"
+        argv = ["--mode", "train", "--input-dir", str(data),
+                "--image-count", "0", "--used-image-count", "1",
+                "--loss", "mixed", "--save-frequency", "1",
+                "--validation-frequency", "1", "--model-dir",
+                str(model_dir), "--image-size", str(CLI["size"]),
+                "--model-depth", str(CLI["depth"]), "--num-filters",
+                str(CLI["num_filters"]), "--batch-size", str(CLI["batch"]),
+                "--epochs", "1", "--retrain", "--gpu-id", "0",
+                "--shard-spatial", "2"]
+        (runs,) = bench_setup.rank_runs(
+            2, [(_spatial_cli_rank, (argv, images), {})], "cuda", backend,
+            SPATIAL["timeout"])
+        for rank, run in enumerate(runs):
+            if (run["steps"], run["validation_batches"]) != (per_epoch, 1):
+                raise RuntimeError(f"spatial cli rank {rank}: {run['steps']} "
+                                   f"steps, {run['validation_batches']} "
+                                   f"validation batches")
+            _expect(run["launches"], {
+                "render_fwdgrad": run["steps"],
+                "render_fwd": run["validation_batches"],
+                "sr_adam": run["steps"] * run["sr_adam_per_step"]},
+                f"spatial cli rank {rank}")
+            if (not math.isfinite(run["last_loss"]) or "Spatial group: H "
+                    "split over 2 rank(s)" not in run["text"]):
+                raise RuntimeError(f"spatial cli rank {rank}: last loss "
+                                   f"{run['last_loss']}")
+        blob = torch.load(model_dir / "checkpoint.tar", map_location="cpu",
+                          weights_only=True)
+        meta = {k: blob.get(k) for k in ("upconv", "master_dtype", "epoch")}
+        if meta != {"upconv": "fold", "master_dtype": "f32", "epoch": 0}:
+            raise RuntimeError(f"spatial cli: checkpoint meta {meta}")
+        fresh = build_model("single", False, CLI["depth"],
+                            CLI["num_filters"], device="cuda", seed=1,
+                            dtype=resolve_dtype("auto", "cuda"))
+        _quiet(lambda: Checkpoint.load(model_dir).restore_params(fresh))
+        # TF32 as the ranks' processes left it: torch's defaults.
+        with _tf32(True, False):
+            same = torch.equal(make_predict_fn(fresh)(images.cuda()).cpu(),
+                               runs[0]["maps"])
+        if not same:
+            raise RuntimeError("spatial cli: a fresh model restored from the "
+                               "checkpoint predicts otherwise than the "
+                               "trained model")
+    out = {"launches": [r["launches"] for r in runs],
+           "step_ms_median": [r["step_ms_median"] for r in runs],
+           "seconds": [r["seconds"] for r in runs],
+           "last_loss": runs[0]["last_loss"], "meta": meta}
+    log(f"spatial cli (--shard-spatial 2, the CLI's defaults, 1 epoch, "
+        f"{per_epoch} steps) over {backend}: launches per rank "
+        f"{[_nonzero(c) for c in out['launches']]}; median ms a step "
+        f"{[round(v, 2) for v in out['step_ms_median']]}; checkpoint meta "
+        f"{meta}; a fresh restored model predicts the same bits")
+    return out
+
+
+def phase_spatial(inputs) -> dict:
+    """Phase 10: spatial H-sharding on the card (SPATIAL)."""
+    from svbrdf_tpu_torch.parallel import dryrun
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    card = _card()
+    start = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    steps, runs = SPATIAL["steps"], SPATIAL["runs"]
+    program = dict(model_kind="single", loss_kind="mixed",
+                   batch=MAIN["batch"], size=MAIN["size"],
+                   depth=MAIN["depth"], num_filters=MAIN["num_filters"],
+                   seed=0, device="cuda")
+    small = dict(program, **DP_EXACT)
+    memory = [dict(program, size=size, batch=batch)
+              for size, batch in SPATIAL["memory"]]
+    images = torch.rand((MAIN["batch"], 1, MAIN["size"], MAIN["size"], 3),
+                        generator=torch.Generator().manual_seed(5))
+    out = {"card": card, "backend": backend, "cards": n_cards,
+           "offset_kernels": _spatial_offset_kernels(inputs)}
+    torch.cuda.empty_cache()
+    jobs = ([(bench_setup.spatial_train_steps, (program, steps), {}),
+             (bench_setup.spatial_train_steps, (small, steps),
+              {"cudnn": False}),
+             (_spatial_eval_rank, (program, images, runs), {})]
+            + [(bench_setup.spatial_train_steps,
+                (p, SPATIAL["memory_steps"]), {}) for p in memory])
+    t = time.perf_counter()
+    two, two_small, two_eval, *two_memory = bench_setup.rank_runs(
+        2, jobs, "cuda", backend, SPATIAL["timeout"])
+    spawn_s = time.perf_counter() - t
+    one, one_peak = _peak_bytes(lambda: bench_setup.train_steps(program,
+                                                                steps))
+    one_small = bench_setup.train_steps(small, steps, cudnn=False)
+    one_memory = [_peak_bytes(lambda p=p: bench_setup.train_steps(
+        p, SPATIAL["memory_steps"]))[1] for p in memory]
+    with _tf32(False, False):
+        prog = bench_setup.build_program(**program)
+        one_eval = float(prog.eval_step(prog.raw))
+        one_maps = prog.predict(images.cuda()).cpu()
+        eval_ms = cuda_ms(lambda: prog.eval_step(prog.raw), runs, 1)
+        predict_ms = cuda_ms(lambda: prog.predict(images.cuda()), runs, 1)
+    del prog
+    torch.cuda.empty_cache()
+
+    checks = {}
+    for name, run, ref, tol in (("full", two[0], one, DP_TOL),
+                                ("32_cudnn_off", two_small[0], one_small,
+                                 {"loss_rel_first": DP_TOL_EXACT["loss_rel"],
+                                  **DP_TOL_EXACT})):
+        rels = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                    ref["losses"])]
+        update = _update_normwise(run, ref)
+        checks[name] = {"loss_rel_first": rels[0], "loss_rel": max(rels),
+                        "update_normwise": update}
+        if (rels[0] > tol["loss_rel_first"] or max(rels) > tol["loss_rel"]
+                or update > tol["update"]):
+            raise RuntimeError(f"spatial world 2 {name}: first loss rel "
+                               f"{rels[0]:g}, loss rel {max(rels):g}, update "
+                               f"normwise {update:g}, over {tol}")
+    for name, ranks, want in (
+            ("train", two, {"render_fwdgrad": steps}),
+            ("train 32^2", two_small, {"render_fwdgrad": steps}),
+            *((f"memory {s}^2 batch {b}", r,
+               {"render_fwdgrad": SPATIAL["memory_steps"]})
+              for (s, b), r in zip(SPATIAL["memory"], two_memory))):
+        if len(set(ranks[0]["checksums"])) != 1:
+            raise RuntimeError(f"spatial world 2 {name}: replicas differ")
+        for r, counts in enumerate(ranks[0]["launches"]):
+            _expect(counts, want, f"spatial world 2 {name} rank {r}")
+    for r, e in enumerate(two_eval):
+        _expect(e["eval_launches"], {"render_fwd": 1},
+                f"spatial eval rank {r}")
+        _expect(e["predict_launches"], {}, f"spatial predict rank {r}")
+    eval_rel = abs(two_eval[0]["eval"] - one_eval) / abs(one_eval)
+    maps_abs = float((two_eval[0]["maps"] - one_maps).abs().max())
+    if eval_rel > DP_TOL["loss_rel_first"] or maps_abs > SPATIAL["maps_abs"]:
+        raise RuntimeError(f"spatial eval loss rel {eval_rel:g}, predict "
+                           f"maps max abs {maps_abs:g}")
+    shared = backend == "gloo"
+    ms = {"world2_train": statistics.median(two[0]["step_ms"][1:]),
+          "world1_train": statistics.median(one["step_ms"][1:]),
+          "world2_eval": two_eval[0]["eval_ms"], "world1_eval": eval_ms,
+          "world2_predict": two_eval[0]["predict_ms"],
+          "world1_predict": predict_ms}
+    collectives = {"train_ms": two[0]["collective_ms"],
+                   "train_calls": two[0]["collective_calls"],
+                   "gradient_all_reduce_ms": two[0]["reduce_ms"],
+                   "eval_ms": two_eval[0]["eval_collective_ms"],
+                   "eval_calls": two_eval[0]["eval_collective_calls"],
+                   "predict_ms": two_eval[0]["predict_collective_ms"],
+                   "predict_calls": two_eval[0]["predict_collective_calls"]}
+    peaks = {f"{s}x{s}_batch{b}": {"world2_per_rank": r[0]["peak_bytes"],
+                                   "world1": p}
+             for (s, b), r, p in zip(
+                 SPATIAL["memory"], two_memory, one_memory)}
+    peaks[f"{MAIN['size']}x{MAIN['size']}_batch{MAIN['batch']}"][
+        "world1_5_steps"] = one_peak
+    out.update(checks=checks, step_ms=ms, collectives=collectives,
+               peak_bytes=peaks, eval_loss_rel=eval_rel,
+               predict_maps_max_abs=maps_abs,
+               launches={"train": two[0]["launches"],
+                         "eval": [e["eval_launches"] for e in two_eval]},
+               spawn_and_run_s=spawn_s)
+    log(f"spatial [{card}] world 2 over {backend} ({n_cards} card(s)"
+        + (", both ranks on cuda:0" if shared else "") + f"), f32, "
+        f"{steps} steps vs world 1: full width first loss rel "
+        f"{checks['full']['loss_rel_first']:.3g}, any "
+        f"{checks['full']['loss_rel']:.3g}, update normwise "
+        f"{checks['full']['update_normwise']:.3g} (DP_TOL); 32^2 cuDNN off "
+        f"loss rel {checks['32_cudnn_off']['loss_rel']:.3g}, update "
+        f"{checks['32_cudnn_off']['update_normwise']:.3g} (DP_TOL_EXACT); "
+        f"eval loss rel {eval_rel:.3g}, predict maps max abs "
+        f"{maps_abs:.3g}; replicas bit-identical; launches per rank train "
+        f"{[_nonzero(c) for c in two[0]['launches']]}, eval "
+        f"{[_nonzero(e['eval_launches']) for e in two_eval]}")
+    log(f"spatial [{card}] ms (host clock, synced; train median of steps "
+        f"2-{steps}, eval / predict median of {runs}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+        + (" (both ranks share one card)" if shared else "")
+        + "; collectives a call (host ms, synced on both sides): train "
+        f"{collectives['train_ms']:.2f} in {collectives['train_calls']:.0f} "
+        f"calls and the gradient all-reduce "
+        f"{collectives['gradient_all_reduce_ms']:.2f} (reduce_gradients, "
+        f"median of 5), eval {collectives['eval_ms']:.2f} in "
+        f"{collectives['eval_calls']:.0f}, predict "
+        f"{collectives['predict_ms']:.2f} in "
+        f"{collectives['predict_calls']:.0f}")
+    log(f"spatial [{card}] peak device memory (max_memory_allocated, f32, "
+        f"{SPATIAL['memory_steps']} train steps): " + "; ".join(
+            f"{k}: each rank of world 2 {v['world2_per_rank'] / 2**30:.3f} "
+            f"GiB, one device {v['world1'] / 2**30:.3f} GiB"
+            for k, v in peaks.items()))
+    out["cli"] = _spatial_cli(backend, images[:2])
+    if n_cards >= 2:
+        out["dryrun_loss"] = dryrun.run_spatial(2, timeout=SPATIAL["timeout"])
+    else:
+        try:
+            dryrun.run_spatial(2)
+        except ValueError as e:
+            out["dryrun"] = f"raises without a second card: {e}"
+        else:
+            raise RuntimeError("dryrun.run_spatial(2) ran on one card")
+        log(f"spatial dryrun.run_spatial(2): {out['dryrun']}")
+    out["seconds"] = time.perf_counter() - start
+    log(f"spatial phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it "
@@ -2458,6 +2858,7 @@ def main() -> None:
     cli = phase_cli(steps_ms)
     dp = phase_data_parallel()
     tail = phase_tail(steps_ms, cli)
+    spatial = phase_spatial(inputs)
     launcher = dp["launcher"]["launcher_world1"]["launches"]
 
     def dp_launches(name):
@@ -2469,6 +2870,14 @@ def main() -> None:
                     mode: [{k: v for k, v in c.items()
                             if k in (name, name + "_bf16")} for c in runs]
                     for mode, runs in dp["world2"]["launches"].items()}}
+
+    def spatial_launches(name):
+        """A kernel's launches on the spatial path, each rank's: 5 f32
+        train steps, an eval step, the CLI's 1-epoch run."""
+        return {run: [c[name] for c in counts_by_rank] for run, counts_by_rank
+                in (("train_per_rank", spatial["launches"]["train"]),
+                    ("eval_per_rank", spatial["launches"]["eval"]),
+                    ("cli_per_rank", spatial["cli"]["launches"]))}
 
     kernels = []
     for k in KERNELS:
@@ -2499,6 +2908,7 @@ def main() -> None:
                                 "bf16": c["launches"][k + "_bf16"]}
                           for run, c in cli["runs"].items()},
             data_parallel_launches=dp_launches(k),
+            spatial_launches=spatial_launches(k),
             tail_cli_launches={"f32": tail["cli"]["launches"][k],
                                "bf16": tail["cli"]["launches"][k + "_bf16"]}))
     # sr_adam: launches from the bf16-SR main path; the times of one whole
@@ -2526,6 +2936,7 @@ def main() -> None:
         cli_launches={run: c["launches"]["sr_adam"]
                       for run, c in cli["runs"].items()},
         data_parallel_launches=dp_launches("sr_adam"),
+        spatial_launches=spatial_launches("sr_adam"),
         tail_cli_launches=tail["cli"]["launches"]["sr_adam"],
         bf16_state_launches=sr_checks["bf16_state_launches"],
         bf16_state_code=code["bf16mu"]))
@@ -2533,7 +2944,8 @@ def main() -> None:
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "steps_ms": steps_ms,
                       "cli": cli, "pathtrace": traced,
-                      "data_parallel": dp, "tail": tail}))
+                      "data_parallel": dp, "tail": tail,
+                      "spatial": spatial}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

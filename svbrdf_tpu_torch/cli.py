@@ -2,20 +2,13 @@
 
 Counterpart of svbrdf_tpu/cli.py: the same flags, names, defaults and
 choices, and the same cross-flag checks. Flags that only pick a TPU
-mechanism are accepted and have no effect here (their help says so). Flags
-whose feature is not ported yet raise NotImplementedError naming the
-ROADMAP item that ports it; none is quietly replaced by something else.
+mechanism are accepted and have no effect here (their help says so); none
+is quietly replaced by something else.
 """
 
 from __future__ import annotations
 
 import argparse
-
-# Unported features: (flag, predicate on its value, ROADMAP Queue 1 item).
-_NOT_PORTED = (
-    ("--shard-spatial > 0", lambda a: a.shard_spatial > 0,
-     "15 (spatial H-sharding)"),
-)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -122,8 +115,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "More than the visible cards raises.")
     p.add_argument("--shard-spatial", dest="shard_spatial", type=int,
                    default=0,
-                   help="Shard the image height over N devices; not ported "
-                        "yet (0 = off).")
+                   help="Train with the image height split over N devices "
+                        "(0 = off), for images whose activations outgrow "
+                        "one card: N local ranks, rank r on cuda:r (NCCL), "
+                        "or with --gpu-id -1 on the CPU (gloo); parameters "
+                        "replicated, the batch not split, f32 masters. N "
+                        "must divide --image-size; the local renderer and "
+                        "--loss mixed|render only. Takes precedence over "
+                        "--num-devices; more than the visible cards "
+                        "raises.")
     p.add_argument("--device-data-cache", dest="device_data_cache",
                    action="store_true", default=False,
                    help="Decode the whole dataset once and keep it on the "
@@ -175,8 +175,4 @@ def parse_args(argv=None):
         if args.image_count == 0:
             raise RuntimeError(
                 "No SVBRDF and no image input. What are we supposed to do?")
-    for flag, given, item in _NOT_PORTED:
-        if given(args):
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP Queue 1 item {item}")
     return args

@@ -13,6 +13,10 @@ or under --gpu-id -1 on the CPU over gloo, and each reads the whole corpus
 and keeps its rows of each global batch (parallel/mesh). A rank that fails
 fails the command. Under the launcher (parallel/multihost) the process
 group exists already and main runs this process's rank.
+
+With --shard-spatial N training takes N ranks started the same way, which
+split the image height (training/spatial_loop); the test pass after it
+runs on rank 0 with the unsharded model, as the JAX CLI's does.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Multi-device dry run: the data-parallel training step over n ranks.
+"""Multi-device dry run: the data-parallel and the spatial training steps
+over n ranks.
 
-Counterpart of svbrdf_tpu/parallel/dryrun.py. It checks the data-parallel
-program (each rank's rows of the batch, replicated weights, the gradient
-all-reduce) at a tiny size, in n ranks started for it: one card a rank over
+Counterpart of svbrdf_tpu/parallel/dryrun.py. It checks the multi-device
+programs at a tiny size, in n ranks started for them: one card a rank over
 NCCL (`python -m svbrdf_tpu_torch.parallel.dryrun 2`; fewer cards than
 ranks raises), or on the CPU over gloo when the caller asks (`--cpu`).
 
@@ -13,8 +13,9 @@ The JAX dry run's three programs, here:
   2. the K-step lax.scan program (--device-data-cache): not ported on
      purpose (ROADMAP "Not ported": the chunk programs; the port
      dispatches each step), so K plain data-parallel steps take its place;
-  3. the H-sharded spatial step (run_spatial): ROADMAP Queue 1 item 15, not
-     ported yet; run_spatial raises and run does not call it.
+  3. the H-sharded spatial step (run_spatial): one spatial train step
+     (parallel/spatial) with the height split over the n ranks, the
+     replicas then held bit-identical.
 """
 
 from __future__ import annotations
@@ -24,9 +25,13 @@ import math
 import sys
 from typing import Optional
 
+import torch
 import torch.multiprocessing as mp
 
-from svbrdf_tpu_torch.parallel import mesh
+from svbrdf_tpu_torch.models import build_model
+from svbrdf_tpu_torch.ops import sampling
+from svbrdf_tpu_torch.parallel import mesh, spatial
+from svbrdf_tpu_torch.parallel import step as step_lib
 from svbrdf_tpu_torch.utils import bench_setup
 
 DEPTH, FILTERS, SIZE = 5, 8, 32
@@ -39,31 +44,46 @@ def run(n_devices: int, device_type: str = "cuda",
     batch of max(n, 2), in n ranks started for them (mesh.spawn, `timeout`
     seconds at most), rank r on cuda:r (NCCL), or on the CPU (gloo) with
     device_type 'cpu': the single-step program, then K_STEPS more steps,
-    the replicas then held bit-identical. Returns the first step's loss
-    (the group's mean)."""
+    the replicas then held bit-identical; then, in the same ranks, the
+    spatial step (run_spatial's). Returns the first data-parallel step's
+    loss (the group's mean)."""
+    return _spawn(n_devices, device_type, timeout, (_programs, _spatial))[0]
+
+
+def run_spatial(n_devices: int, device_type: str = "cuda",
+                timeout: Optional[float] = None) -> float:
+    """One spatial train step (parallel/spatial.SpatialTrainStep) at depth
+    5, 32^2, 8 filters, batch 2, with 1 random and 2 specular loss scenes
+    an item, the height split over n ranks started for it, as `run`
+    starts them: a finite loss and replicas bit-identical. Returns the
+    step's loss (the group's)."""
+    return _spawn(n_devices, device_type, timeout, (_spatial,))[0]
+
+
+def _spawn(n_devices, device_type, timeout, programs) -> list:
     mesh.make_mesh(n_devices, device_type)
     results = mp.get_context("spawn").SimpleQueue()
     mesh.spawn(_rank, n_devices,
                (n_devices, f"tcp://localhost:{mesh.free_port()}",
-                device_type, results), timeout)
+                device_type, programs, results), timeout)
     return results.get()
 
 
 def _rank(rank: int, n_devices: int, address: str, device_type: str,
-          results) -> None:
+          programs, results) -> None:
     device = "cpu" if device_type == "cpu" else f"cuda:{rank}"
     group = mesh.init_group(n_devices, rank, device, address)
-    loss = _programs(n_devices, group)
-    if group.is_main:
-        results.put(loss)
-    mesh.destroy_group()
-
-
-def _programs(n_devices: int, group) -> float:
     # A pass on fewer ranks than requested proves nothing.
     if group.world != n_devices:
         raise RuntimeError(f"the group has {group.world} ranks, expected "
                            f"{n_devices}")
+    losses = [program(n_devices, group) for program in programs]
+    if group.is_main:
+        results.put(losses)
+    mesh.destroy_group()
+
+
+def _programs(n_devices: int, group) -> float:
     program = bench_setup.build_program(
         "single", "mixed", max(n_devices, 2), SIZE, DEPTH, FILTERS, seed=0,
         device=group.device, group=group)
@@ -85,15 +105,39 @@ def _programs(n_devices: int, group) -> float:
     return loss
 
 
-def run_spatial(n_devices: int) -> float:
-    """The H-sharded (--shard-spatial) train step: not ported yet."""
-    raise NotImplementedError(
-        "the spatially sharded train step is not ported yet: ROADMAP Queue "
-        "1 item 15 (spatial H-sharding)")
+def _spatial(n_devices: int, group) -> float:
+    """The spatial step on a prepared batch as the JAX dry run gives it:
+    photos at 0.5, flat normals, maps at 0.5."""
+    dev = group.device
+    model = build_model("single", depth=DEPTH, num_filters=FILTERS,
+                        device=dev, seed=1)
+    optimizer = step_lib.make_optimizer(model.parameters(), 1e-5)
+    generator = torch.Generator(device=dev).manual_seed(2)
+    step = spatial.SpatialTrainStep(
+        model, optimizer, spatial.make_spatial_loss_fn("mixed", group),
+        step_lib.PrepConfig(), generator, group)
+    batch = {"inputs": torch.full((2, 1, SIZE, SIZE, 3), 0.5, device=dev),
+             "svbrdf": torch.cat([
+                 torch.zeros((2, SIZE, SIZE, 2), device=dev),
+                 torch.ones((2, SIZE, SIZE, 1), device=dev),
+                 torch.full((2, SIZE, SIZE, 9), 0.5, device=dev)], dim=-1)}
+    scenes = sampling.generate_loss_scenes(2, 1, 2, generator=generator,
+                                           device=dev)
+    loss = float(step.update(batch, scenes=scenes))
+    if not math.isfinite(loss):
+        raise RuntimeError(f"non-finite spatial dry-run loss: {loss}")
+    if len(set(mesh.replica_checksums(model.parameters(), group))) != 1:
+        raise RuntimeError("spatial dry run: replicas differ")
+    print(f"dryrun_multichip({n_devices}): spatial (H split over "
+          f"{group.world} ranks, fused rendering loss at each shard's row "
+          f"offset) train step OK, loss={loss:.4f}; replicas "
+          f"bit-identical")
+    return loss
 
 
 def main(argv=None) -> None:
-    p = argparse.ArgumentParser(description="Data-parallel dry run")
+    p = argparse.ArgumentParser(description="Multi-device dry run: the "
+                                "data-parallel and spatial steps")
     p.add_argument("n_devices", type=int, nargs="?", default=2)
     p.add_argument("--cpu", action="store_true",
                    help="run the ranks on the CPU (gloo); default one card "

@@ -19,6 +19,9 @@ JAX's two modes are two ways to start the ranks:
     counterpart of JAX's process per host. Each reads its own file shard
     and feeds its rows (process_count = world).
 
+Spatial sharding (--shard-spatial N, parallel/spatial) runs on the same
+group: N local ranks split every image's height instead of the batch.
+
 Host-side coordination (barriers, the validation sums, replica checksums)
 rides a gloo group beside the data group, as JAX's sync_hosts rides the
 coordination service and never the device. Every collective of either

@@ -60,31 +60,37 @@ def _partners(raw_batch: dict, prep: PrepConfig):
     return raw_batch.get("partner_svbrdf") if prep.mix_materials else None
 
 
-def _rows(value, lo: int, hi: int):
+def _rows(value, lo: int, hi: int, axis: int = 0):
     """Rows lo:hi of a draw for a batch: a tensor's, a Scene's fields', or
-    path-tracer samples' (the offsets' batch axis is their second)."""
+    path-tracer samples' (the offsets' batch axis is their second). With
+    `axis` another axis of a tensor: rows lo:hi of H of a prepared batch's
+    (B, H, W, C) maps or (B, N, H, W, 3) photos take axis 1 or 2."""
     if isinstance(value, Scene):
         return Scene(*(f[lo:hi] for f in (value.camera_pos, value.light_pos,
                                           value.light_color)))
     if isinstance(value, RenderSamples):
         return RenderSamples(*(Samples(s.offsets[:, lo:hi], s.shift[lo:hi])
                                for s in value))
-    return value[lo:hi]
+    return value.narrow(axis, lo, hi - lo)
 
 
-def _span(n_rows: int, group) -> tuple:
+def _span(n_rows: int, group=None) -> tuple:
     """(lo, hi, total): rank group.rank's n_rows rows of the global batch
-    of world * n_rows items."""
+    of world * n_rows items; without a data group the whole batch,
+    (0, n_rows, n_rows)."""
+    if group is None:
+        return 0, n_rows, n_rows
     lo = group.rank * n_rows
     return lo, lo + n_rows, n_rows * group.world
 
 
 def prepare_rows(raw_rows: dict, prep: PrepConfig,
-                 generator: torch.Generator, group) -> tuple:
-    """Prepare this rank's rows of a global batch: the draws are made for
-    the whole batch (pipeline.draw_prepare_inputs, so `generator` advances
-    as one device's would) and the rank keeps its rows. Returns (prepared
-    rows, their span as _span gives it)."""
+                 generator: torch.Generator, group=None) -> tuple:
+    """Prepare this rank's rows of a global batch (without a data group,
+    the whole batch): the draws are made for the whole batch
+    (pipeline.draw_prepare_inputs, so `generator` advances as one device's
+    would) and the rank keeps its rows. Returns (prepared rows, their span
+    as _span gives it). Every step draws through here."""
     svbrdf = raw_rows["svbrdf"]
     span = _span(svbrdf.shape[0], group)
     draws = pipeline.draw_prepare_inputs(
@@ -105,6 +111,11 @@ def loss_rows(loss_fn: Callable, pred: torch.Tensor, target: torch.Tensor,
     scenes or samples are the global batch's) and cut to the rank's
     rows."""
     lo, hi, total = span
+    if not hasattr(loss_fn, "draws"):
+        # A loss that declares no draws makes its own: the whole batch only.
+        if hi - lo != total:
+            raise ValueError("a loss without `draws` takes the whole batch")
+        return loss_fn(pred, target, generator, scenes=scenes)
     draws = losses.draw_loss_inputs(loss_fn, total, pred.shape[1],
                                     pred.shape[2], generator, pred.device,
                                     scenes, samples)
@@ -218,10 +229,18 @@ class TrainStep:
     loss, backward, Adam update. `update(batch, scenes=None, step=None)`
     runs the same on a prepared batch, optionally with given loss scenes.
 
+    The draws go through the row-wise path (prepare_rows, loss_rows) with
+    the whole batch as the span (0, B, B); a data-parallel step
+    (DataParallelTrainStep) takes its rows of a global batch there and adds
+    only its reduction (`reduce`).
+
     A bf16 model gets its inputs and its maps cast to bf16 (`forward`).
     `step` numbers the training step (the loop passes its own; by default
     the one after the last): with bf16 masters it picks the SR salt,
     master_salt(seed, step), so a step is repeatable from (seed, step)."""
+
+    # The data group whose rows of a global batch the step trains on.
+    group = None
 
     def __init__(self, model, optimizer, loss_fn: Callable, prep: PrepConfig,
                  generator: torch.Generator, seed: int = 0):
@@ -245,22 +264,35 @@ class TrainStep:
         else:
             self.optimizer.step()
 
-    def update(self, batch: dict, scenes=None,
-               step: Optional[int] = None) -> torch.Tensor:
+    def reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        """After the backward: the step's loss, its gradients reduced where
+        there is a group to reduce them over (none on one device)."""
+        return loss.detach()
+
+    def update(self, batch: dict, scenes=None, step: Optional[int] = None,
+               samples=None, span: Optional[tuple] = None) -> torch.Tensor:
+        """A step on prepared rows (`span` as prepare_rows gives it; by
+        default the rows of the step's group, or the whole batch);
+        `scenes` / `samples`, if given, are the global batch's loss
+        draws."""
         step = self.step_index + 1 if step is None else step
+        if span is None:
+            span = _span(batch["svbrdf"].shape[0], self.group)
         pred = self.forward(batch["inputs"])
-        loss = self.loss_fn(pred, batch["svbrdf"], self.generator,
-                            scenes=scenes)
+        loss = loss_rows(self.loss_fn, pred, batch["svbrdf"], self.generator,
+                         span, scenes, samples)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = self.reduce(loss)
         self.apply_gradients(step)
         self.step_index = step
-        return loss.detach()
+        return loss
 
     def __call__(self, raw_batch: dict,
                  step: Optional[int] = None) -> torch.Tensor:
-        return self.update(prepare(raw_batch, self.prep, self.generator),
-                           step=step)
+        batch, span = prepare_rows(raw_batch, self.prep, self.generator,
+                                   self.group)
+        return self.update(batch, step=step, span=span)
 
 
 # Entropy word of the dropout streams of ranks > 0.
@@ -278,13 +310,18 @@ def seed_dropout(seed: int, rank: int) -> None:
 
 
 @torch.no_grad()
-def reduce_gradients(params, loss: torch.Tensor, group) -> torch.Tensor:
-    """Average the gradients of `params` (those that have one) and `loss`
-    over the data group in place: one all-reduce per gradient dtype, in
-    that dtype (a bf16 master's gradient in bf16, as the JAX step reduces
-    its gradient tree in the leaves' dtypes; the loss with the f32 ones),
-    each rank's share scaled by 1 / world before the sum, as DDP scales it.
-    Every rank receives the same sums. Returns the group's mean loss."""
+def reduce_gradients(params, loss: torch.Tensor, group,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Sum the gradients of `params` (those that have one) and `loss` over
+    the group in place, each rank's share multiplied by `scale` first (by
+    default 1 / world, as DDP scales it: the data group's mean; the
+    spatial step's shares sum with scale 1): one all-reduce per gradient
+    dtype, in that dtype (a bf16 master's gradient in bf16, as the JAX
+    step reduces its gradient tree in the leaves' dtypes; the loss with
+    the f32 ones). Every rank receives the same sums. Returns the reduced
+    loss."""
+    if scale is None:
+        scale = 1.0 / group.world
     loss = loss.detach().float().reshape(1)
     by_dtype = {torch.float32: [loss]}
     for p in params:
@@ -292,7 +329,8 @@ def reduce_gradients(params, loss: torch.Tensor, group) -> torch.Tensor:
             by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
     for tensors in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        flat.mul_(1.0 / group.world)
+        if scale != 1.0:
+            flat.mul_(scale)
         dist.all_reduce(flat)
         torch._foreach_copy_(tensors, [
             part.view_as(t) for part, t in zip(
@@ -334,36 +372,24 @@ class DataParallelTrainStep(TrainStep):
                  generator: torch.Generator, group, seed: int = 0):
         super().__init__(model, optimizer, loss_fn, prep, generator, seed)
         self.group = group
-        self.params = list(model.parameters())
-        mesh.replicate_tree(
-            self.params + list(model.buffers())
-            + [v for state in optimizer.state.values()
-               for v in state.values() if isinstance(v, torch.Tensor)],
-            group)
+        self.params = replicate_training_state(model, optimizer, group)
         seed_dropout(seed, group.rank)
 
-    def update(self, batch: dict, scenes=None, step: Optional[int] = None,
-               samples=None, span: Optional[tuple] = None) -> torch.Tensor:
-        """A step on this rank's prepared rows; `scenes` / `samples`, if
-        given, are the global batch's loss draws."""
-        step = self.step_index + 1 if step is None else step
-        if span is None:
-            span = _span(batch["svbrdf"].shape[0], self.group)
-        pred = self.forward(batch["inputs"])
-        loss = loss_rows(self.loss_fn, pred, batch["svbrdf"], self.generator,
-                         span, scenes, samples)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        loss = reduce_gradients(self.params, loss, self.group)
-        self.apply_gradients(step)
-        self.step_index = step
-        return loss
+    def reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        return reduce_gradients(self.params, loss, self.group)
 
-    def __call__(self, raw_batch: dict,
-                 step: Optional[int] = None) -> torch.Tensor:
-        batch, span = prepare_rows(raw_batch, self.prep, self.generator,
-                                   self.group)
-        return self.update(batch, step=step, span=span)
+
+def replicate_training_state(model, optimizer, group) -> list:
+    """Broadcast rank 0's weights, buffers and optimizer state to every
+    rank of `group` (mesh.replicate_tree); returns the model's parameters
+    in order."""
+    params = list(model.parameters())
+    mesh.replicate_tree(
+        params + list(model.buffers())
+        + [v for state in optimizer.state.values()
+           for v in state.values() if isinstance(v, torch.Tensor)],
+        group)
+    return params
 
 
 def make_train_step(model, optimizer, loss_fn: Callable, prep: PrepConfig,
@@ -393,7 +419,8 @@ def make_eval_step(model, loss_fn: Callable, prep: PrepConfig,
                    generator: torch.Generator, group=None):
     """Validation step: eval(raw_batch, scenes=None) -> loss with dropout
     off, the same loss, value only (under no_grad the value-only kernel
-    runs); a bf16 model's inputs and maps cast as in TrainStep.
+    runs); a bf16 model's inputs and maps cast as in TrainStep. It draws
+    as TrainStep draws (prepare_rows, loss_rows).
 
     With a data group the raw batch is this rank's rows of a global batch,
     drawn for as DataParallelTrainStep draws (scenes given are the global
@@ -403,14 +430,8 @@ def make_eval_step(model, loss_fn: Callable, prep: PrepConfig,
 
     def eval_step(raw_batch: dict, scenes=None) -> torch.Tensor:
         with torch.no_grad(), _eval_mode(model):
-            if group is None:
-                batch = prepare(raw_batch, prep, generator)
-            else:
-                batch, span = prepare_rows(raw_batch, prep, generator, group)
+            batch, span = prepare_rows(raw_batch, prep, generator, group)
             pred = model(batch["inputs"].to(dt)).to(dt)
-            if group is None:
-                return loss_fn(pred, batch["svbrdf"], generator,
-                               scenes=scenes)
             return loss_rows(loss_fn, pred, batch["svbrdf"], generator, span,
                              scenes)
 

@@ -4,8 +4,9 @@ on-disk format.
 Counterpart of svbrdf_tpu/training/checkpoint.py. One file,
 <model_dir>/checkpoint.tar, written with torch.save: the PyTorch reference's
 dict {model_type, use_coords, epoch, model_state_dict[,
-optimizer_state_dict]} plus model_depth, num_filters and the master-dtype
-policy the run trained with (master_dtype). The weights are written in f32
+optimizer_state_dict]} plus model_depth, num_filters, the master-dtype
+policy the run trained with (master_dtype) and, from a spatial run, the
+decoder form the JAX package records (upconv 'fold'). The weights are written in f32
 whatever their storage dtype (bf16 masters upcast exactly), as the JAX
 package's exporter writes them and its reader (.numpy()) needs them. The
 model's state_dict keys are the reference's, so the JAX package's
@@ -99,10 +100,12 @@ class Checkpoint:
              use_coords: bool, omit_optimizer_state: bool = False,
              model_depth: int = 8, num_filters: int = 64,
              master_dtype: Optional[str] = None,
-             group=None) -> pathlib.Path:
+             group=None, upconv: Optional[str] = None) -> pathlib.Path:
         """Write <model_dir>/checkpoint.tar, the weights in f32; returns
-        its path. With a data group (parallel/mesh.DataGroup) rank 0 writes
-        it and every rank returns once it is written."""
+        its path. With a group (parallel/mesh.DataGroup) rank 0 writes it
+        and every rank returns once it is written. `upconv`, where given,
+        is recorded as the JAX package records it (a spatial run's
+        'fold')."""
         d = pathlib.Path(model_dir)
         path = d / CHECKPOINT_FILE
         if group is not None and not group.is_main:
@@ -119,6 +122,8 @@ class Checkpoint:
         blob["num_filters"] = int(num_filters)
         if master_dtype is not None:
             blob["master_dtype"] = master_dtype
+        if upconv is not None:
+            blob["upconv"] = upconv
         # Written beside and renamed, so a run killed mid-save keeps the
         # previous checkpoint.
         tmp = path.with_suffix(".tar.tmp")

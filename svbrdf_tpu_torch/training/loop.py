@@ -31,6 +31,9 @@ package's processes do. Rank 0 alone writes the logs and the checkpoint;
 validation sums are reduced over the group, so every rank logs the same
 val_loss; in test mode rank 0 alone predicts.
 
+Spatial sharding (--shard-spatial N) is training/spatial_loop's run, to
+which run_training hands the group.
+
 Not ported: the lax.scan chunk programs (the port dispatches each step) and
 AOT compilation (TPU mechanisms).
 """
@@ -58,6 +61,7 @@ from svbrdf_tpu_torch.device import precision_scope, resolve_device
 from svbrdf_tpu_torch.models import build_model
 from svbrdf_tpu_torch.parallel import mesh as mesh_lib
 from svbrdf_tpu_torch.parallel import step as step_lib
+from svbrdf_tpu_torch.parallel.spatial import make_spatial_mesh
 from svbrdf_tpu_torch.parallel.step import (PrepConfig, make_eval_step,
                                             make_optimizer, make_predict_fn,
                                             make_train_step, stream_seed)
@@ -153,9 +157,14 @@ def _make_training_mesh(batch_size: int, n_avail: int,
 
 
 def training_world(args, device) -> int:
-    """The ranks a train run from one command takes: --num-devices (0:
-    every visible card; the CPU counts as one device), refused beyond the
-    visible cards, cut to the largest divisor of the batch size."""
+    """The ranks a train run from one command takes: --shard-spatial N
+    when given (N ranks split the height; it takes precedence over
+    --num-devices, as in the JAX loop), else --num-devices (0: every
+    visible card; the CPU counts as one device) cut to the largest divisor
+    of the batch size; either refused beyond the visible cards."""
+    if args.shard_spatial > 0:
+        make_spatial_mesh(args.shard_spatial, torch.device(device).type)
+        return args.shard_spatial
     if torch.device(device).type == "cpu":
         return _make_training_mesh(args.batch_size,
                                    max(1, args.num_devices), "cpu")
@@ -259,7 +268,13 @@ def run_training(args, device="cuda", group=None) -> TrainingRun:
     non-finite loss. The master-dtype policy and the TF32 settings are the
     run's and are restored when it ends. With a data group
     (parallel/mesh.DataGroup) this is one rank's part of a data-parallel
-    run on the group's device."""
+    run on the group's device. With --shard-spatial N it is
+    training/spatial_loop's run (the group's ranks split the height)."""
+    if args.shard_spatial > 0:
+        from svbrdf_tpu_torch.training.spatial_loop import \
+            run_training_spatial
+
+        return run_training_spatial(args, device, group)
     device = resolve_device(device) if group is None else group.device
     with step_lib.master_dtype_scope(), precision_scope(
             resolve_dtype(args.dtype, device)):
@@ -453,7 +468,11 @@ def run_test(args, device="cuda", out_dir: Optional[str] = None,
     when the samples carry maps. With `validation_split_only` only the
     held-out 1 % is visualized (all samples when the split is empty).
     Returns the written grid paths. With a data group every rank restores
-    the checkpoint and rank 0 alone predicts; the others return [].
+    the checkpoint and rank 0 alone predicts; the others return []. So it
+    runs after a spatial run too (--shard-spatial, the group's ranks): as
+    the JAX CLI after its spatial run, rank 0 predicts each sample whole
+    with the unsharded model on its device, on the whole corpus's 1 %
+    split (every rank of that run read the whole corpus).
     """
     device = resolve_device(device) if group is None else group.device
     with step_lib.master_dtype_scope(), precision_scope(

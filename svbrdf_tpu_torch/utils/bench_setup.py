@@ -12,6 +12,7 @@ chip_smoke.py drives, so the two cannot drift apart.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 import time
@@ -24,7 +25,7 @@ import torch
 from svbrdf_tpu_torch import losses
 from svbrdf_tpu_torch.device import precision_scope, resolve_device
 from svbrdf_tpu_torch.models import build_model
-from svbrdf_tpu_torch.parallel import mesh
+from svbrdf_tpu_torch.parallel import mesh, spatial
 from svbrdf_tpu_torch.parallel import step as step_lib
 from svbrdf_tpu_torch.parallel.mesh import shard_batch
 from svbrdf_tpu_torch.parallel.step import (PrepConfig, TrainStep,
@@ -223,7 +224,8 @@ def build_program(model_kind: str = "single", loss_kind: str = "mixed",
                   num_filters: int = 64, seed: int = 0,
                   device="cuda", dtype=torch.float32,
                   master_dtype=None, renderer: str = "local",
-                  group=None, spp=(16, 8)) -> MainProgram:
+                  group=None, spp=(16, 8), space=None,
+                  learning_rate: float = 1e-5) -> MainProgram:
     """Build a training program at the given widths, with weights and data
     made from `seed`, on `device`: model_kind "single" (one input view) or
     "multi" (3 views), loss_kind "mixed" or "rendering" with `renderer`
@@ -253,12 +255,24 @@ def build_program(model_kind: str = "single", loss_kind: str = "mixed",
         if master_dtype is not None:
             step_lib.set_master_dtype_policy(master_dtype)
         step_lib.master_cast(model)
-    optimizer = make_optimizer(model.parameters(), 1e-5, dtype)
-    loss_fn = losses.make_loss_fn(loss_kind, renderer, spp=spp)
+    optimizer = make_optimizer(model.parameters(), learning_rate, dtype)
     prep = PrepConfig(used_input_image_count=n_views, use_augmentation=True,
                       is_linear=False, mix_materials=True)
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     raw = synthetic_raw_batch(batch, size, 0, seed)
+    if space is not None:
+        raw = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        loss_fn = spatial.make_spatial_loss_fn(loss_kind, space)
+        return MainProgram(
+            model=model,
+            train_step=spatial.SpatialTrainStep(model, optimizer, loss_fn,
+                                                prep, generator, space,
+                                                seed=seed),
+            eval_step=spatial.make_spatial_eval_step(model, loss_fn, prep,
+                                                     generator, space),
+            predict=spatial.make_spatial_predict_fn(model, space), raw=raw,
+            prep=prep, generator=generator)
+    loss_fn = losses.make_loss_fn(loss_kind, renderer, spp=spp)
     if group is not None:
         raw = shard_batch(raw, group)
     raw = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
@@ -307,7 +321,9 @@ def launch_counts() -> dict:
 def train_steps(program: dict, steps: int, group=None,
                 state: Optional[dict] = None,
                 batch: Optional[dict] = None, scenes=None,
-                cudnn: bool = True) -> dict:
+                cudnn: bool = True, space=None,
+                dropout_seed: Optional[int] = None,
+                grads: bool = False) -> dict:
     """`steps` train steps of build_program(**program, group=group): world
     size 1 without a group, else this rank's part of the data-parallel
     run. Dropout off (ranks > 0 draw masks of their own, so runs of two
@@ -320,52 +336,86 @@ def train_steps(program: dict, steps: int, group=None,
     with cuDNN off (torch's own convolutions, whose results do not depend
     on the algorithm cuDNN picks for a batch size).
 
+    With a spatial group (`space`) this is the rank's part of the spatially
+    sharded run (build_program's `space`): `batch` is given whole to every
+    rank, the collectives are counted and timed (spatial.timed_collectives)
+    and the weights come back from rank 0 alone. `dropout_seed` leaves
+    dropout on, torch's default generators seeded with it first (a
+    spatial run draws the masks one device draws); `grads` adds the last
+    step's gradients ("grads", f32 on the CPU, None where a parameter has
+    none).
+
     Returns {"losses": the group's mean loss a step, "step_ms": host time
     a step (synced by the loss's fetch), "params0" / "params": the weights
     before and after (f32, on the CPU), "launches": the kernel launches of
     the steps on each rank}, with a group also "checksums": each rank's
     replica checksum (mesh.replica_checksums), and "reduce_ms": the host
     time of one reduce_gradients of the last step's gradients over the
-    group, synced (the wait for the slower rank included; median of 5)."""
+    group, synced (the wait for the slower rank included; median of 5).
+    With `space`: "collective_ms" (host ms of the collectives a step,
+    synced on both sides), "collective_calls" (a step), "peak_bytes" (the
+    device's peak allocation over the steps, 0 on the CPU) and, as with a
+    group, every rank's "launches", "checksums" and "reduce_ms"."""
     # Only cuDNN's on/off switch: torch.backends.cudnn.flags would also
     # reset its TF32 setting, which precision_scope owns.
     saved = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = cudnn
     try:
         with precision_scope(program.get("dtype", torch.float32)):
-            return _train_steps(program, steps, group, state, batch, scenes)
+            return _train_steps(program, steps, group, state, batch, scenes,
+                                space, dropout_seed, grads)
     finally:
         torch.backends.cudnn.enabled = saved
 
 
-def _train_steps(program, steps, group, state, batch, scenes) -> dict:
-    prog = build_program(**program, group=group)
+def _train_steps(program, steps, group, state, batch, scenes, space,
+                 dropout_seed, grads) -> dict:
+    if dropout_seed is not None:
+        torch.manual_seed(dropout_seed)
+    prog = build_program(**program, group=group, space=space)
     model = prog.model
     if state is not None:
         model.load_state_dict(state, strict=True)
-    for m in model.modules():
-        if isinstance(m, torch.nn.Dropout):
-            m.eval()
-    params0 = [p.detach().float().cpu().clone() for p in model.parameters()]
+    if dropout_seed is None:
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.eval()
+    main = (space or group) is None or (space or group).is_main
+    params0 = ([p.detach().float().cpu().clone() for p in model.parameters()]
+               if main else None)
     dev = next(model.parameters()).device
     if batch is not None:
-        rows = slice(None) if group is None else group.rows(
-            len(batch["svbrdf"]))
+        rows = (slice(None) if group is None
+                else group.rows(len(batch["svbrdf"])))
         batch = {k: v[rows].to(dev) for k, v in batch.items()}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     zero_launch_counts()
     losses, step_ms = [], []
-    for k in range(steps):
-        start = time.perf_counter()
-        if batch is None:
-            loss = prog.train_step(prog.raw)
-        else:
-            loss = prog.train_step.update(
-                batch, scenes=scenes[k].to(dev) if scenes else None)
-        losses.append(float(loss))
-        step_ms.append((time.perf_counter() - start) * 1e3)
+    with (spatial.timed_collectives(dev) if space is not None
+          else contextlib.nullcontext()) as collectives:
+        for k in range(steps):
+            start = time.perf_counter()
+            if batch is None:
+                loss = prog.train_step(prog.raw)
+            else:
+                loss = prog.train_step.update(
+                    batch, scenes=scenes[k].to(dev) if scenes else None)
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - start) * 1e3)
     out = {"losses": losses, "step_ms": step_ms, "params0": params0,
-           "params": [p.detach().float().cpu() for p in model.parameters()],
+           "params": ([p.detach().float().cpu() for p in model.parameters()]
+                      if main else None),
            "launches": [launch_counts()]}
+    if grads and main:
+        out["grads"] = [None if p.grad is None else p.grad.float().cpu()
+                        for p in model.parameters()]
+    if space is not None:
+        out.update(collective_ms=collectives["ms"] / steps,
+                   collective_calls=collectives["calls"] / steps,
+                   peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else 0))
+        group = space
     if group is not None:
         out["reduce_ms"] = _reduce_ms(prog.train_step, group, dev)
         launches = [None] * group.world
@@ -374,6 +424,13 @@ def _train_steps(program, steps, group, state, batch, scenes) -> dict:
         out["launches"] = launches
         out["checksums"] = mesh.replica_checksums(model.parameters(), group)
     return out
+
+
+def spatial_train_steps(program: dict, steps: int, group,
+                        **kwargs) -> dict:
+    """train_steps(program, steps, space=group, **kwargs): the rank's part
+    of the spatially sharded run (a rank_runs job)."""
+    return train_steps(program, steps, space=group, **kwargs)
 
 
 def _reduce_ms(train_step, group, dev, runs: int = 5) -> float:
@@ -392,41 +449,59 @@ def _reduce_ms(train_step, group, dev, runs: int = 5) -> float:
     return float(np.median(times))
 
 
-def _steps_rank(rank: int, world: int, address: str, device_type: str,
-                backend: Optional[str], jobs: list, out_path: str) -> None:
-    device = ("cpu" if device_type == "cpu"
-              else f"cuda:{rank if backend in (None, 'nccl') else 0}")
-    group = mesh.init_group(world, rank, device, address, backend=backend)
-    results = []
-    for args, kwargs in jobs:
-        results.append(train_steps(*args, group=group, **kwargs))
-        results[-1]["backend"] = group.backend
-    if group.is_main:
-        torch.save(results, out_path)
-    mesh.destroy_group()
+def _steps_with_backend(args, kwargs, group) -> dict:
+    """train_steps(*args, group=group, **kwargs), with the group's
+    backend (a rank_runs job)."""
+    return dict(train_steps(*args, group=group, **kwargs),
+                backend=group.backend)
 
 
 def data_parallel_runs(world: int, jobs: list,
                        backend: Optional[str] = None,
                        timeout: Optional[float] = None) -> list:
     """train_steps(*args, group=..., **kwargs) for each (args, kwargs) of
-    `jobs`, in turn, over `world` ranks started for them (mesh.spawn,
-    `timeout` seconds at most), on the device type that every job's
-    program asks for (build_program's default is the card; jobs that ask
-    for two types raise before a rank starts): rank r on the CPU (gloo) or
-    on cuda:r (NCCL); with backend 'gloo' and a card every rank on cuda:0.
-    Returns rank 0's results, each with the backend."""
+    `jobs`, in turn, over `world` ranks started for them (rank_runs), on
+    the device type that every job's program asks for (build_program's
+    default is the card; jobs that ask for two types raise before a rank
+    starts): rank r on the CPU (gloo) or on cuda:r (NCCL); with backend
+    'gloo' and a card every rank on cuda:0. Returns rank 0's results, each
+    with the backend."""
     types = {torch.device(args[0].get("device", "cuda")).type
              for args, _ in jobs}
     if len(types) != 1:
         raise ValueError(f"the jobs ask for programs on {sorted(types)}; "
                          f"the ranks run on one device type")
     (device_type,) = types
+    runs = rank_runs(world, [(_steps_with_backend, job, {}) for job in jobs],
+                     device_type, backend, timeout)
+    return [ranks[0] for ranks in runs]
+
+
+def _jobs_rank(rank: int, world: int, address: str, device_type: str,
+               backend: Optional[str], jobs: list, out_dir: str) -> None:
+    device = ("cpu" if device_type == "cpu"
+              else f"cuda:{rank if backend in (None, 'nccl') else 0}")
+    group = mesh.init_group(world, rank, device, address, backend=backend)
+    results = [fn(*args, group=group, **kwargs) for fn, args, kwargs in jobs]
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    mesh.destroy_group()
+
+
+def rank_runs(world: int, jobs: list, device_type: str = "cuda",
+              backend: Optional[str] = None,
+              timeout: Optional[float] = None) -> list:
+    """fn(*args, group=group, **kwargs) for each (fn, args, kwargs) of
+    `jobs`, in turn, in `world` ranks started for them (mesh.spawn,
+    `timeout` seconds at most; `fn` a module-level function): rank r on the
+    CPU (gloo) or on cuda:r (NCCL; fewer cards than ranks raises); with
+    backend 'gloo' and a card every rank on cuda:0. Returns every rank's
+    result of each job: results[job][rank]."""
     if backend != "gloo":
         mesh.make_mesh(world, device_type)
     with tempfile.TemporaryDirectory() as tmp:
-        out_path = os.path.join(tmp, "rank0.pt")
-        mesh.spawn(_steps_rank, world,
+        mesh.spawn(_jobs_rank, world,
                    (world, f"tcp://localhost:{mesh.free_port()}",
-                    device_type, backend, jobs, out_path), timeout)
-        return torch.load(out_path, weights_only=False)
+                    device_type, backend, jobs, tmp), timeout)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+    return [list(job) for job in zip(*ranks)]

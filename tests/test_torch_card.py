@@ -840,3 +840,53 @@ def test_data_parallel_world_two_on_the_card_without_cudnn(cuda):
     assert _update_normwise(two, one) <= 1e-4
     assert len(set(two["checksums"])) == 1
     assert [c["mixed_fwdgrad"] for c in two["launches"]] == [5, 5]
+
+
+def test_spatial_world_two_on_the_card_without_cudnn(cuda):
+    """Spatial sharding at world 2 on the card (two cards over NCCL where
+    there are two, else both ranks on cuda:0 over gloo): the height split
+    over the ranks against world 1 on the same batch, cuDNN off in the
+    ranks and in the reference, f32, 5 steps: each step's loss rel 1e-5
+    and the update normwise 1e-4 (the CPU tests' tolerances); replicas
+    bit-identical; render_fwdgrad once a step on each rank at its row
+    offset, the mixed-loss kernels not at all."""
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    (two,) = bench_setup.rank_runs(
+        2, [(bench_setup.spatial_train_steps, (_dp_program(), 5),
+             {"cudnn": False})], "cuda", backend, timeout=300)
+    one = bench_setup.train_steps(_dp_program(), 5, cudnn=False)
+    np.testing.assert_allclose(two[0]["losses"], one["losses"], rtol=1e-5)
+    assert _update_normwise(two[0], one) <= 1e-4
+    assert len(set(two[0]["checksums"])) == 1
+    for counts in two[0]["launches"]:
+        assert counts["render_fwdgrad"] == 5 and counts["mixed_fwdgrad"] == 0
+
+
+@pytest.mark.parametrize("name", ["render_fwdgrad", "render_fwd"])
+def test_rendering_kernels_at_a_row_offset(cuda, name):
+    """The two kernels of the spatial path on the two row halves of an
+    image (row offset 0 and 16 of a global height 32) against their plain
+    versions at the same offset, and the halves' losses summed (and
+    gradients put together) against the whole image's."""
+    pred_t, gt_t, scenes9 = bench_setup.loss_inputs(2, 32, 9, device=cuda)
+    wrapper, plain = rf.CUDA_WRAPPERS[name], rf.PLAIN_VERSIONS[name]
+    whole = wrapper(pred_t, gt_t, scenes9)
+    whole = whole if isinstance(whole, tuple) else (whole,)
+    halves = []
+    for lo in (0, 16):
+        args = (pred_t[:, :, lo:lo + 16].contiguous(),
+                gt_t[:, :, lo:lo + 16].contiguous(), scenes9, lo, 32)
+        got, ref = wrapper(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=0)
+        for g, r in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(g, r, rtol=2e-4,
+                                       atol=1e-3 * float(r.abs().max()))
+        halves.append(got)
+    torch.testing.assert_close(halves[0][0] + halves[1][0], whole[0],
+                               rtol=1e-6, atol=0)
+    if len(whole) > 1:
+        torch.testing.assert_close(
+            torch.cat([h[1] for h in halves], dim=2), whole[1], rtol=1e-6,
+            atol=1e-6 * float(whole[1].abs().max()))

@@ -274,16 +274,14 @@ def test_test_mode_needs_a_model(tmp_path):
 @pytest.mark.parametrize("flag,error,message", [
     pytest.param(["--num-devices", "2", "--gpu-id", "0"], RuntimeError,
                  "device='cpu'", id="flag0-item 14"),
-    pytest.param(["--shard-spatial", "2"], NotImplementedError, "item 15",
-                 id="flag1-item 15"),
 ])
 def test_unported_flags_raise_naming_their_item(tmp_path, flag, error,
                                                 message):
-    """--shard-spatial (ROADMAP Queue 1 item 15) is not ported and names
-    its item. --num-devices (item 14) is: two ranks asked of cards on a
-    machine without one raise the no-card error before a rank starts
-    (the last --gpu-id counts; under --gpu-id -1 it is a two-rank run on
-    the CPU, tests/test_torch_multihost.py)."""
+    """--num-devices (ROADMAP Queue 1 item 14) is ported: two ranks asked
+    of cards on a machine without one raise the no-card error before a
+    rank starts (the last --gpu-id counts; under --gpu-id -1 it is a
+    two-rank run on the CPU, tests/test_torch_multihost.py).
+    --shard-spatial (item 15) runs in tests/test_torch_spatial.py."""
     if error is RuntimeError and torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the cards would be used")
     with pytest.raises(error, match=message):

@@ -290,8 +290,8 @@ def test_dryrun_runs_on_two_ranks(monkeypatch, capfd):
     out = capfd.readouterr().out
     assert out.count("batch-DP single-step program OK") == 2
     assert "replicas bit-identical" in out
-    with pytest.raises(NotImplementedError, match="item 15"):
-        dryrun.run_spatial(2)
+    # Then the spatial step in the same ranks, as the JAX dry run runs it.
+    assert out.count("spatial (H split over 2 ranks") == 2
 
 
 def test_dryrun_runs_on_the_cards_unless_asked_for_the_cpu(monkeypatch):

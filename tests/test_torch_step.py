@@ -380,3 +380,56 @@ def test_multi_view_rendering_program_builds_on_cpu_when_asked():
     assert program.predict(images).shape == (BATCH, SIZE, SIZE, 12)
     with pytest.raises(ValueError, match="unknown model kind"):
         bench_setup.build_program("triple", "rendering", device="cpu")
+
+
+def test_one_draw_path_is_the_parents_draw_order():
+    """The train and eval steps draw through the row-wise path
+    (prepare_rows, loss_rows, the whole batch as the span) and stay
+    bit-equal to the order they drew in before: prepare_batch drawing from
+    the generator itself, then the loss drawing its scenes (written out
+    here). Three train steps with dropout on, then an eval step: the same
+    losses and weights to the bit."""
+    loss_fn = losses.make_loss_fn("mixed")
+    raw = _torch_raw(_raw(seed=6))
+
+    def build():
+        torch.manual_seed(5)
+        model = SingleViewModel(FILTERS, DEPTH, device="cpu", seed=4)
+        return model, step_lib.make_optimizer(model.parameters())
+
+    model, opt = build()
+    g = torch.Generator()
+    parent = []
+    for n in range(3):
+        g.manual_seed(100 + n)
+        batch = pipeline.prepare_batch(
+            raw["inputs"], raw["svbrdf"], raw["partner_svbrdf"],
+            used_input_image_count=1, use_augmentation=True, generator=g)
+        loss = loss_fn(model(batch["inputs"]), batch["svbrdf"], g)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        parent.append(loss.detach())
+    g.manual_seed(200)
+    model.eval()
+    with torch.no_grad():
+        batch = pipeline.prepare_batch(
+            raw["inputs"], raw["svbrdf"], raw["partner_svbrdf"],
+            used_input_image_count=1, use_augmentation=True, generator=g)
+        parent.append(loss_fn(model(batch["inputs"]), batch["svbrdf"], g))
+    weights = [p.detach().clone() for p in model.parameters()]
+
+    model, opt = build()
+    g = torch.Generator()
+    step = step_lib.make_train_step(model, opt, loss_fn, PREP, g)
+    eval_step = step_lib.make_eval_step(model, loss_fn, PREP, g)
+    mine = []
+    for n in range(3):
+        g.manual_seed(100 + n)
+        mine.append(step(raw))
+    g.manual_seed(200)
+    mine.append(eval_step(raw))
+    for a, b in zip(mine, parent):
+        assert torch.equal(a, b)
+    for a, b in zip(model.parameters(), weights):
+        assert torch.equal(a, b)
