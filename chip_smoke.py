@@ -46,16 +46,29 @@ Phases, each raising (and so exiting non-zero) on any failure:
        - the rendering loss with the target's gradient under autograd;
        - one call each of the mixed loss and of the rendering loss with the
          target's gradient on bf16 planes under autograd;
-       - the path tracer (--renderer pathtracing; torch ops, no kernel of
-         its own): first held card against CPU on the same injected
-         samples (B=2, S=9, 32^2, spp (4, 2): renders, the mixed loss and
-         its gradient, each against float64 where f32 is ill-conditioned;
-         loss and gradient exactly 0 for pred equal to target); then the
-         single-view mixed path at full width and the CLI's default
-         precision (bf16, bf16-SR), spp (16, 8): 5 train steps, 1 eval
-         step, predict, no loss kernel launched and one sr_adam a step,
-         the peak device memory, the steps' times and the loss's share of
-         a train step; then utils/pathtrace_stability for 20 steps;
+       - the path tracer (--renderer pathtracing; its own kernels,
+         csrc/pathtrace.cu): first held card against CPU on the same
+         injected samples (B=2, S=9, 32^2, spp (4, 2): renders, the mixed
+         loss and its gradient, each against float64 where f32 is
+         ill-conditioned; loss and gradient exactly 0 for pred equal to
+         target); then each of its two kernels (the forward estimator
+         pathtrace_shade, the backward estimator's VJP
+         pathtrace_shade_vjp) against its plain version on the card
+         (bench_setup.hold_pathtrace_kernels: renders by hold_render, the
+         VJP's sums against float64) at full width (B=8, S=9, 256^2, spp
+         (16, 8)) for an f32 and a bf16 SVBRDF, on a ragged grid (250 x
+         243, B=3) and with scene gradients (32^2), the path-traced loss
+         and its gradient exactly 0 for pred equal to target at full
+         width, and each kernel's time, bound, registers and blocks per SM
+         beside its plain version's; then the single-view mixed path at
+         full width at the CLI's default precision (bf16, bf16-SR) and in
+         f32 (TF32 off), spp (16, 8): 5 train steps, 1 eval step,
+         predict, no loss kernel launched, pathtrace_shade twice (the
+         prediction's render in the compute dtype, the f32 target's) and
+         pathtrace_shade_vjp once a train step, pathtrace_shade twice an
+         eval step, one sr_adam a bf16-SR step, the peak device memory,
+         the steps' times and the loss's share of a train step; then
+         utils/pathtrace_stability for 20 steps;
   6. times: CUDA-event medians of each kernel launched alone (f32, and its
      bf16 instantiation on the same planes in bf16), its wrapper, its plain
      version and each path's steps, each kernel's bound for f32 and bf16
@@ -90,7 +103,9 @@ Phases, each raising (and so exiting non-zero) on any failure:
          weights in the checkpoint, which a fresh bf16-SR model reloads to
          predict the same bits;
        - single view, mixed loss, --renderer pathtracing at the CLI's
-         defaults, 1 epoch: no loss kernel, one sr_adam a step;
+         defaults and with --dtype float32, 1 epoch each: no loss kernel,
+         the path tracer's kernels as on the path (phase 5), one sr_adam a
+         bf16-SR step;
      and the loop's median ms per step against the build_program train
      step of phase 5, each epoch's validation pass ms (epoch 0 decodes the
      strips through the dataset's decode pool of worker processes, later
@@ -315,12 +330,77 @@ PATHS = {
                              {"render_fwdgrad_bf16": STEPS,
                               "render_fwd_bf16": 1}),
 }
-# The path tracer's full-width path (--renderer pathtracing): single view,
-# mixed loss, at the CLI's default precision (bf16, bf16-SR masters). The
-# path tracer is torch ops (no TPU kernel: plain JAX in the reference); the
-# loss kernels do not run, sr_adam once a step (added where the path runs).
+# The path tracer's full-width paths (--renderer pathtracing): single view,
+# mixed loss, at the CLI's default precision (bf16, bf16-SR masters) and in
+# f32 with TF32 off. The loss kernels do not run; the path tracer's own do
+# (csrc/pathtrace.cu; no TPU kernel: plain JAX in the reference), as (per
+# train step, per eval step) launches: the forward kernel for the
+# prediction's render (in the compute dtype) and for the target's (f32
+# maps: the path-traced loss does not cast the target), the VJP for the
+# prediction's. sr_adam once a bf16-SR step (added where the path runs).
 TRACED_PATH = "single_mixed_pathtracing"
-TRACED_PATHS = {TRACED_PATH: (("single", "mixed"), BF16, "bf16sr", {})}
+TRACED_PATH_F32 = "single_mixed_pathtracing_f32"
+TRACED_PATHS = {
+    TRACED_PATH: (("single", "mixed"), BF16, "bf16sr", (
+        {"pathtrace_shade_bf16": 1, "pathtrace_shade": 1,
+         "pathtrace_shade_vjp_bf16": 1},
+        {"pathtrace_shade_bf16": 1, "pathtrace_shade": 1})),
+    TRACED_PATH_F32: (("single", "mixed"), torch.float32, None, (
+        {"pathtrace_shade": 2, "pathtrace_shade_vjp": 1},
+        {"pathtrace_shade": 2})),
+}
+_PATHTRACE = "svbrdf_tpu_torch/csrc/pathtrace.cu"
+PATHTRACE_KERNELS = {
+    "pathtrace_shade": {
+        "route": "cuda", "source": _PATHTRACE,
+        "replaces": "svbrdf_tpu/ops/pathtrace.py:149",
+        "tpu_kernel": None},
+    "pathtrace_shade_vjp": {
+        "route": "cuda", "source": _PATHTRACE,
+        "replaces": "svbrdf_tpu/ops/pathtrace.py:231",
+        "tpu_kernel": None},
+}
+# The cases each path tracer kernel is held on against its plain version:
+# (batch, height, width, spp, SVBRDF dtype, scene gradients).
+PATHTRACE_CASES = {
+    "full_f32": (8, 256, 256, (16, 8), torch.float32, False),
+    "full_bf16": (8, 256, 256, (16, 8), BF16, False),
+    "ragged": (3, 250, 243, (16, 8), torch.float32, False),
+    "scene_grads": (2, 32, 32, (16, 8), torch.float32, True),
+}
+# The least operations of the path tracer's kernels, counted from
+# csrc/pathtrace.cu by the convention of the loss kernels' counts above
+# (a quotient as one reciprocal, an SFU operation, and a product; powf as
+# log2 and exp2, two SFU, and a product; floor one FP32), each term once
+# where it depends on no more than it: per sample and pixel of one scene,
+# per pixel and scene, per pixel.
+#   forward, per sample: the point on the light and rel (u's wrap with its
+#     floor 10, u times the extent 2, q - coords 15) 27; d^2 5 and wi from
+#     one rsqrt 3 / 1; cos_surf and cos_light with their clips 12; h (sum
+#     3, |.|^2 5, one rsqrt, scale 3) 11 / 1; n.h and wo.h with clips 14;
+#     n.wi's clip 2; D = dn pow(n.h, e) 2 / 2; (1 - wo.h)^5 4; G1(n.wi)
+#     (clips 4, 1 - ct^2 2, a from one rsqrt 2 / 1, the rational 9 / 1,
+#     the select 1) 18 / 2; G and 4 nv nl 3; 1/den 0 / 1 and 1/d^2 from
+#     1/d 1; three channels (F 2, spec 2, diffuse 3, f 1, em cs cl / d^2
+#     area 5, the sum 1) 42 -> 145 / 7;
+#     per pixel and scene: wo (cam - coords 3, |.|^2 5, rsqrt, scale 3)
+#     11 / 1, n.wo and its clip 7, G1(n.wo) 18 / 2, the mean 3 -> 39 / 3;
+#     per pixel: r's clip, 1/r, e, (e + 2)/(2 pi), sqrt(.5 e + 1), 1 -
+#     specular 11 / 2;
+#   VJP without scene gradients, per sample: the forward's but the sum
+#     142 / 7; three channels' cotangents (t4, t3, t2, t1, f 5, d cos_surf
+#     2, d F 5, d diffuse 3, d G, d D 6, d den 2, d specular 3) 26 -> 78;
+#     4 nv nl's and G's 5; G1(n.wi)'s VJP 28; D's and pow's (log n.h,
+#     1/n.h) 7 / 2; the clips' derivatives and d normals 18 -> 278 / 9;
+#     per pixel and scene: the forward's view terms 36 / 3, G1(n.wo)'s VJP
+#     28, n.wo's chain 8 -> 72 / 3; per pixel: the forward's 11 / 2 and
+#     e's chain to rough_blinn 9 -> 20 / 2.
+#   With scene gradients the VJP adds ~110 FP32 a sample (wo, wi, rel and
+#   the per-block partials): its bound is given for the training kernel.
+PATHTRACE_OPS = {"pathtrace_shade": {"sample": (145, 7), "view": (39, 3),
+                                     "pixel": (11, 2)},
+                 "pathtrace_shade_vjp": {"sample": (278, 9), "view": (72, 3),
+                                         "pixel": (20, 2)}}
 # The card-vs-CPU check of the path tracer, and the stability run's steps.
 PATHTRACE_SMALL = {"batch": 2, "size": 32, "spp": (4, 2)}
 STABILITY_STEPS = 20
@@ -394,6 +474,35 @@ def bound(kernel: str, batch: int, height: int, width: int, n_scenes: int,
     fp32 = pixels * (n_scenes * FP32_PER_SCENE[kernel]
                      + FP32_PER_PIXEL[kernel])
     sfu = pixels * (n_scenes * SFU_PER_SCENE[kernel] + SFU_PER_PIXEL[kernel])
+    t_bytes = bytes_moved / rates["bytes"]
+    t_ops = max(fp32 / rates["fp32"], sfu / rates["sfu"])
+    parts = {"bytes_us": t_bytes * 1e6, "fp32_us": fp32 / rates["fp32"] * 1e6,
+             "fp32_nofma_us": 2 * fp32 / rates["fp32"] * 1e6,
+             "sfu_us": sfu / rates["sfu"] * 1e6}
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", parts
+    return t_ops * 1e3, "operations", parts
+
+
+def pathtrace_bound(kernel: str, items: int, scenes: int, height: int,
+                    width: int, spp: int, rates: dict,
+                    field_bytes: int = 4) -> tuple:
+    """(bound_ms, bound_by, parts in us) of one launch of a path tracer
+    kernel (PATHTRACE_OPS) on items x scenes x height x width at spp
+    samples, the SVBRDF's values field_bytes each: the larger of its bytes
+    (each input read once, each output written once) over the memory rate
+    and its operations over the peak rates."""
+    pixels = items * height * width
+    views = pixels * scenes
+    ops = PATHTRACE_OPS[kernel]
+    fp32, sfu = (views * spp * ops["sample"][i] + views * ops["view"][i]
+                 + pixels * ops["pixel"][i] for i in (0, 1))
+    # coords, the maps (10 values), the scene fields and offsets, shift;
+    # out (forward) or d_sample in and the maps' 10 sums out (VJP).
+    bytes_in = (height * width * 3 * field_bytes + pixels * 10 * field_bytes
+                + items * scenes * (18 + 2 * spp) * 4 + views * 2 * 4)
+    bytes_moved = bytes_in + (views * 3 * 4 if kernel == "pathtrace_shade"
+                              else views * 3 * 4 + pixels * 10 * 4)
     t_bytes = bytes_moved / rates["bytes"]
     t_ops = max(fp32 / rates["fp32"], sfu / rates["sfu"])
     parts = {"bytes_us": t_bytes * 1e6, "fp32_us": fp32 / rates["fp32"] * 1e6,
@@ -1024,7 +1133,13 @@ def phase_path(path: str, program) -> dict:
     from svbrdf_tpu_torch.parallel.step import prepare
 
     spec = PATHS[path] if path in PATHS else TRACED_PATHS[path]
-    expected = dict(spec[3])
+    if path in TRACED_PATHS:
+        per_train, per_eval = spec[3]
+        train_only = {k: STEPS * n for k, n in per_train.items()}
+        expected = {k: train_only.get(k, 0) + per_eval.get(k, 0)
+                    for k in {**per_train, **per_eval}}
+    else:
+        expected, train_only = dict(spec[3]), None
     bf16sr = spec[2] == "bf16sr"
     before = ([p.detach().clone() for p in program.model.parameters()]
               if bf16sr else None)
@@ -1045,8 +1160,11 @@ def phase_path(path: str, program) -> dict:
         raise RuntimeError(f"{path}: non-finite loss")
     if bf16sr:
         expected["sr_adam"] = STEPS * _sr_adam_launches(program.model)
-    train_only = {k: v for k, v in expected.items()
-                  if "fwdgrad" in k or k == "sr_adam"}
+    if train_only is None:
+        train_only = {k: v for k, v in expected.items()
+                      if "fwdgrad" in k or k == "sr_adam"}
+    elif bf16sr:
+        train_only["sr_adam"] = expected["sr_adam"]
     _expect(after_train, train_only, f"{path} after the train steps")
     _expect(counts, expected, f"{path} after eval and predict")
     if bf16sr:
@@ -1186,37 +1304,129 @@ def phase_pathtrace_agreement() -> dict:
 
 
 def phase_pathtrace_path() -> dict:
-    """The full-width path-traced path at the CLI's default precision: 5
-    train steps, 1 eval step and predict with every launch counter read
-    (the loss kernels 0, sr_adam one a step), the peak device memory of
-    that run, the steps' times and the loss's share of a train step
+    """Each full-width path-traced path (bf16-SR at TF32 as torch sets it,
+    f32 with TF32 off): 5 train steps, 1 eval step and predict with every
+    launch counter read (the loss kernels 0, the path tracer's kernels as
+    TRACED_PATHS says, sr_adam one a bf16-SR step), the peak device memory
+    of that run, the steps' times and the loss's share of a train step
     (utils/profile_step.phase_times: loss forward + its gradient for the
     maps, against the whole step)."""
     from svbrdf_tpu_torch.utils.bench_setup import build_program
     from svbrdf_tpu_torch.utils.profile_step import phase_times
 
-    (kinds, dtype, master, _) = TRACED_PATHS[TRACED_PATH]
-    with _tf32(True, False):
-        program = build_program(*kinds, MAIN["batch"], MAIN["size"],
-                                MAIN["depth"], MAIN["num_filters"], seed=0,
-                                device="cuda", dtype=dtype,
-                                master_dtype=master, renderer="pathtracing")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        counts = phase_path(TRACED_PATH, program)
-        peak = torch.cuda.max_memory_allocated()
-        times = step_times(TRACED_PATH, program)
-        phases = phase_times(program, 5)
-    loss_ms = phases["loss"] + phases["loss_backward"]
-    out = {"launches": counts, "max_memory_allocated": peak,
-           "steps_ms": times, "phases_ms": phases, "loss_ms": loss_ms,
-           "loss_share": loss_ms / sum(phases.values())}
-    log(f"{TRACED_PATH}: peak device memory {peak} bytes; phases (CUDA "
-        f"events, median of 5) {phases}; loss forward + its gradient "
-        f"{loss_ms:.2f} ms, {out['loss_share']:.1%} of the train step")
-    del program
-    torch.cuda.empty_cache()
+    out = {}
+    for path, (kinds, dtype, master, _) in TRACED_PATHS.items():
+        with (_tf32(True, False) if dtype == BF16
+              else contextlib.nullcontext()):
+            program = build_program(*kinds, MAIN["batch"], MAIN["size"],
+                                    MAIN["depth"], MAIN["num_filters"],
+                                    seed=0, device="cuda", dtype=dtype,
+                                    master_dtype=master,
+                                    renderer="pathtracing")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts = phase_path(path, program)
+            peak = torch.cuda.max_memory_allocated()
+            times = step_times(path, program)
+            phases = phase_times(program, 5)
+        loss_ms = phases["loss"] + phases["loss_backward"]
+        out[path] = {"launches": counts, "max_memory_allocated": peak,
+                     "steps_ms": times, "phases_ms": phases,
+                     "loss_ms": loss_ms,
+                     "loss_share": loss_ms / sum(phases.values())}
+        log(f"{path}: peak device memory {peak} bytes; phases (CUDA "
+            f"events, median of 5) {phases}; loss forward + its gradient "
+            f"{loss_ms:.2f} ms, {out[path]['loss_share']:.1%} of the train "
+            f"step")
+        del program
+        torch.cuda.empty_cache()
     return out
+
+
+def phase_pathtrace_kernels(rates: dict, build_log: str) -> dict:
+    """Each path tracer kernel against its plain version on the card
+    (PATHTRACE_CASES, bench_setup.hold_pathtrace_kernels); the path-traced
+    mixed loss and its gradient exactly 0 for pred equal to target at full
+    width (f32 and bf16 maps, the kernels' launches); then at full width
+    each kernel's time (median of 20, CUDA events) and its plain
+    version's, for an f32 and a bf16 SVBRDF, its bound, registers and
+    blocks per SM."""
+    from svbrdf_tpu_torch import losses
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+    from svbrdf_tpu_torch.utils.bench_setup import (hold_pathtrace_kernels,
+                                                    pathtrace_case,
+                                                    pathtrace_inputs)
+    from svbrdf_tpu_torch.utils.compare_builds import ptxas_lines
+
+    checks = {}
+    for label, (batch, height, width, spp, dtype, scene_grads) in \
+            PATHTRACE_CASES.items():
+        case = pathtrace_case(batch, height, width, spp, dtype=dtype)
+        checks[label] = hold_pathtrace_kernels(case, scene_grads)
+        torch.cuda.synchronize()
+        log(f"pathtrace kernels, {label} (B={batch}, S=9, {height}x{width}, "
+            f"spp {spp}, {dtype}, scene gradients {scene_grads}): "
+            f"{json.dumps(checks[label])}")
+        del case
+        torch.cuda.empty_cache()
+
+    zero = {}
+    loss_fn = losses.make_loss_fn("mixed", "pathtracing")
+    for dtype in (torch.float32, BF16):
+        target = pathtrace_inputs(MAIN["batch"], MAIN["size"],
+                                  device="cuda")[1].to(dtype)
+        pred = target.clone().requires_grad_()
+        _zero_counts()
+        loss = loss_fn(pred, target,
+                       torch.Generator(device="cuda").manual_seed(1))
+        loss.backward()
+        torch.cuda.synchronize()
+        zero[str(dtype)] = {"loss": float(loss.detach()),
+                            "grad_nonzero": int(torch.count_nonzero(
+                                pred.grad)),
+                            "launches": _nonzero(_counts())}
+        if zero[str(dtype)]["loss"] != 0.0 or zero[str(dtype)][
+                "grad_nonzero"]:
+            raise RuntimeError(f"path-traced loss or gradient not 0 for "
+                               f"pred equal to target: {zero}")
+    log(f"pathtrace kernels, pred = target at full width: {zero}")
+
+    # ptxas's registers and spills of each instance, by kernel: its f32 and
+    # bf16 SVBRDF instances (the VJP's with scene gradients as _scene).
+    registers = {name: {k: v for k, v in ptxas_lines(build_log).items()
+                        if k == name or k.startswith(name + "_")
+                        and "vjp" not in k[len(name):]}
+                 for name in PATHTRACE_KERNELS}
+    batch, size, n_scenes, spp = MAIN["batch"], MAIN["size"], 9, (16, 8)
+    times = {}
+    for dtype, suffix in ((torch.float32, ""), (BF16, "_bf16")):
+        case = pathtrace_case(batch, size, size, spp, dtype=dtype)
+        flat, flat_bwd, d = case["flat"], case["flat_bwd"], case["d_sample"]
+        calls = {"pathtrace_shade": (pt.shade_cuda, pt.shade_plain, flat,
+                                     spp[0]),
+                 "pathtrace_shade_vjp": (pt.shade_vjp_cuda,
+                                         pt.shade_vjp_plain,
+                                         (*flat_bwd, d), spp[1])}
+        for name, (kernel, plain, args, n) in calls.items():
+            ms = cuda_ms(lambda: kernel(*args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            bound_ms, bound_by, parts = pathtrace_bound(
+                name, batch, n_scenes, size, size, n, rates,
+                2 if dtype == BF16 else 4)
+            per_sm = pt.blocks_per_sm(name, dtype, n_scenes, n)
+            times[name + suffix] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_parts_us": parts,
+                "bound_share": bound_ms / ms, "blocks_per_sm": per_sm}
+            log(f"{name}{suffix}: kernel {ms:.4f} ms, plain {plain_ms:.2f} "
+                f"ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+                + f"), {bound_ms / ms:.1%} of it; {per_sm} blocks per SM; "
+                f"registers {registers[name]}")
+        del case, calls
+        torch.cuda.empty_cache()
+    return {"checks": checks, "zero": zero, "times": times,
+            "registers": registers}
 
 
 def phase_stability() -> dict:
@@ -1616,22 +1826,32 @@ def _cli_default_runs(root, train, per_epoch) -> dict:
     return runs
 
 
-def _cli_pathtracing(train, per_epoch):
-    """--renderer pathtracing at the CLI's defaults (bf16, bf16-SR masters)
-    for 1 epoch: the loss kernels never launch, sr_adam once a step."""
+def _cli_pathtracing(train, per_epoch, path=TRACED_PATH):
+    """--renderer pathtracing for 1 epoch, at the CLI's defaults (bf16,
+    bf16-SR masters; TRACED_PATH) or with --dtype float32 (TF32 off;
+    TRACED_PATH_F32): the loss kernels never launch, the path tracer's
+    kernels as on the path (TRACED_PATHS) a step and a validation batch,
+    sr_adam once a bf16-SR step."""
+    f32 = path == TRACED_PATH_F32
     with _tf32(True, False):
-        run, out, counts = _cli(TRACED_PATH, train(
-            TRACED_PATH, "--used-image-count", "1", "--loss", "mixed",
-            "--renderer", "pathtracing", "--epochs", "1", "--retrain"))
+        run, out, counts = _cli(path, train(
+            path, "--used-image-count", "1", "--loss", "mixed",
+            "--renderer", "pathtracing", "--epochs", "1", "--retrain",
+            *(("--dtype", "float32") if f32 else ())))
     if (run.steps, run.validation_batches) != (per_epoch, 1):
-        raise RuntimeError(f"cli {TRACED_PATH}: {run.steps} steps and "
+        raise RuntimeError(f"cli {path}: {run.steps} steps and "
                            f"{run.validation_batches} validation batches")
     if "Using renderer 'pathtracing'" not in out:
-        raise RuntimeError(f"cli {TRACED_PATH}: not the path tracer")
-    _expect(counts, {"sr_adam": run.steps * _sr_adam_launches(run.model)},
-            f"cli {TRACED_PATH}")
+        raise RuntimeError(f"cli {path}: not the path tracer")
+    per_step, per_batch = TRACED_PATHS[path][3]
+    expected = {k: run.steps * per_step.get(k, 0)
+                + run.validation_batches * per_batch.get(k, 0)
+                for k in {**per_step, **per_batch}}
+    if not f32:
+        expected["sr_adam"] = run.steps * _sr_adam_launches(run.model)
+    _expect(counts, expected, f"cli {path}")
     if not math.isfinite(run.last_loss):
-        raise RuntimeError(f"cli {TRACED_PATH}: last loss {run.last_loss}")
+        raise RuntimeError(f"cli {path}: last loss {run.last_loss}")
     return run, out, counts
 
 
@@ -1770,13 +1990,14 @@ def phase_cli(build_program_ms: dict) -> dict:
             shutil.rmtree(root / name)  # a checkpoint is ~1 GB at full width
 
         runs.update(_cli_default_runs(root, train, per_epoch))
-        runs[TRACED_PATH] = _cli_pathtracing(train, per_epoch)
-        shutil.rmtree(root / TRACED_PATH)
+        for path in TRACED_PATHS:
+            runs[path] = _cli_pathtracing(train, per_epoch, path)
+            shutil.rmtree(root / path)
 
     for name, (run, _, counts) in runs.items():
         entry = {"launches": counts}
         if run is not None:
-            path = (TRACED_PATH if name == TRACED_PATH
+            path = (name if name in TRACED_PATHS
                     else "single_mixed_bf16" if "default" in name
                     else "single_mixed" if name.startswith("single")
                     else "multi_rendering")
@@ -2120,9 +2341,10 @@ def _quiet(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
-def _tail_run(name: str, fn):
+def _tail_run(name: str, fn, expected=None):
     """fn() with every launch counter set to 0 just before and read just
-    after: torch ops and host work, so every count must be 0."""
+    after: torch ops and host work, so every count must be 0 but those
+    `expected` names."""
     torch.cuda.synchronize()
     _zero_counts()
     start = time.perf_counter()
@@ -2130,7 +2352,7 @@ def _tail_run(name: str, fn):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     counts = _counts()
-    _expect(counts, {}, f"tail {name}")
+    _expect(counts, expected or {}, f"tail {name}")
     log(f"tail {name} ({seconds:.2f} s): launches {_nonzero(counts)}")
     return result, seconds, counts
 
@@ -2332,7 +2554,9 @@ def _tail_turntable(root: pathlib.Path) -> dict:
 
 def _tail_examples(root: pathlib.Path, model_dir: pathlib.Path,
                    data: dict) -> dict:
-    """Each of the four examples' main(argv) once on the toy strips."""
+    """Each of the four examples' main(argv) once on the toy strips;
+    renderer_compare renders its f32 maps once through the path tracer's
+    forward kernel, the others launch no kernel."""
     from svbrdf_tpu_torch.examples import (predict, recover_maps,
                                            renderer_compare, turntable)
 
@@ -2358,8 +2582,9 @@ def _tail_examples(root: pathlib.Path, model_dir: pathlib.Path,
     result = {}
     for name, (main_fn, argv, files) in runs.items():
         argv = argv + ["--device", TAIL["device"]]
-        _, seconds, counts = _tail_run(f"example {name}",
-                                       lambda: _quiet(main_fn, argv))
+        _, seconds, counts = _tail_run(
+            f"example {name}", lambda: _quiet(main_fn, argv),
+            {"pathtrace_shade": 1} if name == "renderer_compare" else None)
         missing = [str(f) for f in files if not f.is_file()]
         if missing:
             raise RuntimeError(f"tail example {name} wrote no {missing}")
@@ -2847,10 +3072,12 @@ def main() -> None:
                 ("bf16_f32_masters",
                  steps_ms["modes"][f"{path}_bf16_f32_masters"]),
                 ("bf16_bf16sr", steps_ms[f"{path}_bf16"])) if t))
-    traced = {"agreement": phase_pathtrace_agreement()}
-    traced.update(phase_pathtrace_path())
-    counts[TRACED_PATH] = traced["launches"]
-    steps_ms[TRACED_PATH] = traced["steps_ms"]
+    traced = {"agreement": phase_pathtrace_agreement(),
+              "kernels": phase_pathtrace_kernels(rates, build_log)}
+    traced["paths"] = phase_pathtrace_path()
+    for path, run in traced["paths"].items():
+        counts[path] = run["launches"]
+        steps_ms[path] = run["steps_ms"]
     traced["stability"] = phase_stability()
     counts[TARGET_GRAD_PATH] = phase_target_grad(inputs)
     counts.update(phase_bf16_calls(inputs_bf16))
@@ -2940,6 +3167,38 @@ def main() -> None:
         tail_cli_launches=tail["cli"]["launches"]["sr_adam"],
         bf16_state_launches=sr_checks["bf16_state_launches"],
         bf16_state_code=code["bf16mu"]))
+    # The path tracer's kernels: launches from the bf16-SR path-traced
+    # path (the prediction's bf16 instantiation, the target's f32 one),
+    # the errors of the full-width f32 case, the times at full width.
+    pt_kernels = traced["kernels"]
+    full = pt_kernels["checks"]["full_f32"]
+    for k in PATHTRACE_KERNELS:
+        by_path = {p: {"f32": counts[p][k], "bf16": counts[p][k + "_bf16"]}
+                   for p in TRACED_PATHS}
+        launches = sum(by_path[TRACED_PATH].values())
+        t, t16 = pt_kernels["times"][k], pt_kernels["times"][k + "_bf16"]
+        kernels.append(dict(
+            name=k, **PATHTRACE_KERNELS[k], path=TRACED_PATH,
+            launches=launches,
+            launches_per_call=launches / (STEPS + 1),
+            launches_by_dtype=by_path[TRACED_PATH],
+            launches_by_path=by_path,
+            max_abs_err=(full["render"]["max_abs_err"]
+                         if k == "pathtrace_shade" else
+                         max(v["max_abs_err"] for n, v in full.items()
+                             if n != "render")),
+            checks=pt_kernels["checks"], zero=pt_kernels["zero"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_us=t["bound_ms"] * 1e3, bound_by=t["bound_by"],
+            bound_parts_us=t["bound_parts_us"],
+            blocks_per_sm=t["blocks_per_sm"],
+            registers=pt_kernels["registers"][k], library_ms=None,
+            bf16_ms=t16["ms"], bf16_plain_ms=t16["plain_ms"],
+            bf16_bound_ms=t16["bound_ms"], bf16_bound_by=t16["bound_by"],
+            bf16_blocks_per_sm=t16["blocks_per_sm"],
+            cli_launches={p: {"f32": cli["runs"][p]["launches"][k],
+                              "bf16": cli["runs"][p]["launches"][k + "_bf16"]}
+                          for p in TRACED_PATHS}))
     steps_ms["agreement_bf16"] = agreement_bf16
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "steps_ms": steps_ms,

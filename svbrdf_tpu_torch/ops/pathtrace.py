@@ -1,5 +1,5 @@
-"""Differentiable patch-sample path tracer (area-light Monte Carlo), plain
-torch ops.
+"""Differentiable patch-sample path tracer (area-light Monte Carlo), with
+CUDA kernels of its own for the card and their plain torch versions.
 
 Counterpart of svbrdf_tpu/ops/pathtrace.py. The scene class is a flat 2x2
 SVBRDF patch at z=0, one pixel to one patch point (the local renderer's
@@ -23,16 +23,32 @@ tie with a bound the gradient splits evenly, where torch.clamp would pass
 it whole. Each op runs in the dtype the JAX package's runs in: a bf16
 SVBRDF gives bf16 coordinates, maps and Blinn exponents, promoted to f32
 where they meet the f32 scenes and samples.
+
+The kernels (csrc/pathtrace.cu; the JAX package's `_shade` and
+`_render_mc_bwd` are plain JAX, which XLA fuses): `pathtrace_shade`, the
+forward estimator, and `pathtrace_shade_vjp`, the backward estimator's
+hand-derived VJP, which sums the gradients of the SVBRDF's maps (and, when
+a scene tensor needs one, of wo and the scene fields) over the scenes and
+samples. Both take a render's batch as P items of S scenes (`_layout`).
+`_RenderMC` launches them for CUDA tensors (`shade_cuda`,
+`shade_vjp_cuda`) and runs their plain versions (`shade_plain`,
+`shade_vjp_plain`: the per-sample loop and one sample's autograd graph at
+a time) for CPU tensors; the geometry, the light quad's occlusion and the
+last pass of autograd through them stay torch ops. The kernels are held
+to the plain versions at a tolerance (chip_smoke.py); the VJP's line-for-
+line transcription `_sample_contrib_vjp_plain` is held to autograd on the
+CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Tuple
 
 import torch
 
-from svbrdf_tpu_torch.ops import codecs
+from svbrdf_tpu_torch.ops import _build, codecs
 from svbrdf_tpu_torch.ops.render import dot, normalize
 from svbrdf_tpu_torch.scene import Scene
 
@@ -221,9 +237,13 @@ class _Geometry(NamedTuple):
     emission: torch.Tensor
 
 
-# The _Geometry fields a sample's contribution reads and differentiates.
+# The _Geometry fields a sample's contribution reads and differentiates:
+# the SVBRDF's four, then the scene's.
 _SAMPLED = ("normals", "diffuse", "rough_blinn", "specular", "light", "wo",
             "n_l", "t_l", "b_l", "emission")
+_MAP_FIELDS = _SAMPLED[:4]
+# The scene fields whose cotangents the VJP kernel sums per (item, scene).
+_SCENE_FIELDS = ("light", "n_l", "t_l", "b_l", "emission")
 
 
 def _geometry(scene: Scene, svbrdf: torch.Tensor) -> _Geometry:
@@ -287,24 +307,605 @@ def _occlude(geo: _Geometry, radiance: torch.Tensor) -> torch.Tensor:
                        radiance)
 
 
-def _shade(scene: Scene, svbrdf: torch.Tensor, offsets: torch.Tensor,
-           shift: torch.Tensor) -> torch.Tensor:
-    """Direct-lighting MC estimate from the given samples, (..., H, W, 3):
-    the mean of the samples' contributions, one sample at a time into one
-    buffer."""
-    geo = _geometry(scene, svbrdf)
+# --- The kernels' layout -----------------------------------------------------
+#
+# The kernels take a render's batch as P items of S scenes each: the SVBRDF
+# varies along the items only (the losses render (B, 1) maps under (B, S)
+# scenes), each scene field along both. Their inputs, which the plain
+# versions take too: coords (H, W, 3) and the maps normals, diffuse,
+# rough_blinn, specular (P, H, W, 3 | 1) in the SVBRDF's dtype; light, n_l,
+# t_l, b_l, emission and cam (P, S, 3); offsets (spp, P, S, 2) and shift
+# (P, S, H, W, 2); the VJP's d_sample (P, S, H, W, 3).
+
+
+class _Layout(NamedTuple):
+    """A render's batch shape, split where the SVBRDF stops varying: the
+    leading dims are the kernels' items, the trailing ones their scenes.
+    `map_shape` is the SVBRDF's batch shape padded to the batch's rank."""
+
+    batch_shape: Tuple[int, ...]
+    split: int
+    map_shape: Tuple[int, ...]
+
+    @property
+    def items(self) -> int:
+        return math.prod(self.batch_shape[:self.split])
+
+    @property
+    def scenes(self) -> int:
+        return math.prod(self.batch_shape[self.split:])
+
+    def item_shape(self) -> Tuple[int, ...]:
+        """The batch shape of a per-item tensor: the items, then 1s."""
+        rank = len(self.batch_shape)
+        return self.batch_shape[:self.split] + (1,) * (rank - self.split)
+
+
+def _layout(geo: _Geometry, batch_shape) -> _Layout:
+    map_shape = tuple(geo.normals.shape[:-3])
+    map_shape = (1,) * (len(batch_shape) - len(map_shape)) + map_shape
+    split = len(map_shape)
+    while split and map_shape[split - 1] == 1:
+        split -= 1
+    return _Layout(tuple(batch_shape), split, map_shape)
+
+
+def _flat_image(x: torch.Tensor, layout: _Layout) -> torch.Tensor:
+    """batch_shape + (H, W, c) -> (P, S, H, W, c), contiguous."""
+    x = x.expand(layout.batch_shape + tuple(x.shape[-3:]))
+    return x.reshape(layout.items, layout.scenes,
+                     *x.shape[-3:]).contiguous()
+
+
+def _flatten(geo: _Geometry, layout: _Layout, offsets: torch.Tensor,
+             shift: torch.Tensor) -> tuple:
+    """The kernels' inputs (without d_sample) for a render's geometry and
+    one estimator's samples."""
+    items, scenes = layout.items, layout.scenes
+
+    def per_item(x):
+        x = x.reshape(layout.map_shape + tuple(x.shape[-3:]))
+        x = x.expand(layout.item_shape() + tuple(x.shape[-3:]))
+        return x.reshape(items, *x.shape[-3:]).contiguous()
+
+    def per_scene(x):
+        x = x.expand(layout.batch_shape + (1, 1, 3))
+        return x.reshape(items, scenes, 3).contiguous()
+
+    spp = offsets.shape[0]
+    offsets = offsets.expand((spp,) + layout.batch_shape + (2,))
+    return (geo.coords.contiguous(),
+            *map(per_item, (geo.normals, geo.diffuse, geo.rough_blinn,
+                            geo.specular)),
+            *map(per_scene, (geo.light, geo.n_l, geo.t_l, geo.b_l,
+                             geo.emission, geo.cam)),
+            offsets.reshape(spp, items, scenes, 2).contiguous(),
+            _flat_image(shift, layout))
+
+
+def _unflatten_grad(layout: _Layout, field: str, grad: torch.Tensor,
+                    like: torch.Tensor) -> torch.Tensor:
+    """A kernel-layout sum for `field` ((P, 1, H, W, c) for a map, (P, S,
+    H, W, 3) for wo, (P, S, 3) for the others) as the gradient of the
+    geometry's tensor `like`."""
+    if field in _MAP_FIELDS:
+        grad = grad.reshape(layout.item_shape() + tuple(grad.shape[-3:]))
+    elif field == "wo":
+        grad = grad.reshape(layout.batch_shape + tuple(grad.shape[-3:]))
+    else:
+        grad = grad.reshape(layout.batch_shape + (1, 1, 3))
+    return grad.sum_to_size(like.shape)
+
+
+def _flat_geometry(coords, normals, diffuse, rough_blinn, specular, light,
+                   n_l, t_l, b_l, emission, cam) -> _Geometry:
+    """The _Geometry of the kernels' inputs: the maps (P, 1, H, W, c), the
+    scene fields (P, S, 1, 1, 3), wo (P, S, H, W, 3)."""
+    def per_scene(x):
+        return x[:, :, None, None, :]
+
+    cam = per_scene(cam)
+    return _Geometry(coords, normals[:, None], diffuse[:, None],
+                     rough_blinn[:, None], specular[:, None], cam,
+                     per_scene(light), normalize(cam - coords),
+                     per_scene(n_l), per_scene(t_l), per_scene(b_l),
+                     per_scene(emission))
+
+
+# --- Plain versions ----------------------------------------------------------
+
+
+def shade_plain(coords, normals, diffuse, rough_blinn, specular, light, n_l,
+                t_l, b_l, emission, cam, offsets, shift) -> torch.Tensor:
+    """The forward estimator on the kernels' inputs: the mean of the
+    samples' contributions, one sample at a time into one buffer, (P, S,
+    H, W, 3)."""
+    geo = _flat_geometry(coords, normals, diffuse, rough_blinn, specular,
+                         light, n_l, t_l, b_l, emission, cam)
     total = None
     for k in range(offsets.shape[0]):
         c = _sample_contrib(geo, offsets[k], shift)
         total = c if total is None else total + c
-    return _occlude(geo, total / offsets.shape[0])
+    return total / offsets.shape[0]
+
+
+def shade_vjp_plain(coords, normals, diffuse, rough_blinn, specular, light,
+                    n_l, t_l, b_l, emission, cam, offsets, shift, d_sample,
+                    scene_grads: bool = False) -> tuple:
+    """The VJP of the sum of the samples' contributions with cotangent
+    d_sample, on the kernels' inputs, one sample's autograd graph at a
+    time: the sums for normals, diffuse, rough_blinn and specular (P, 1,
+    H, W, c), and with `scene_grads` also, in _SAMPLED's order, for light,
+    n_l, t_l, b_l, emission (P, S, 3) and wo (P, S, H, W, 3). Sums are f32
+    (float64 for float64 inputs)."""
+    geo = _flat_geometry(coords, normals, diffuse, rough_blinn, specular,
+                         light, n_l, t_l, b_l, emission, cam)
+    fields = _SAMPLED if scene_grads else _MAP_FIELDS
+    with torch.enable_grad():
+        geo = geo._replace(**{f: getattr(geo, f).detach().requires_grad_()
+                              for f in fields})
+        sums = [None] * len(fields)
+        for k in range(offsets.shape[0]):
+            c = _sample_contrib(geo, offsets[k], shift)
+            grads = torch.autograd.grad(
+                c, [getattr(geo, f) for f in fields], d_sample)
+            sums = [gk.to(torch.promote_types(gk.dtype, torch.float32))
+                    if s is None else s + gk for s, gk in zip(sums, grads)]
+    return tuple(s if f in _MAP_FIELDS or f == "wo" else s[:, :, 0, 0]
+                 for s, f in zip(sums, fields))
+
+
+def _pixel_terms(rough_blinn: torch.Tensor, specular: torch.Tensor):
+    """The kernels' per-pixel terms (pixel_terms in csrc/pathtrace.cu):
+    (r_lo, 1/r, e = 2/r - 2, (e + 2)/(2 pi), sqrt(0.5 e + 1), 1 -
+    specular), in f32 (float64 for float64 maps) with each bf16 rounding
+    of a bf16 SVBRDF made explicit, where the plain code's bf16 ops
+    round."""
+    dtype = rough_blinn.dtype
+    work = torch.float64 if dtype == torch.float64 else torch.float32
+
+    def rnd(x):
+        return x.to(dtype).to(work)
+
+    rough = rough_blinn.to(work)
+    r_lo = rnd(torch.tensor(1e-4, dtype=work, device=rough.device))
+    r = torch.minimum(torch.maximum(rough, r_lo), rough.new_tensor(1.0))
+    inv_r = rnd(torch.reciprocal(r))
+    e = rnd(rnd(inv_r * 2.0) - 2.0)
+    dn = rnd(rnd(e + 2.0) / (2.0 * _PI))
+    sq = rnd(torch.sqrt(rnd(rnd(0.5 * e) + 1.0)))
+    oms = rnd(1.0 - specular.to(work))
+    return r_lo, inv_r, e, dn, sq, oms
+
+
+def _max_grad(x, lo):
+    """d max(x, lo)/dx as torch.maximum's backward takes it: 1 above (and
+    for NaN), 1/2 at a tie, 0 below."""
+    return torch.where(x < lo, 0.0, torch.where(x == lo, 0.5, 1.0)).to(
+        x.dtype)
+
+
+def _min_grad(x, hi):
+    return torch.where(x > hi, 0.0, torch.where(x == hi, 0.5, 1.0)).to(
+        x.dtype)
+
+
+def _clip_grad(x, lo, hi):
+    """d clip(x, lo, hi)/dx: a maximum, then a minimum (_clip)."""
+    return _max_grad(x, lo) * _min_grad(torch.maximum(
+        x, torch.as_tensor(lo, dtype=x.dtype, device=x.device)), hi)
+
+
+def _smith_g1(xn, sq):
+    """_blinn_smith_g1 with sqrt(0.5 e + 1) given (the kernels' smith_g1)."""
+    ct = _clip(xn, _EPS, 1.0)
+    st = torch.sqrt(_clip(1.0 - ct * ct, 1e-12, 1.0))
+    a = sq * ct / st
+    rational = ((3.535 * a + 2.181 * a * a)
+                / (1.0 + 2.276 * a + 2.577 * a * a))
+    return torch.where(a < 1.6, rational, torch.ones_like(rational))
+
+
+def _smith_g1_vjp(xn, sq, g):
+    """The kernels' smith_g1_vjp: (d/d xn, d/d sq) for cotangent g."""
+    ct = _clip(xn, _EPS, 1.0)
+    s2_raw = 1.0 - ct * ct
+    st = torch.sqrt(_clip(s2_raw, 1e-12, 1.0))
+    a = sq * ct / st
+    num = 3.535 * a + 2.181 * a * a
+    den = 1.0 + 2.276 * a + 2.577 * a * a
+    g_num = torch.where(a < 1.6, g / den, torch.zeros_like(g))
+    g_den = -g_num * (num / den)
+    g_a = g_num * (3.535 + 2.0 * (2.181 * a)) + g_den * (
+        2.276 + 2.0 * (2.577 * a))
+    g_sq = g_a * ct / st
+    g_st = -g_a * a / st
+    g_s2 = g_st / (2.0 * st)
+    g_ct = g_a * sq / st + g_s2 * _clip_grad(s2_raw, 1e-12, 1.0) * (-2.0 * ct)
+    return g_ct * _clip_grad(xn, _EPS, 1.0), g_sq
+
+
+def _sample_contrib_vjp_plain(geo: _Geometry, offset: torch.Tensor,
+                              shift: torch.Tensor, g: torch.Tensor,
+                              work=None) -> tuple:
+    """The kernels' hand-derived VJP of _sample_contrib for cotangent g,
+    transcribed line for line into torch (csrc/pathtrace.cu: sample_terms,
+    channel and sample_vjp, then the view's and the pixel's terms, for one
+    sample): (the contribution, {field: gradient} for every _SAMPLED field
+    in its shape). In `work` precision, by default f32 (float64 for a
+    float64 geometry), after the per-pixel terms, which round as the
+    SVBRDF's dtype rounds them (_pixel_terms). The tests hold it against
+    autograd; shade_float64 evaluates the kernels' arithmetic with it."""
+    if work is None:
+        work = torch.float64 if geo.normals.dtype == torch.float64 \
+            else torch.float32
+    n, dif, coords, wo, light, n_l, t_l, b_l, em = (
+        getattr(geo, f).to(work) for f in (
+            "normals", "diffuse", "coords", "wo", "light", "n_l", "t_l",
+            "b_l", "emission"))
+    r_lo, inv_r, e, dn, sq, oms = (x.to(work) for x in _pixel_terms(
+        geo.rough_blinn, geo.specular))
+    sp = geo.specular.to(work)
+    # The geometry of the view and of the sample in float64, then rounded
+    # to `work` (view_terms, sample_terms).
+    f64 = torch.float64
+    n64 = geo.normals.to(f64)
+    rel = geo.cam.to(f64) - geo.coords.to(f64)
+    wo64 = rel / torch.sqrt(dot(rel, rel))
+    wo = wo64.to(work)
+    nv_raw = dot(n64, wo64).to(work)
+    nv = _clip(nv_raw, _EPS, 1.0)
+    g1v = _smith_g1(nv, sq)
+    u = offset[..., None, None, :].to(f64) + 0.5 + shift.to(f64)
+    u = u - torch.floor(u) - 0.5
+    a0, a1 = u[..., 0:1] * LIGHT_SIZE[0], u[..., 1:2] * LIGHT_SIZE[1]
+    rel = (geo.light.to(f64) + a0 * geo.t_l.to(f64) + a1 * geo.b_l.to(f64)
+           - geo.coords.to(f64))
+    ds = dot(rel, rel)
+    sd = torch.sqrt(ds)
+    wi = rel / sd
+    hr = wi + wo64
+    hl = torch.sqrt(dot(hr, hr))
+    h = hr / hl
+    nh64 = dot(n64, h)
+    cs_raw = dot(wi, n64).to(work)
+    cl_raw = (-dot(wi, geo.n_l.to(f64))).to(work)
+    nh_raw = nh64.to(work)
+    vh_raw = dot(wo64, h).to(work)
+    a0, a1, rel, ds, sd, wi, hl, h = (x.to(work) for x in (
+        a0, a1, rel, ds, sd, wi, hl, h))
+    cs = _clip(cs_raw, 0.0)
+    cl = _clip(cl_raw, 0.0)
+    nh = _clip(nh_raw, _EPS, 1.0)
+    nl = _clip(cs_raw, _EPS, 1.0)
+    # The lobe nh^e as exp(e log1p(nh - 1)) from the float64 nh.
+    lg = torch.log1p((_clip(nh64, _EPS, 1.0) - 1.0).to(work))
+    pw = torch.exp(e * lg)
+    D = dn * pw
+    x = 1.0 - _clip(vh_raw, _EPS, 1.0)
+    x4 = (x * x) * (x * x)
+    x5 = x * x4
+    g1l = _smith_g1(nl, sq)
+    G = g1v * g1l
+    den = 4.0 * nv * nl
+    # The channels (channel, then sample_vjp's loop), all three at once.
+    F = sp + oms * x5
+    spec = F * G * D / den
+    f = (1.0 - F) * dif / _PI + spec
+    t1 = f * em
+    t2 = t1 * cs
+    t4 = t2 * cl / ds
+    area = LIGHT_SIZE[0] * LIGHT_SIZE[1]
+    g4 = g.to(work) * area
+    g3 = g4 / ds
+    g2 = g3 * cl
+    g1 = g2 * cs
+    gf = g1 * em
+    g_cs = dot(g2, t1)
+    g_ds = -dot(g4, t4 / ds)
+    g_cl = dot(g3, t2)
+    g_em = g1 * f
+    kd = gf / den
+    g_F = -gf * dif / _PI + kd * G * D
+    g_dif = gf * (1.0 - F) / _PI
+    g_G = dot(kd * F, D.expand_as(F))
+    g_D = dot(kd * F, G.expand_as(F))
+    g_den = -dot(kd, spec)
+    g_sp = g_F * (1.0 - x5)
+    g_x5 = dot(g_F, oms.expand_as(g_F))
+    # den = (4 nv) nl; G = g1v g1(nl); D = dn nh^e
+    g_nv = g_den * 4.0 * nl
+    g_nl = g_den * 4.0 * nv
+    g_g1v = g_G * g1l
+    g_nl_g1, g_sq = _smith_g1_vjp(nl, sq, g_G * g1v)
+    g_nl = g_nl + g_nl_g1
+    g_dn = g_D * pw
+    g_pw = g_D * dn
+    g_e = g_pw * pw * lg
+    g_nh_raw = g_pw * e * pw / nh * _clip_grad(nh_raw, _EPS, 1.0)
+    g_nwi = (g_nl * _clip_grad(cs_raw, _EPS, 1.0)
+             + g_cs * _max_grad(cs_raw, 0.0))
+    g_n = g_nh_raw * h + g_nwi * wi
+    # The rest flows to wo and the scene.
+    g_vh_raw = -(g_x5 * 5.0 * x4) * _clip_grad(vh_raw, _EPS, 1.0)
+    g_cl_raw = g_cl * _max_grad(cl_raw, 0.0)
+    g_h = g_nh_raw * n + g_vh_raw * wo
+    g_wo = g_vh_raw * h
+    g_hr = (g_h - dot(g_h, h) * h) / hl
+    g_wo = g_wo + g_hr
+    g_wi = g_hr + g_nwi * n - g_cl_raw * n_l
+    g_nl_light = -g_cl_raw * wi
+    g_ds_all = g_ds - dot(g_wi, wi) / (2.0 * ds)
+    g_rel = g_wi / sd + 2.0 * g_ds_all * rel
+    # Once a scene: G1(nv), then nv = clip(n.wo).
+    g_nv_g1, g_sq_v = _smith_g1_vjp(nv, sq, g_g1v)
+    g_nv_raw = (g_nv + g_nv_g1) * _clip_grad(nv_raw, _EPS, 1.0)
+    g_n = g_n + g_nv_raw * wo
+    g_wo = g_wo + g_nv_raw * n
+    # Once a pixel: dn, sq and e back to rough_blinn.
+    g_sq = g_sq + g_sq_v
+    g_e = g_e + g_dn / (2.0 * _PI) + (g_sq / (2.0 * sq)) * 0.5
+    g_rough = (-(g_e * 2.0) * inv_r * inv_r
+               * _clip_grad(geo.rough_blinn.to(work), r_lo, 1.0))
+    grads = {"normals": g_n, "diffuse": g_dif, "rough_blinn": g_rough,
+             "specular": g_sp, "light": g_rel, "wo": g_wo,
+             "n_l": g_nl_light, "t_l": a0 * g_rel, "b_l": a1 * g_rel,
+             "emission": g_em}
+    return t4 * area, {f: grads[f].sum_to_size(getattr(geo, f).shape)
+                       for f in _SAMPLED}
+
+
+def shade_float64(coords, normals, diffuse, rough_blinn, specular, light,
+                  n_l, t_l, b_l, emission, cam, offsets, shift, d_sample=None,
+                  scene_grads: bool = False):
+    """The kernels' arithmetic in float64 on the kernels' inputs: the
+    per-pixel terms rounded where the SVBRDF's dtype rounds them, the rest
+    in float64 (_sample_contrib_vjp_plain, one sample at a time). Without
+    d_sample the forward estimate (P, S, H, W, 3); with it the VJP's sums
+    in shade_vjp_plain's layout. A float64 reference for a bf16 SVBRDF,
+    which the plain version evaluated in float64 would not round."""
+    geo = _flat_geometry(coords, normals, diffuse, rough_blinn, specular,
+                         light, n_l, t_l, b_l, emission, cam)
+    fields = _SAMPLED if scene_grads else _MAP_FIELDS
+    g = (torch.zeros(()) if d_sample is None else d_sample).to(
+        device=coords.device, dtype=torch.float64)
+    total, sums = None, None
+    for k in range(offsets.shape[0]):
+        c, grads = _sample_contrib_vjp_plain(geo, offsets[k], shift, g,
+                                             work=torch.float64)
+        total = c if total is None else total + c
+        sums = (grads if sums is None else
+                {f: sums[f] + grads[f] for f in fields})
+    if d_sample is None:
+        return total / offsets.shape[0]
+    return tuple(sums[f] if f in _MAP_FIELDS or f == "wo"
+                 else sums[f][:, :, 0, 0] for f in fields)
+
+
+# --- The kernels' wrappers ---------------------------------------------------
+
+# Each kernel's C entry in csrc/pathtrace.cu; the SVBRDF dtypes the kernels
+# take, and the suffix of each one's entries.
+_ENTRIES = {"pathtrace_shade": "svbrdf_pathtrace_shade",
+            "pathtrace_shade_vjp": "svbrdf_pathtrace_shade_vjp"}
+FIELD_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+_FUNCS = {}
+
+
+def symbol(name: str, dtype: torch.dtype = torch.float32) -> str:
+    """The C entry of kernel `name` for an SVBRDF of `dtype`."""
+    return _ENTRIES[name] + FIELD_DTYPES[dtype]
+
+
+def _kernel(name: str, dtype: torch.dtype):
+    """The C entry of kernel `name` for an SVBRDF of `dtype`, its library
+    built and loaded at first use and its signature declared."""
+    if (name, dtype) not in _FUNCS:
+        fn = getattr(_build.load("pathtrace"), symbol(name, dtype))
+        # pointers: the 13 inputs and the output (forward); the 14 inputs,
+        # 6 outputs (VJP). ints: P, S, H, W, spp (and scene_grads). The
+        # light's extent (double) and area (float). Then the stream.
+        vjp = name == "pathtrace_shade_vjp"
+        fn.argtypes = ([ctypes.c_void_p] * (20 if vjp else 14)
+                       + [ctypes.c_int] * (6 if vjp else 5)
+                       + [ctypes.c_double] * 2 + [ctypes.c_float]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FUNCS[name, dtype] = fn
+    return _FUNCS[name, dtype]
+
+
+def threads_per_block() -> int:
+    """Threads per block of both kernels (one thread a pixel)."""
+    fn = _build.load("pathtrace").svbrdf_pathtrace_threads
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def blocks_per_sm(name: str, dtype: torch.dtype, n_scenes: int, spp: int,
+                  scene_grads: bool = False) -> int:
+    """Blocks of kernel `name` for an SVBRDF of `dtype` that fit one SM of
+    the current CUDA device (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _build.load("pathtrace")
+    fn = getattr(lib, f"{symbol(name, dtype)}_blocks_per_sm")
+    if name == "pathtrace_shade":
+        fn.argtypes, args = [ctypes.c_int], (spp,)
+    else:
+        fn.argtypes = [ctypes.c_int] * 3
+        args = (n_scenes, spp, int(scene_grads))
+    fn.restype = ctypes.c_int
+    n = fn(*args)
+    if n <= 0:
+        raise RuntimeError(f"occupancy query of the {name} kernel failed: "
+                           f"CUDA error {-n}")
+    return n
+
+
+def _check(coords, normals, diffuse, rough_blinn, specular, light, n_l, t_l,
+           b_l, emission, cam, offsets, shift, d_sample=None) -> None:
+    """Raise unless the inputs have the kernels' layout, dtypes, one device
+    and contiguity."""
+    if coords.dtype not in FIELD_DTYPES:
+        raise TypeError(f"the SVBRDF must be float32 or bfloat16, got "
+                        f"{coords.dtype}")
+    if coords.dim() != 3 or coords.shape[2] != 3:
+        raise ValueError(f"coords must be (H, W, 3), got "
+                         f"{tuple(coords.shape)}")
+    height, width = coords.shape[:2]
+    items, scenes = light.shape[:2] if light.dim() == 3 else (-1, -1)
+    spp = offsets.shape[0]
+    named = [("coords", coords, tuple(coords.shape), coords.dtype)]
+    named += [(n, t, (items, height, width, c), coords.dtype)
+              for n, t, c in (("normals", normals, 3),
+                              ("diffuse", diffuse, 3),
+                              ("rough_blinn", rough_blinn, 1),
+                              ("specular", specular, 3))]
+    named += [(n, t, (items, scenes, 3), torch.float32)
+              for n, t in (("light", light), ("n_l", n_l), ("t_l", t_l),
+                           ("b_l", b_l), ("emission", emission),
+                           ("cam", cam))]
+    named += [("offsets", offsets, (spp, items, scenes, 2), torch.float32),
+              ("shift", shift, (items, scenes, height, width, 2),
+               torch.float32)]
+    if d_sample is not None:
+        named.append(("d_sample", d_sample,
+                      (items, scenes, height, width, 3), torch.float32))
+    for name, t, shape, dtype in named:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != coords.device:
+            raise ValueError(f"{name} is on {t.device}, coords on "
+                             f"{coords.device}")
+    if coords.device.type != "cuda":
+        raise RuntimeError(f"the path tracer's kernels need CUDA tensors, "
+                           f"got {coords.device}")
+
+
+def _light_args() -> tuple:
+    """The light's extent and area as the kernels take them (read at call
+    time, as the plain code reads LIGHT_SIZE)."""
+    return LIGHT_SIZE[0], LIGHT_SIZE[1], LIGHT_SIZE[0] * LIGHT_SIZE[1]
+
+
+def _launch(name: str, fn, device, args) -> None:
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _counted(wrapper, dtype) -> None:
+    """One launch of `wrapper`'s kernel, counted in total and by the
+    SVBRDF's dtype."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[dtype] += 1
+
+
+def shade_cuda(coords, normals, diffuse, rough_blinn, specular, light, n_l,
+               t_l, b_l, emission, cam, offsets, shift) -> torch.Tensor:
+    """Launch the forward estimator's kernel: (P, S, H, W, 3) f32."""
+    inputs = (coords, normals, diffuse, rough_blinn, specular, light, n_l,
+              t_l, b_l, emission, cam, offsets, shift)
+    _check(*inputs)
+    items, scenes = light.shape[:2]
+    height, width = coords.shape[:2]
+    out = torch.empty((items, scenes, height, width, 3), dtype=torch.float32,
+                      device=coords.device)
+    fn = _kernel("pathtrace_shade", coords.dtype)
+    _launch("pathtrace_shade", fn, coords.device,
+            [t.data_ptr() for t in inputs] + [
+                out.data_ptr(), items, scenes, height, width,
+                offsets.shape[0], *_light_args()])
+    _counted(shade_cuda, coords.dtype)
+    return out
+
+
+def shade_vjp_cuda(coords, normals, diffuse, rough_blinn, specular, light,
+                   n_l, t_l, b_l, emission, cam, offsets, shift, d_sample,
+                   scene_grads: bool = False) -> tuple:
+    """Launch the backward estimator's VJP kernel: the sums of
+    shade_vjp_plain in its order (_SAMPLED's), f32. The sums for light,
+    n_l, t_l, b_l and emission are the kernel's per-block partials summed
+    with torch.sum."""
+    inputs = (coords, normals, diffuse, rough_blinn, specular, light, n_l,
+              t_l, b_l, emission, cam, offsets, shift, d_sample)
+    _check(*inputs)
+    items, scenes = light.shape[:2]
+    height, width = coords.shape[:2]
+    dev = coords.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    maps = [empty(items, 1, height, width, c) for c in (3, 3, 1, 3)]
+    d_wo = partials = None
+    if scene_grads:
+        blocks = -(-(height * width) // threads_per_block())
+        d_wo = empty(items, scenes, height, width, 3)
+        partials = empty(items, blocks, scenes, 15)
+    fn = _kernel("pathtrace_shade_vjp", coords.dtype)
+    _launch("pathtrace_shade_vjp", fn, dev,
+            [t.data_ptr() for t in inputs]
+            + [t.data_ptr() for t in maps]
+            + [0 if t is None else t.data_ptr() for t in (d_wo, partials)]
+            + [items, scenes, height, width, offsets.shape[0],
+               int(scene_grads), *_light_args()])
+    _counted(shade_vjp_cuda, coords.dtype)
+    if not scene_grads:
+        return tuple(maps)
+    light_s, n_l_s, t_l_s, b_l_s, emission_s = torch.split(
+        torch.sum(partials, dim=1), 3, dim=-1)
+    return (*maps, light_s, d_wo, n_l_s, t_l_s, b_l_s, emission_s)
+
+
+CUDA_WRAPPERS = {"pathtrace_shade": shade_cuda,
+                 "pathtrace_shade_vjp": shade_vjp_cuda}
+for _wrapper in CUDA_WRAPPERS.values():
+    _wrapper.launches = 0
+    _wrapper.launches_by_dtype = dict.fromkeys(FIELD_DTYPES, 0)
+
+PLAIN_VERSIONS = {"pathtrace_shade": shade_plain,
+                  "pathtrace_shade_vjp": shade_vjp_plain}
+
+
+def shade(*inputs) -> torch.Tensor:
+    """shade_cuda for CUDA tensors, shade_plain for CPU tensors."""
+    if inputs[0].device.type == "cpu":
+        return shade_plain(*inputs)
+    return shade_cuda(*inputs)
+
+
+def shade_vjp(*inputs, scene_grads: bool = False) -> tuple:
+    """shade_vjp_cuda for CUDA tensors, shade_vjp_plain for CPU tensors."""
+    if inputs[0].device.type == "cpu":
+        return shade_vjp_plain(*inputs, scene_grads=scene_grads)
+    return shade_vjp_cuda(*inputs, scene_grads=scene_grads)
+
+
+def _shade(scene: Scene, svbrdf: torch.Tensor, offsets: torch.Tensor,
+           shift: torch.Tensor, estimator=None) -> torch.Tensor:
+    """Direct-lighting MC estimate from the given samples, (..., H, W, 3):
+    the forward estimator (by default `shade`: the kernel, or on the CPU
+    its plain version; `estimator` names another, e.g. shade_plain for a
+    float64 render on the card), then the light quad's occlusion."""
+    geo = _geometry(scene, svbrdf)
+    layout = _layout(geo, _batch_shape(scene, svbrdf))
+    total = (estimator or shade)(*_flatten(geo, layout, offsets, shift))
+    return _occlude(geo, total.reshape(layout.batch_shape
+                                       + tuple(total.shape[-3:])))
 
 
 class _RenderMC(torch.autograd.Function):
     """Forward: _shade on the forward samples. Backward: the VJP of _shade
-    on the backward samples (an independent estimator), one sample's
-    autograd graph at a time, for the SVBRDF and each scene tensor that
-    needs a gradient. The samples get none."""
+    on the backward samples (an independent estimator): the VJP kernel (on
+    the CPU its plain version) for the geometry's sampled fields, then one
+    autograd pass through the geometry and the occlusion, for the SVBRDF and
+    each scene tensor that needs a gradient. The samples get none."""
 
     @staticmethod
     def forward(ctx, svbrdf, camera_pos, light_pos, light_color,
@@ -329,24 +930,20 @@ class _RenderMC(torch.autograd.Function):
             (d_radiance,) = torch.autograd.grad(out, radiance, g,
                                                 retain_graph=True)
             d_sample = d_radiance / offsets.shape[0]
-            # Per sample, the gradient with respect to the shared geometry
-            # (detached), summed in f32; then one pass through the geometry.
             fields = [f for f in _SAMPLED if getattr(geo, f).requires_grad]
-            detached = geo._replace(**{
-                f: getattr(geo, f).detach().requires_grad_()
-                for f in fields})
-            sums = [None] * len(fields)
-            for k in range(offsets.shape[0]):
-                c = _sample_contrib(detached, offsets[k], shift)
-                grads = torch.autograd.grad(
-                    c, [getattr(detached, f) for f in fields], d_sample)
-                sums = [gk.float() if s is None else s + gk
-                        for s, gk in zip(sums, grads)]
+            layout = _layout(geo, tuple(g.shape[:-3]))
+            scene_grads = any(f not in _MAP_FIELDS for f in fields)
+            flat = _flatten(_Geometry(*(x.detach() for x in geo)), layout,
+                            offsets, shift)
+            sums = dict(zip(_SAMPLED, shade_vjp(
+                *flat, _flat_image(d_sample, layout),
+                scene_grads=scene_grads)))
             wanted = [x for x in leaves if x.requires_grad]
             grads = iter(torch.autograd.grad(
                 [out] + [getattr(geo, f) for f in fields], wanted,
-                [g] + [s.to(getattr(geo, f).dtype)
-                       for s, f in zip(sums, fields)],
+                [g] + [_unflatten_grad(layout, f, sums[f],
+                                       getattr(geo, f)).to(
+                           getattr(geo, f).dtype) for f in fields],
                 allow_unused=True))
         result = [next(grads) if need else None for need in needs]
         result = [torch.zeros_like(x) if need and r is None else r

@@ -118,30 +118,35 @@ def pathtrace_inputs(batch: int, size: int, spp=(4, 2), seed: int = 0,
 
 
 def render_conditioning(scene, svbrdf: torch.Tensor, samples,
-                        trials: int = 4, seed: int = 0) -> torch.Tensor:
+                        trials: int = 4, seed: int = 0,
+                        device="cpu") -> torch.Tensor:
     """The scale of f32 rounding's effect on each path-traced render value:
     the most that flipping every map value by one f32 ulp (relative 2^-24,
-    random signs from `seed`) moves the float64 render (render_mc on the
-    float64 inputs), over `trials` draws. One ulp of n.h moves the Blinn
-    lobe pow(n.h, e) by up to e ulps (e reaches 2e4), so where f32 is
-    ill-conditioned this is large."""
+    random signs from `seed`) moves the float64 render (the forward
+    estimator's plain version on the float64 inputs, on `device`), over
+    `trials` draws. One ulp of n.h moves the Blinn lobe pow(n.h, e) by up
+    to e ulps (e reaches 2e4), so where f32 is ill-conditioned this is
+    large."""
     from svbrdf_tpu_torch.ops import pathtrace
 
     def f64(x):
-        return x.detach().double().cpu()
+        return x.detach().double().to(device)
+
+    def render(svbrdf):
+        return pathtrace._shade(scene, svbrdf, *samples.forward,
+                                estimator=pathtrace.shade_plain)
 
     scene = type(scene)(*map(f64, (scene.camera_pos, scene.light_pos,
                                    scene.light_color)))
     samples = pathtrace.RenderSamples(*(pathtrace.Samples(*map(f64, s))
                                         for s in samples))
     svbrdf = f64(svbrdf)
-    base = pathtrace.render_mc(scene, svbrdf, samples)
+    base = render(svbrdf)
     g = torch.Generator().manual_seed(seed)
     worst = torch.zeros_like(base)
     for _ in range(trials):
         sign = torch.randint(0, 2, svbrdf.shape, generator=g) * 2 - 1
-        moved = pathtrace.render_mc(scene, svbrdf * (1 + sign * 2.0 ** -24),
-                                    samples)
+        moved = render(svbrdf * (1 + sign.to(device) * 2.0 ** -24))
         worst = torch.maximum(worst, (moved - base).abs())
     return worst
 
@@ -169,6 +174,106 @@ def hold_render(actual, ref, ref64, cond, rtol: float = 1e-5) -> dict:
     if bool(bad.any()) or out["beyond_rtol"] > 0.01:
         raise RuntimeError(f"path-traced renders: {int(bad.sum())} "
                              f"values beyond both tolerances; {out}")
+    return out
+
+
+def pathtrace_case(batch: int, height: int, width: int, spp=(16, 8),
+                   dtype=torch.float32, seed: int = 0,
+                   device="cuda") -> dict:
+    """The path tracer's kernels' inputs at a loss's shapes, made on the
+    CPU from `seed` and moved to `device`: the prediction of
+    pathtrace_inputs (cut to height x width) as a (B, 1, H, W, 12) SVBRDF
+    in `dtype`, its 3 random + 6 specular loss scenes per item, both
+    estimators' samples and a render cotangent `d_render` (B, S, H, W, 3)
+    uniform in [-1, 1]; `flat` and `flat_bwd`, the forward's and the VJP's
+    inputs in the kernels' layout, and `d_sample` (the cotangent over the
+    backward spp, in that layout)."""
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+
+    dev = resolve_device(device)
+    size = max(height, width)
+    pred, _, scenes, samples = pathtrace_inputs(batch, size, spp, seed,
+                                                device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    samples = pt.draw_render_samples(g, spp, (batch, 9), height, width)
+    d_render = torch.rand((batch, 9, height, width, 3), generator=g) * 2 - 1
+    svbrdf = pred[:, None, :height, :width].to(dtype).to(dev)
+    scenes = scenes.to(dev)
+    samples = pt.RenderSamples(*(pt.Samples(*(x.to(dev) for x in s))
+                                 for s in samples))
+    geo = pt._geometry(scenes, svbrdf)
+    layout = pt._layout(geo, pt._batch_shape(scenes, svbrdf))
+    return {"scenes": scenes, "svbrdf": svbrdf, "samples": samples,
+            "d_render": d_render.to(dev),
+            "flat": pt._flatten(geo, layout, *samples.forward),
+            "flat_bwd": pt._flatten(geo, layout, *samples.backward),
+            "d_sample": pt._flat_image(d_render.to(dev) / spp[1], layout)}
+
+
+def _normwise(actual, expected) -> float:
+    actual, expected = actual.double(), expected.double()
+    return float((actual - expected).norm() / expected.norm())
+
+
+def hold_pathtrace_kernels(case: dict, scene_grads: bool = False) -> dict:
+    """Each path tracer kernel against its plain version on a
+    pathtrace_case on the card. Raises RuntimeError unless:
+    - renders (the forward kernel, then the occlusion) pass hold_render
+      against the plain version's, with render_conditioning; the float64
+      render evaluates the kernel's own inputs (the f32 geometry) in
+      float64: the plain version's on them for an f32 SVBRDF,
+      shade_float64's for a bf16 one (the plain version in float64 would
+      not round the bf16 per-pixel terms);
+    - every sum of the VJP (the maps', with `scene_grads` also wo's and
+      the scene fields') lies no further from its float64 evaluation (as
+      for the renders) than 2x the plain version's own distance + 1e-5,
+      and for an f32 SVBRDF within 1e-4 of the plain version's (normwise)
+      wherever the plain version itself lies within 1e-4 of float64 (where
+      it does not, two f32 evaluations cannot agree to 1e-4: the Blinn
+      lobe's exponent reaches 2e4, and one ulp of n.h moves its gradient by
+      ~1e-3; the float64 rule holds alone there).
+    Returns the render check's numbers and each sum's three distances."""
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+
+    scenes, svbrdf, samples = case["scenes"], case["svbrdf"], case["samples"]
+    bf16 = svbrdf.dtype == torch.bfloat16
+
+    def reference(flat, **kw):
+        if bf16:
+            return pt.shade_float64(*flat, **kw)
+        flat = [x.double() for x in flat]
+        if "d_sample" in kw:
+            return pt.shade_vjp_plain(*flat, kw["d_sample"].double(),
+                                      scene_grads=kw["scene_grads"])
+        return pt.shade_plain(*flat)
+
+    rendered = pt._shade(scenes, svbrdf, *samples.forward)
+    plain = pt._shade(scenes, svbrdf, *samples.forward,
+                      estimator=pt.shade_plain)
+    r64 = pt._shade(scenes, svbrdf, *samples.forward,
+                    estimator=lambda *flat: reference(flat))
+    cond = render_conditioning(scenes, svbrdf.float(), samples,
+                               device=svbrdf.device)
+    out = {"render": hold_render(rendered, plain, r64, cond)}
+    del rendered, plain, r64, cond
+
+    flat, d = case["flat_bwd"], case["d_sample"]
+    kernel = pt.shade_vjp_cuda(*flat, d, scene_grads=scene_grads)
+    plain = pt.shade_vjp_plain(*flat, d, scene_grads=scene_grads)
+    ref = reference(flat, d_sample=d, scene_grads=scene_grads)
+    fields = pt._SAMPLED if scene_grads else pt._MAP_FIELDS
+    bad = []
+    for name, k, p, r in zip(fields, kernel, plain, ref):
+        dist = {"to_plain": _normwise(k, p), "to_float64": _normwise(k, r),
+                "plain_to_float64": _normwise(p, r),
+                "max_abs_err": float((k.double() - p.double()).abs().max())}
+        out[name] = dist
+        if dist["to_float64"] > 2 * dist["plain_to_float64"] + 1e-5 or (
+                not bf16 and dist["plain_to_float64"] <= 1e-4
+                and dist["to_plain"] > 1e-4):
+            bad.append(name)
+    if bad:
+        raise RuntimeError(f"path tracer VJP: {bad} beyond tolerance; {out}")
     return out
 
 
@@ -295,10 +400,12 @@ def build_main_program(batch: int = 8, size: int = 256, depth: int = 8,
 
 def zero_launch_counts() -> None:
     """Set every kernel launch counter to 0."""
+    from svbrdf_tpu_torch.ops import pathtrace
     from svbrdf_tpu_torch.ops import render_fused as rf
     from svbrdf_tpu_torch.ops import sr_adam
 
-    for wrapper in rf.CUDA_WRAPPERS.values():
+    for wrapper in (*rf.CUDA_WRAPPERS.values(),
+                    *pathtrace.CUDA_WRAPPERS.values()):
         wrapper.launches = 0
         for dtype in wrapper.launches_by_dtype:
             wrapper.launches_by_dtype[dtype] = 0
@@ -306,14 +413,19 @@ def zero_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Every launch counter: each loss kernel's by planes dtype (the bf16
-    instantiation as <kernel>_bf16), and sr_adam's."""
+    """Every launch counter: each loss kernel's by planes dtype and each
+    path tracer kernel's by SVBRDF dtype (the bf16 instantiation as
+    <kernel>_bf16), and sr_adam's."""
+    from svbrdf_tpu_torch.ops import pathtrace
     from svbrdf_tpu_torch.ops import render_fused as rf
     from svbrdf_tpu_torch.ops import sr_adam
 
     counts = {k + rf.PLANE_DTYPES[dtype]: n
               for k, w in rf.CUDA_WRAPPERS.items()
               for dtype, n in w.launches_by_dtype.items()}
+    counts.update({k + pathtrace.FIELD_DTYPES[dtype]: n
+                   for k, w in pathtrace.CUDA_WRAPPERS.items()
+                   for dtype, n in w.launches_by_dtype.items()})
     counts["sr_adam"] = sr_adam.sr_adam_multi_cuda.launches
     return counts
 

@@ -14,7 +14,12 @@ all started together. For the SR-Adam kernel (sr_adam.cu) of each tree,
 and its 'bf16' state mode's kernel where the tree has one, it reports the
 ptxas registers and spills, the SASS total, the SASS instructions per
 element of its all-bf16 and all-f32 vector loops and the blocks of 256
-threads that fit one SM by those registers (sr_adam_code). For each of the
+threads that fit one SM by those registers (sr_adam_code). For the path
+tracer's kernels (pathtrace.cu), in every tree that has the source, it
+reports each instantiation's ptxas registers and spills, SASS mix and
+blocks per SM at the path's shapes (S=9 scenes, spp 16 forward and 8
+backward; pathtrace_code); a tree without the source is said to lack it
+and skipped. For each of the
 five loss kernels, and for each one's
 bf16 instantiation where the tree has one (reported as <kernel>_bf16, on
 the same inputs cast to bf16), it reports:
@@ -52,6 +57,7 @@ from pathlib import Path
 
 SOURCES = ("mixed_loss", "rendering_loss")
 SR_SOURCE = "sr_adam"
+PT_SOURCE = "pathtrace"
 # A part of each kernel's mangled name in the SASS: the current sources'
 # (each instance for float or __nv_bfloat16 planes), then those of the trees
 # whose kernels took f32 planes only: 3b4bfd6 (rendering_fwdgrad_kernel
@@ -73,6 +79,19 @@ SASS_NAMES = {
     # csrc/sr_adam.cu's kernels: the update, and the 'bf16' state mode's.
     "sr_adam": ("sr_adam_kernel",),
     "sr_adam_bf16mu": ("sr_adam_bf16mu_kernel",),
+    # csrc/pathtrace.cu's: the VJP with scene gradients first (its mangled
+    # name also holds the training instance's prefix).
+    "pathtrace_shade_vjp_scene": ("16shade_vjp_kernelIfLb1E",
+                                  "16shade_vjp_kernelI13__nv_bfloat16Lb1E"),
+    "pathtrace_shade_vjp": ("16shade_vjp_kernelI",),
+    "pathtrace_shade": ("12shade_kernelI",),
+}
+# The path tracer's instances whose blocks per SM are queried, by the C
+# entry's name and its arguments at the path's shapes (S=9, spp 16 / 8).
+PATHTRACE_BLOCKS = {
+    "pathtrace_shade": ("svbrdf_pathtrace_shade", (16,)),
+    "pathtrace_shade_vjp": ("svbrdf_pathtrace_shade_vjp", (9, 8, 0)),
+    "pathtrace_shade_vjp_scene": ("svbrdf_pathtrace_shade_vjp", (9, 8, 1)),
 }
 # The SR-Adam kernel's vector loops by their 16-byte loads and stores a pass
 # (8 elements): every tensor bf16 (one each), every tensor f32 (two each).
@@ -89,6 +108,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def tree_sources(csrc: Path) -> tuple:
+    """The sources a tree is built from: the loss kernels', SR-Adam's and,
+    where the tree has it, the path tracer's."""
+    own = (PT_SOURCE,) if (csrc / f"{PT_SOURCE}.cu").exists() else ()
+    return SOURCES + (SR_SOURCE,) + own
+
+
 def build(trees: dict) -> dict:
     """Compile every tree's sources at once; {tree: ptxas text}."""
     from svbrdf_tpu_torch.ops import _build
@@ -99,7 +125,7 @@ def build(trees: dict) -> dict:
     for name, csrc in trees.items():
         out = csrc / "_build"
         out.mkdir(exist_ok=True)
-        for source in SOURCES + (SR_SOURCE,):
+        for source in tree_sources(csrc):
             cmd = [nvcc, *_build.NVCC_FLAGS, "-o",
                    str(out / f"lib{source}.so"), str(csrc / f"{source}.cu")]
             procs.append((name, subprocess.Popen(
@@ -272,6 +298,26 @@ def sr_adam_code(sass: str, ptxas: str) -> dict:
     return out
 
 
+def pathtrace_code(csrc: Path, ptxas: str):
+    """{instance: {"ptxas", "sass", "blocks_per_sm"}} of the path tracer's
+    kernels in a built tree (each kernel's f32 instance under its name, the
+    bf16 one as <name>_bf16), or None for a tree without pathtrace.cu."""
+    if PT_SOURCE not in tree_sources(csrc):
+        return None
+    lib_path = csrc / "_build" / f"lib{PT_SOURCE}.so"
+    lib = ctypes.CDLL(str(lib_path))
+    regs, mix, out = ptxas_lines(ptxas), sass_mix(lib_path), {}
+    for kernel, (entry, args) in PATHTRACE_BLOCKS.items():
+        for suffix in ("", "_bf16"):
+            query = getattr(lib, f"{entry}{suffix}_blocks_per_sm")
+            query.argtypes = [ctypes.c_int] * len(args)
+            query.restype = ctypes.c_int
+            out[kernel + suffix] = {"ptxas": regs.get(kernel + suffix),
+                                    "sass": mix.get(kernel + suffix),
+                                    "blocks_per_sm": query(*args)}
+    return out
+
+
 class Tree:
     """The kernels of one built tree, bound as render_fused binds the
     package's own: {(name, plane dtype): (C entry, threads)} for every
@@ -396,6 +442,11 @@ def main(argv=None) -> None:
         result.setdefault("sr_adam", {})[name] = sr_adam_code(sass,
                                                               logs[name])
         log(f"{name} sr_adam: {json.dumps(result['sr_adam'][name])}")
+        code = pathtrace_code(csrc, logs[name])
+        result.setdefault("pathtrace", {})[name] = code
+        log(f"{name} pathtrace: " + (json.dumps(code) if code is not None
+                                     else "no pathtrace.cu in this tree, "
+                                     "skipped"))
         regs = ptxas_lines(logs[name])
         mix = {}
         for source in SOURCES:

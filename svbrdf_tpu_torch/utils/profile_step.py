@@ -9,8 +9,9 @@ rendering-only loss). DTYPE is the compute dtype, float32 (the default,
 TF32 off) or bfloat16 (TF32 settings left as torch has them, as the CLI's
 device.precision_scope does; the master-dtype policy in force, bf16sr
 unless SVBRDF_MASTER_DTYPE says f32). RENDERER is the loss's renderer,
-local (the default: the fused loss kernels) or pathtracing (the path
-tracer's unfused loss). Builds that program
+local (the default: the fused loss kernels) or pathtracing (the
+path-traced loss: the path tracer's kernels, csrc/pathtrace.cu, and torch
+ops around them). Builds that program
 (bench_setup.build_program: depth 8, 64 filters, 256^2, batch 8) and, after
 warm-up, reports:
   - phases: CUDA-event medians of one step's parts (prepare, forward, loss,
@@ -86,6 +87,7 @@ CATEGORIES = (
     ("mixed_loss", ("mixed_fwdgrad_kernel", "value_loss_kernel<true>")),
     ("rendering_loss", ("rendering_fwdgrad_kernel",
                         "value_loss_kernel<false>")),
+    ("pathtrace", ("shade_kernel", "shade_vjp_kernel")),
     # cuDNN's implicit-GEMM, FFT and Winograd convolutions; the model's few
     # small Linear layers' GEMMs land here too.
     ("convolution", ("conv", "xmma", "cudnn", "fft", "dgrad", "wgrad",

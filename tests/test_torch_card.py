@@ -698,7 +698,7 @@ def test_sr_adam_bf16_state_mode_matches_plain(cuda, count):
 
 
 def test_path_tracer_card_matches_cpu(cuda):
-    """The path tracer (torch ops) on the card against the CPU on the same
+    """The path tracer (its kernels) on the card against the CPU on the same
     injected samples (B=2, S=9, 32^2, spp (4, 2)), as chip_smoke.py holds
     it: renders by bench_setup.hold_render (rel 1e-5, or where f32 is
     ill-conditioned against float64; the card sums 3-term dot products in
@@ -747,20 +747,25 @@ def test_path_tracer_card_matches_cpu(cuda):
 def test_path_traced_full_width_step(cuda):
     """A full-width path-traced train step (single view, mixed loss, depth
     8, 64 filters, 256^2, batch 8, bf16 with bf16-SR masters, spp (16, 8)):
-    a finite loss, no loss kernel launched, one sr_adam launch."""
+    a finite loss, no loss kernel launched, one sr_adam launch, the path
+    tracer's forward kernel once for each render and its VJP once."""
     from svbrdf_tpu_torch.ops import sr_adam
 
     with torch.backends.cudnn.flags(allow_tf32=True):
         program = bench_setup.build_program(
             "single", "mixed", 8, 256, 8, 64, seed=0, device="cuda",
             dtype=BF16, master_dtype="bf16sr", renderer="pathtracing")
-        for wrapper in rf.CUDA_WRAPPERS.values():
-            wrapper.launches = 0
-        sr_adam.sr_adam_multi_cuda.launches = 0
+        bench_setup.zero_launch_counts()
         loss = float(program.train_step(program.raw))
     assert math.isfinite(loss)
     assert all(w.launches == 0 for w in rf.CUDA_WRAPPERS.values())
     assert sr_adam.sr_adam_multi_cuda.launches == 1
+    # The prediction's render (bf16) and the target's (f32), and the
+    # prediction's VJP.
+    counts = bench_setup.launch_counts()
+    assert {k: v for k, v in counts.items() if k.startswith("pathtrace")} \
+        == {"pathtrace_shade": 1, "pathtrace_shade_bf16": 1,
+            "pathtrace_shade_vjp": 0, "pathtrace_shade_vjp_bf16": 1}
 
 
 def _dp_program(**extra):
@@ -890,3 +895,74 @@ def test_rendering_kernels_at_a_row_offset(cuda, name):
         torch.testing.assert_close(
             torch.cat([h[1] for h in halves], dim=2), whole[1], rtol=1e-6,
             atol=1e-6 * float(whole[1].abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pathtrace_kernels_match_plain(cuda, dtype):
+    """The path tracer's forward kernel and its VJP against their plain
+    versions (B=2, S=9, 64^2, spp (16, 8)) by bench_setup's rules:
+    renders by hold_render, each sum of the VJP as close to float64 as
+    the plain version (2x, plus 1e-5) and for an f32 SVBRDF within 1e-4 of
+    it where the plain version is within 1e-4 of float64."""
+    case = bench_setup.pathtrace_case(2, 64, 64, dtype=dtype)
+    out = bench_setup.hold_pathtrace_kernels(case)
+    assert out["render"]["beyond_rtol"] <= 0.01
+
+
+def test_pathtrace_kernels_on_a_ragged_grid(cuda):
+    """250 x 243 pixels (a ragged last block of each row of blocks), B=3."""
+    case = bench_setup.pathtrace_case(3, 250, 243, spp=(4, 2))
+    bench_setup.hold_pathtrace_kernels(case)
+
+
+def test_pathtrace_vjp_with_scene_gradients(cuda):
+    """The VJP's scene instantiation (wo's cotangent and the scene fields'
+    per-block partials) at 32^2, and render_mc's gradients for the SVBRDF
+    and every scene field on the card against the CPU (normwise 1e-4, as
+    the CPU holds the port to JAX)."""
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+
+    case = bench_setup.pathtrace_case(2, 32, 32, spp=(4, 2))
+    bench_setup.hold_pathtrace_kernels(case, scene_grads=True)
+
+    def grads(device):
+        leaves = [x.detach().to(device).requires_grad_() for x in (
+            case["svbrdf"], case["scenes"].camera_pos,
+            case["scenes"].light_pos, case["scenes"].light_color)]
+        samples = pt.RenderSamples(*(pt.Samples(*(x.to(device) for x in s))
+                                     for s in case["samples"]))
+        out = pt.render_mc(Scene(*leaves[1:]), leaves[0], samples)
+        out.backward(case["d_render"].to(device))
+        return [x.grad.double().cpu() for x in leaves]
+
+    for card, cpu in zip(grads("cuda"), grads("cpu")):
+        assert float((card - cpu).norm() / cpu.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pathtrace_loss_zero_for_identical_maps(cuda, dtype):
+    """The path-traced mixed loss through the kernels: pred equal to the
+    target (same dtype, same samples) gives loss and gradient exactly 0."""
+    from svbrdf_tpu_torch import losses
+
+    target = bench_setup.pathtrace_inputs(2, 32, device="cuda")[1].to(dtype)
+    pred = target.clone().requires_grad_()
+    loss = losses.make_loss_fn("mixed", "pathtracing")(
+        pred, target, torch.Generator(device=cuda).manual_seed(1))
+    loss.backward()
+    assert float(loss.detach()) == 0.0
+    assert int(torch.count_nonzero(pred.grad)) == 0
+
+
+def test_pathtrace_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+
+    flat = bench_setup.pathtrace_case(1, 16, 16, spp=(4, 2))["flat"]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pt.shade_cuda(*(x.double() for x in flat))
+    with pytest.raises(ValueError, match="shift must be"):
+        pt.shade_cuda(*flat[:12], flat[12][:, :, :8])
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.shade_cuda(*flat[:1], flat[1].transpose(1, 2).contiguous()
+                      .transpose(1, 2), *flat[2:])
+

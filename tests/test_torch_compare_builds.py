@@ -247,3 +247,46 @@ def test_sr_adam_code_reads_both_kernels():
     assert code["sr_adam"]["loops"] == {}  # no loop of 4/3 or 8/6 vectors
     assert compare_builds.sr_adam_code(sass, "")["sr_adam"]["registers"] \
         is None
+
+
+@pytest.mark.parametrize("mangled, kernel", [
+    ("_ZN45_GLOBAL__N__4ad17bb0_12_pathtrace_cu_53d63c4612shade_kernelIfEEv"
+     "PKT_S3_S3_S3_S3_PKfS5_S5_S5_S5_S5_S5_S5_Pfiiiifff", "pathtrace_shade"),
+    ("_ZN45_GLOBAL__N__4ad17bb0_12_pathtrace_cu_53d63c4612shade_kernelI13__"
+     "nv_bfloat16EEvPKT_S4_S4_S4_S4_PKfS6_S6_S6_S6_S6_S6_S6_Pfiiiifff",
+     "pathtrace_shade_bf16"),
+    ("_ZN45_GLOBAL__N__4ad17bb0_12_pathtrace_cu_53d63c4616shade_vjp_kernelIf"
+     "Lb0EEEvPKT_S3_S3_S3_S3_PKfS5_S5_S5_S5_S5_S5_S5_S5_PfS6_S6_S6_S6_S6_"
+     "iiiifff", "pathtrace_shade_vjp"),
+    ("_ZN45_GLOBAL__N__4ad17bb0_12_pathtrace_cu_53d63c4616shade_vjp_kernelI"
+     "13__nv_bfloat16Lb0EEEvPKT_S4_S4_S4_S4_PKfS6_S6_S6_S6_S6_S6_S6_S6_PfS7_"
+     "S7_S7_S7_S7_iiiifff", "pathtrace_shade_vjp_bf16"),
+    ("_ZN45_GLOBAL__N__4ad17bb0_12_pathtrace_cu_53d63c4616shade_vjp_kernelIf"
+     "Lb1EEEvPKT_S3_S3_S3_S3_PKfS5_S5_S5_S5_S5_S5_S5_S5_PfS6_S6_S6_S6_S6_"
+     "iiiifff", "pathtrace_shade_vjp_scene"),
+    ("_ZN45_GLOBAL__N__4ad17bb0_12_pathtrace_cu_53d63c4616shade_vjp_kernelI"
+     "13__nv_bfloat16Lb1EEEvPKT_S4_S4_S4_S4_PKfS6_S6_S6_S6_S6_S6_S6_S6_PfS7_"
+     "S7_S7_S7_S7_iiiifff", "pathtrace_shade_vjp_scene_bf16"),
+])
+def test_pathtrace_kernel_names(mangled, kernel):
+    """The path tracer's six instances (as nvcc 12.8 mangles them) are
+    found by name in cuobjdump's and ptxas's output."""
+    sass = f"\t\tFunction : {mangled}\n        /*0000*/    FMUL R1, R2, R3 ;\n"
+    assert compare_builds.parse_sass(sass) == {
+        kernel: {"total": 1, "FMUL": 1}}
+    ptxas = (f"ptxas info    : Compiling entry function '{mangled}' for "
+             "'sm_90a'\nptxas info    : Used 64 registers, used 1 barriers\n")
+    assert compare_builds.ptxas_lines(ptxas) == {kernel: {"registers": 64}}
+
+
+def test_a_tree_without_the_path_tracer_is_skipped(tmp_path):
+    """A csrc/ tree from before the path tracer's kernels builds the other
+    sources only, and reports no path tracer code."""
+    for source in ("mixed_loss", "rendering_loss", "sr_adam"):
+        (tmp_path / f"{source}.cu").write_text("")
+    assert compare_builds.tree_sources(tmp_path) == (
+        "mixed_loss", "rendering_loss", "sr_adam")
+    assert compare_builds.pathtrace_code(tmp_path, "") is None
+    (tmp_path / "pathtrace.cu").write_text("")
+    assert compare_builds.tree_sources(tmp_path)[-1] == "pathtrace"
+
