@@ -360,47 +360,48 @@ PATHTRACE_KERNELS = {
         "replaces": "svbrdf_tpu/ops/pathtrace.py:231",
         "tpu_kernel": None},
 }
-# The cases each path tracer kernel is held on against its plain version:
-# (batch, height, width, spp, SVBRDF dtype, scene gradients).
-PATHTRACE_CASES = {
-    "full_f32": (8, 256, 256, (16, 8), torch.float32, False),
-    "full_bf16": (8, 256, 256, (16, 8), BF16, False),
-    "ragged": (3, 250, 243, (16, 8), torch.float32, False),
-    "scene_grads": (2, 32, 32, (16, 8), torch.float32, True),
-}
 # The least operations of the path tracer's kernels, counted from
-# csrc/pathtrace.cu by the convention of the loss kernels' counts above
-# (a quotient as one reciprocal, an SFU operation, and a product; powf as
-# log2 and exp2, two SFU, and a product; floor one FP32), each term once
-# where it depends on no more than it: per sample and pixel of one scene,
-# per pixel and scene, per pixel.
+# csrc/pathtrace.cu's algebra by the convention of the loss kernels' counts
+# above (an FMA as two, a quotient as one reciprocal, an SFU operation, and
+# a product; pow as log2 and exp2, two SFU, and a product; floor one FP32),
+# each term once where it depends on no more than it: per sample and pixel
+# of one scene, per pixel and scene, per pixel. The precision devices (1 -
+# n.h from the cross product, the lobe's log by its polynomial, the
+# cosines' dot products in double) are left out: the same function at f32
+# accuracy needs none of them.
 #   forward, per sample: the point on the light and rel (u's wrap with its
-#     floor 10, u times the extent 2, q - coords 15) 27; d^2 5 and wi from
-#     one rsqrt 3 / 1; cos_surf and cos_light with their clips 12; h (sum
-#     3, |.|^2 5, one rsqrt, scale 3) 11 / 1; n.h and wo.h with clips 14;
-#     n.wi's clip 2; D = dn pow(n.h, e) 2 / 2; (1 - wo.h)^5 4; G1(n.wi)
-#     (clips 4, 1 - ct^2 2, a from one rsqrt 2 / 1, the rational 9 / 1,
-#     the select 1) 18 / 2; G and 4 nv nl 3; 1/den 0 / 1 and 1/d^2 from
-#     1/d 1; three channels (F 2, spec 2, diffuse 3, f 1, em cs cl / d^2
-#     area 5, the sum 1) 42 -> 145 / 7;
+#     floor 10, u times the extent 2, (light - coords) + a0 t_l + a1 b_l
+#     12) 24; d^2 5 and wi from one rsqrt 3 / 1; cos_surf and cos_light
+#     with their clips 12; w = cs cl (1/d)^2 3; h (sum 3, |.|^2 5, one
+#     rsqrt, scale 3) 11 / 1; n.h and wo.h with clips 14; n.wi's clip 2;
+#     pow(n.h, e) 1 / 2; (1 - wo.h)^5 4; G1(n.wi) (clips 4, 1 - ct^2 2, a
+#     from one rsqrt 2 / 1, the rational 9 / 1, the select 1) 18 / 2; r =
+#     G1 pw / nl 2 / 1; the four sums (1 - x5 1, w r 1, three FMAs and an
+#     add) 9 -> 108 / 7 (a per-channel algebra: 145 / 7);
 #     per pixel and scene: wo (cam - coords 3, |.|^2 5, rsqrt, scale 3)
-#     11 / 1, n.wo and its clip 7, G1(n.wo) 18 / 2, the mean 3 -> 39 / 3;
-#     per pixel: r's clip, 1/r, e, (e + 2)/(2 pi), sqrt(.5 e + 1), 1 -
-#     specular 11 / 2;
-#   VJP without scene gradients, per sample: the forward's but the sum
-#     142 / 7; three channels' cotangents (t4, t3, t2, t1, f 5, d cos_surf
-#     2, d F 5, d diffuse 3, d G, d D 6, d den 2, d specular 3) 26 -> 78;
-#     4 nv nl's and G's 5; G1(n.wi)'s VJP 28; D's and pow's (log n.h,
-#     1/n.h) 7 / 2; the clips' derivatives and d normals 18 -> 278 / 9;
-#     per pixel and scene: the forward's view terms 36 / 3, G1(n.wo)'s VJP
-#     28, n.wo's chain 8 -> 72 / 3; per pixel: the forward's 11 / 2 and
-#     e's chain to rough_blinn 9 -> 20 / 2.
+#     11 / 1, light - coords 3, n.wo and its clip 7, G1(n.wo) 18 / 2, A =
+#     G1 dn / (4 nv) 3 / 1, three channels from the sums (diffuse 2, A (sp
+#     (R2 + RX) + oms RX) 5, em area / spp 2) 27 -> 69 / 4;
+#     per pixel: r's clip, 1/r, e, (e + 2)/(2 pi), sqrt(.5 e + 1) 11 / 2,
+#     dif / pi, 1 - specular 6 -> 17 / 2;
+#   VJP without scene gradients, per sample: the forward's 108 / 7; the
+#     coefficients' B (4) and d w r (2) 6; d cos_surf 2; d pw, d G1, d nl
+#     (t 2, 1, 1, 2) 6; G1(n.wi)'s VJP 28; pow's (e log n.h 2, e pw / n.h
+#     3 / 1) 5 / 1; the clips' derivatives 6; d n.wi 4; h 3 and d normals 12
+#     15 -> 182 / 8;
+#     per pixel and scene: the forward's view terms but the channels 42 /
+#     4; the coefficients (ge 6, beta 9, gamma 6, eta 6, A's 2) 29; A's
+#     cotangent and its chain to dn and nv (g_A 4, 2, 3, 2) 11, G1(n.wo)'s
+#     VJP 28, n.wo's chain 10, the maps' sums 15 -> 135 / 4;
+#     per pixel: the forward's 17 / 2, the maps' cotangents 12 and e's
+#     chain to rough_blinn 9 -> 38 / 2.
 #   With scene gradients the VJP adds ~110 FP32 a sample (wo, wi, rel and
 #   the per-block partials): its bound is given for the training kernel.
-PATHTRACE_OPS = {"pathtrace_shade": {"sample": (145, 7), "view": (39, 3),
-                                     "pixel": (11, 2)},
-                 "pathtrace_shade_vjp": {"sample": (278, 9), "view": (72, 3),
-                                         "pixel": (20, 2)}}
+PATHTRACE_OPS = {"pathtrace_shade": {"sample": (108, 7), "view": (69, 4),
+                                     "pixel": (17, 2)},
+                 "pathtrace_shade_vjp": {"sample": (182, 8),
+                                         "view": (135, 4),
+                                         "pixel": (38, 2)}}
 # The card-vs-CPU check of the path tracer, and the stability run's steps.
 PATHTRACE_SMALL = {"batch": 2, "size": 32, "spp": (4, 2)}
 STABILITY_STEPS = 20
@@ -447,20 +448,11 @@ def card_rates(name: str) -> dict:
 
 
 def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median of `runs` CUDA-event timings of fn() after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    """Median of `runs` CUDA-event timings of fn() after `warmup` calls
+    (bench_setup.cuda_ms)."""
+    from svbrdf_tpu_torch.utils.bench_setup import cuda_ms as timed
+
+    return timed(fn, runs, warmup)
 
 
 def bound(kernel: str, batch: int, height: int, width: int, n_scenes: int,
@@ -1345,7 +1337,7 @@ def phase_pathtrace_path() -> dict:
 
 def phase_pathtrace_kernels(rates: dict, build_log: str) -> dict:
     """Each path tracer kernel against its plain version on the card
-    (PATHTRACE_CASES, bench_setup.hold_pathtrace_kernels); the path-traced
+    (bench_setup.PATHTRACE_CASES, hold_pathtrace_kernels); the path-traced
     mixed loss and its gradient exactly 0 for pred equal to target at full
     width (f32 and bf16 maps, the kernels' launches); then at full width
     each kernel's time (median of 20, CUDA events) and its plain
@@ -1353,6 +1345,7 @@ def phase_pathtrace_kernels(rates: dict, build_log: str) -> dict:
     blocks per SM."""
     from svbrdf_tpu_torch import losses
     from svbrdf_tpu_torch.ops import pathtrace as pt
+    from svbrdf_tpu_torch.utils import bench_setup
     from svbrdf_tpu_torch.utils.bench_setup import (hold_pathtrace_kernels,
                                                     pathtrace_case,
                                                     pathtrace_inputs)
@@ -1360,7 +1353,7 @@ def phase_pathtrace_kernels(rates: dict, build_log: str) -> dict:
 
     checks = {}
     for label, (batch, height, width, spp, dtype, scene_grads) in \
-            PATHTRACE_CASES.items():
+            bench_setup.PATHTRACE_CASES.items():
         case = pathtrace_case(batch, height, width, spp, dtype=dtype)
         checks[label] = hold_pathtrace_kernels(case, scene_grads)
         torch.cuda.synchronize()
@@ -1397,6 +1390,7 @@ def phase_pathtrace_kernels(rates: dict, build_log: str) -> dict:
                         if k == name or k.startswith(name + "_")
                         and "vjp" not in k[len(name):]}
                  for name in PATHTRACE_KERNELS}
+    code = pathtrace_code(registers)
     batch, size, n_scenes, spp = MAIN["batch"], MAIN["size"], 9, (16, 8)
     times = {}
     for dtype, suffix in ((torch.float32, ""), (BF16, "_bf16")):
@@ -1426,7 +1420,37 @@ def phase_pathtrace_kernels(rates: dict, build_log: str) -> dict:
         del case, calls
         torch.cuda.empty_cache()
     return {"checks": checks, "zero": zero, "times": times,
-            "registers": registers}
+            "registers": registers, "code": code}
+
+
+def pathtrace_code(registers: dict) -> dict:
+    """Each path tracer instance's registers and spill bytes (ptxas, from
+    phase 2's log; none where the library was built before this run) beside
+    its static FP64 instructions and local loads and stores (cuobjdump
+    -sass of the built library, compare_builds.op_classes), printed a line
+    each."""
+    from svbrdf_tpu_torch.ops import _build
+    from svbrdf_tpu_torch.utils import compare_builds
+
+    cuobjdump = str(pathlib.Path(_build._nvcc()).with_name("cuobjdump"))
+    mix = compare_builds.parse_sass(subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path("pathtrace"))],
+        check=True, capture_output=True, text=True).stdout)
+    ptxas = {k: v for per in registers.values() for k, v in per.items()}
+    code = {}
+    for instance in compare_builds.PATHTRACE_TIMED:
+        if instance not in mix:
+            raise RuntimeError(f"pathtrace: no {instance} in the SASS")
+        classes = compare_builds.op_classes(mix[instance])
+        code[instance] = {**ptxas.get(instance, {}), "fp64": classes["fp64"],
+                          "ldl_stl": classes["local"],
+                          "sass_total": classes["total"]}
+        c = code[instance]
+        log(f"{instance} code: {c.get('registers')} registers, spill "
+            f"stores {c.get('spill_stores')} B, loads {c.get('spill_loads')}"
+            f" B; {c['fp64']} FP64 and {c['ldl_stl']} LDL/STL of "
+            f"{c['sass_total']} SASS instructions")
+    return code
 
 
 def phase_stability() -> dict:
@@ -3186,13 +3210,17 @@ def main() -> None:
             max_abs_err=(full["render"]["max_abs_err"]
                          if k == "pathtrace_shade" else
                          max(v["max_abs_err"] for n, v in full.items()
-                             if n != "render")),
+                             if n != "render" and isinstance(v, dict))),
             checks=pt_kernels["checks"], zero=pt_kernels["zero"],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_us=t["bound_ms"] * 1e3, bound_by=t["bound_by"],
             bound_parts_us=t["bound_parts_us"],
             blocks_per_sm=t["blocks_per_sm"],
-            registers=pt_kernels["registers"][k], library_ms=None,
+            registers=pt_kernels["registers"][k],
+            code={i: c for i, c in pt_kernels["code"].items()
+                  if i == k or i.startswith(k + "_")
+                  and "vjp" not in i[len(k):]},
+            library_ms=None,
             bf16_ms=t16["ms"], bf16_plain_ms=t16["plain_ms"],
             bf16_bound_ms=t16["bound_ms"], bf16_bound_by=t16["bound_by"],
             bf16_blocks_per_sm=t16["blocks_per_sm"],

@@ -525,123 +525,195 @@ def _smith_g1_vjp(xn, sq, g):
     return g_ct * _clip_grad(xn, _EPS, 1.0), g_sq
 
 
+def _fma(a, b, c):
+    """a b + c rounded once, as fmaf: through float64 for f32 operands (the
+    product is exact there; the sum rounds twice, rarely an ulp off)."""
+    if a.dtype == torch.float64:
+        return a * b + c
+    f64 = torch.float64
+    return (a.to(f64) * b.to(f64) + c.to(f64)).to(a.dtype)
+
+
+def _diff_of_products(a, b, c, d):
+    """a b - c d to ~1 ulp (csrc/pathtrace.cu diff_of_products: Kahan's
+    difference of products)."""
+    w = c * d
+    return _fma(a, b, -w) + _fma(-c, d, w)
+
+
+def _one_minus_nh(n, nlen, x0, hr, rh):
+    """1 - n.h for h = hr rh (rh = 1 / |hr|) without the cancellation of 1
+    minus a rounded cosine (csrc/pathtrace.cu one_minus_nh): x0 = (1 -
+    |n|^2) / (1 + |n|) plus |n x h|^2 / (|n| + n.h), the direct form where
+    n.h < |n| / 2. Shapes broadcast over the last axis of 3."""
+    nh = dot(n, hr) * rh
+    c = torch.stack([_diff_of_products(n[..., 1], hr[..., 2], n[..., 2],
+                                       hr[..., 1]),
+                     _diff_of_products(n[..., 2], hr[..., 0], n[..., 0],
+                                       hr[..., 2]),
+                     _diff_of_products(n[..., 0], hr[..., 1], n[..., 1],
+                                       hr[..., 0])], dim=-1)
+    cc = dot(c, c) * (rh * rh)
+    return torch.where(nh < 0.5 * nlen, 1.0 - nh, cc / (nlen + nh) + x0)
+
+
+def _norm_terms(normals: torch.Tensor, work) -> tuple:
+    """(|n|, (1 - |n|^2) / (1 + |n|)) in `work`, 1 - |n|^2 in float64 (the
+    kernels' pixel_terms)."""
+    n64 = normals.to(torch.float64)
+    n2 = dot(n64, n64)
+    nlen = torch.sqrt(n2).to(work)
+    return nlen, (1.0 - n2).to(work) / (1.0 + nlen)
+
+
+def _delta(specular: torch.Tensor, oms: torch.Tensor) -> torch.Tensor:
+    """(1 - specular) - oms, oms = 1 - specular rounded in the SVBRDF's
+    dtype: for a bf16 SVBRDF its rounding, which the diffuse term keeps; 0
+    otherwise (the kernels drop f32's, below an ulp)."""
+    if specular.dtype != torch.bfloat16:
+        return torch.zeros_like(oms)
+    return (1.0 - specular.to(oms.dtype)) - oms
+
+
 def _sample_contrib_vjp_plain(geo: _Geometry, offset: torch.Tensor,
                               shift: torch.Tensor, g: torch.Tensor,
                               work=None) -> tuple:
-    """The kernels' hand-derived VJP of _sample_contrib for cotangent g,
-    transcribed line for line into torch (csrc/pathtrace.cu: sample_terms,
-    channel and sample_vjp, then the view's and the pixel's terms, for one
-    sample): (the contribution, {field: gradient} for every _SAMPLED field
-    in its shape). In `work` precision, by default f32 (float64 for a
-    float64 geometry), after the per-pixel terms, which round as the
-    SVBRDF's dtype rounds them (_pixel_terms). The tests hold it against
-    autograd; shade_float64 evaluates the kernels' arithmetic with it."""
+    """The kernels' forward and hand-derived VJP of _sample_contrib for
+    cotangent g, transcribed line for line into torch (csrc/pathtrace.cu:
+    view_terms, sample_terms, Sums, channel_sum and sample_vjp, then the
+    view's and the pixel's terms, for one sample): (the contribution,
+    {field: gradient} for every _SAMPLED field in its shape). The algebra
+    has no colour channel per sample: the sample's w, x5 and r and the sums
+    W0 = w, W1 = w (1 - x5), R2 = w r (1 - x5), RX = w r x5, with the
+    channels applied to the sums. In `work` precision, by default f32
+    (float64 for a float64 geometry), after the per-pixel terms, which
+    round as the SVBRDF's dtype rounds them (_pixel_terms, _delta); 1 -
+    |n|^2 and the cosines' dot products in float64 as the kernels take
+    them. The tests hold it against autograd; shade_transcribed evaluates
+    the kernels' arithmetic with it."""
     if work is None:
         work = torch.float64 if geo.normals.dtype == torch.float64 \
             else torch.float32
-    n, dif, coords, wo, light, n_l, t_l, b_l, em = (
+    f64 = torch.float64
+    n, coords, light, n_l, t_l, b_l, em, cam = (
         getattr(geo, f).to(work) for f in (
-            "normals", "diffuse", "coords", "wo", "light", "n_l", "t_l",
-            "b_l", "emission"))
+            "normals", "coords", "light", "n_l", "t_l", "b_l", "emission",
+            "cam"))
     r_lo, inv_r, e, dn, sq, oms = (x.to(work) for x in _pixel_terms(
         geo.rough_blinn, geo.specular))
     sp = geo.specular.to(work)
-    # The geometry of the view and of the sample in float64, then rounded
-    # to `work` (view_terms, sample_terms).
-    f64 = torch.float64
-    n64 = geo.normals.to(f64)
-    rel = geo.cam.to(f64) - geo.coords.to(f64)
-    wo64 = rel / torch.sqrt(dot(rel, rel))
-    wo = wo64.to(work)
-    nv_raw = dot(n64, wo64).to(work)
+    dlt = _delta(geo.specular, oms)
+    difp = geo.diffuse.to(work) * (1.0 / _PI)
+    nlen, x0 = _norm_terms(geo.normals, work)
+    lw, lh = LIGHT_SIZE
+    # view_terms: wo, light - coords, n.wo, G1(nv), A; and in float64 the
+    # cosines' sample-independent terms.
+    rel = cam - coords
+    wo = rel * torch.rsqrt(dot(rel, rel))
+    lc = light - coords
+    nv_raw = dot(n, wo)
     nv = _clip(nv_raw, _EPS, 1.0)
+    inv_nv = 1.0 / nv
     g1v = _smith_g1(nv, sq)
-    u = offset[..., None, None, :].to(f64) + 0.5 + shift.to(f64)
-    u = u - torch.floor(u) - 0.5
-    a0, a1 = u[..., 0:1] * LIGHT_SIZE[0], u[..., 1:2] * LIGHT_SIZE[1]
-    rel = (geo.light.to(f64) + a0 * geo.t_l.to(f64) + a1 * geo.b_l.to(f64)
-           - geo.coords.to(f64))
-    ds = dot(rel, rel)
-    sd = torch.sqrt(ds)
-    wi = rel / sd
-    hr = wi + wo64
-    hl = torch.sqrt(dot(hr, hr))
-    h = hr / hl
-    nh64 = dot(n64, h)
-    cs_raw = dot(wi, n64).to(work)
-    cl_raw = (-dot(wi, geo.n_l.to(f64))).to(work)
-    nh_raw = nh64.to(work)
-    vh_raw = dot(wo64, h).to(work)
-    a0, a1, rel, ds, sd, wi, hl, h = (x.to(work) for x in (
-        a0, a1, rel, ds, sd, wi, hl, h))
+    A = (g1v * dn) * (0.25 * inv_nv)
+    n64, nl64, lc64 = (x.to(f64) for x in (geo.normals, geo.n_l, geo.light))
+    lc64 = lc64 - geo.coords.to(f64)
+    t64, b64 = geo.t_l.to(f64), geo.b_l.to(f64)
+    sh64 = shift.to(f64)
+    nt, nb = lw * dot(n64, t64), lh * dot(n64, b64)
+    lt, lb = lw * dot(nl64, t64), lh * dot(nl64, b64)
+    cn = dot(n64, lc64) + sh64[..., 0:1] * nt + sh64[..., 1:2] * nb
+    cl0 = dot(nl64, lc64) + sh64[..., 0:1] * lt + sh64[..., 1:2] * lb
+    # sample_terms: the wrap of u = offset + 0.5 + shift decided in `work`
+    off = offset[..., None, None, :]
+    u = (off.to(work) + 0.5) + shift.to(work)
+    wrap = (u >= 1.0).to(work)
+    a0 = ((u[..., 0:1] - wrap[..., 0:1]) - 0.5) * lw
+    a1 = ((u[..., 1:2] - wrap[..., 1:2]) - 0.5) * lh
+    rel = lc + a0 * t_l + a1 * b_l
+    rsq = torch.rsqrt(dot(rel, rel))
+    inv_ds = rsq * rsq
+    wi = rel * rsq
+    d = off.to(f64) - wrap.to(f64)
+    cs_raw = (cn + d[..., 0:1] * nt + d[..., 1:2] * nb).to(work) * rsq
+    cl_raw = -((cl0 + d[..., 0:1] * lt + d[..., 1:2] * lb).to(work) * rsq)
     cs = _clip(cs_raw, 0.0)
     cl = _clip(cl_raw, 0.0)
-    nh = _clip(nh_raw, _EPS, 1.0)
-    nl = _clip(cs_raw, _EPS, 1.0)
-    # The lobe nh^e as exp(e log1p(nh - 1)) from the float64 nh.
-    lg = torch.log1p((_clip(nh64, _EPS, 1.0) - 1.0).to(work))
+    w = (cs * cl) * inv_ds
+    hr = wi + wo
+    rh = torch.rsqrt(dot(hr, hr))
+    vh_raw = dot(wo, hr) * rh
+    x = _one_minus_nh(n, nlen, x0, hr, rh)
+    # log(clip(1 - x, eps, 1)) without the rounding of 1 - x (log_nh)
+    xc = _clip(x, 0.0)
+    y = _clip(1.0 - xc, _EPS)
+    lg = torch.where(y >= 2.0 / 3.0, torch.log1p(-xc), torch.log(y))
     pw = torch.exp(e * lg)
-    D = dn * pw
-    x = 1.0 - _clip(vh_raw, _EPS, 1.0)
-    x4 = (x * x) * (x * x)
-    x5 = x * x4
+    xv = 1.0 - _clip(vh_raw, _EPS, 1.0)
+    x4 = (xv * xv) * (xv * xv)
+    x5 = xv * x4
+    nl = _clip(cs_raw, _EPS, 1.0)
+    inv_nl = 1.0 / nl
     g1l = _smith_g1(nl, sq)
-    G = g1v * g1l
-    den = 4.0 * nv * nl
-    # The channels (channel, then sample_vjp's loop), all three at once.
-    F = sp + oms * x5
-    spec = F * G * D / den
-    f = (1.0 - F) * dif / _PI + spec
-    t1 = f * em
-    t2 = t1 * cs
-    t4 = t2 * cl / ds
+    r = (g1l * pw) * inv_nl
+    # One sample's sums (Sums) and its radiance (channel_sum).
+    W0, W1 = w, w * (1.0 - x5)
+    R2, RX = (w * r) * (1.0 - x5), (w * r) * x5
+    diffuse_sum = dlt * W0 + oms * W1
+    radiance = difp * diffuse_sum + A * (sp * (R2 + RX) + oms * RX)
     area = LIGHT_SIZE[0] * LIGHT_SIZE[1]
-    g4 = g.to(work) * area
-    g3 = g4 / ds
-    g2 = g3 * cl
-    g1 = g2 * cs
-    gf = g1 * em
-    g_cs = dot(g2, t1)
-    g_ds = -dot(g4, t4 / ds)
-    g_cl = dot(g3, t2)
-    g_em = g1 * f
-    kd = gf / den
-    g_F = -gf * dif / _PI + kd * G * D
-    g_dif = gf * (1.0 - F) / _PI
-    g_G = dot(kd * F, D.expand_as(F))
-    g_D = dot(kd * F, G.expand_as(F))
-    g_den = -dot(kd, spec)
-    g_sp = g_F * (1.0 - x5)
-    g_x5 = dot(g_F, oms.expand_as(g_F))
-    # den = (4 nv) nl; G = g1v g1(nl); D = dn nh^e
-    g_nv = g_den * 4.0 * nl
-    g_nl = g_den * 4.0 * nv
-    g_g1v = g_G * g1l
-    g_nl_g1, g_sq = _smith_g1_vjp(nl, sq, g_G * g1v)
-    g_nl = g_nl + g_nl_g1
-    g_dn = g_D * pw
-    g_pw = g_D * dn
+    # The cotangent folded with the channels (Coef): ge = g em area.
+    g = g.to(work)
+    ge = (g * em) * area
+    alpha = dot(ge * difp, dlt)
+    beta = dot(ge * difp, oms)
+    gamma = dot(ge, sp)
+    eta = dot(ge, oms)
+    gA, eA = gamma * A, eta * A
+    # sample_vjp
+    gq = eA * x5 + gA
+    B = r * gq + (beta * (1.0 - x5) + alpha)
+    g_cs = (B * cl) * inv_ds
+    t = (w * gq) * inv_nl
+    g_pw = t * g1l
+    g_nl_g1, g_sq = _smith_g1_vjp(nl, sq, t * pw)
+    g_nl = -t * r + g_nl_g1
     g_e = g_pw * pw * lg
-    g_nh_raw = g_pw * e * pw / nh * _clip_grad(nh_raw, _EPS, 1.0)
+    nh = _clip(1.0 - xc, _EPS)
+    clip_nh = torch.where(x < 0.0, 0.0, torch.where(x == 0.0, 0.5, 1.0)).to(
+        work) * _max_grad(1.0 - x, _EPS)
+    g_nh_raw = ((g_pw * e) * pw) / nh * clip_nh
     g_nwi = (g_nl * _clip_grad(cs_raw, _EPS, 1.0)
              + g_cs * _max_grad(cs_raw, 0.0))
+    h = hr * rh
     g_n = g_nh_raw * h + g_nwi * wi
     # The rest flows to wo and the scene.
+    g_cl = (B * cs) * inv_ds
+    g_ds = -(B * w) * inv_ds
+    g_x5 = w * (r * eA - beta)
     g_vh_raw = -(g_x5 * 5.0 * x4) * _clip_grad(vh_raw, _EPS, 1.0)
     g_cl_raw = g_cl * _max_grad(cl_raw, 0.0)
     g_h = g_nh_raw * n + g_vh_raw * wo
     g_wo = g_vh_raw * h
-    g_hr = (g_h - dot(g_h, h) * h) / hl
+    g_hr = (g_h - dot(g_h, h) * h) * rh
     g_wo = g_wo + g_hr
     g_wi = g_hr + g_nwi * n - g_cl_raw * n_l
     g_nl_light = -g_cl_raw * wi
-    g_ds_all = g_ds - dot(g_wi, wi) / (2.0 * ds)
-    g_rel = g_wi / sd + 2.0 * g_ds_all * rel
-    # Once a scene: G1(nv), then nv = clip(n.wo).
-    g_nv_g1, g_sq_v = _smith_g1_vjp(nv, sq, g_g1v)
-    g_nv_raw = (g_nv + g_nv_g1) * _clip_grad(nv_raw, _EPS, 1.0)
+    g_ds_all = g_ds - dot(g_wi, wi) * (0.5 * inv_ds)
+    g_rel = g_wi * rsq + 2.0 * g_ds_all * rel
+    # Once a scene: A = g1(nv) dn / (4 nv), then nv = clip(n.wo).
+    g_A = gamma * (R2 + RX) + eta * RX
+    gq_v = g_A * (0.25 * inv_nv)
+    g_dn = gq_v * g1v
+    g_nv_g1, g_sq_v = _smith_g1_vjp(nv, sq, gq_v * dn)
+    g_nv_raw = (-(g_A * A) * inv_nv + g_nv_g1) * _clip_grad(nv_raw, _EPS,
+                                                            1.0)
     g_n = g_n + g_nv_raw * wo
     g_wo = g_wo + g_nv_raw * n
+    # The colour maps' and the emission's cotangents from the sums.
+    g_dif = ge * (1.0 / _PI) * diffuse_sum
+    g_sp = ge * (A * R2 - difp * W1)
+    g_em = (g * area) * radiance
     # Once a pixel: dn, sq and e back to rough_blinn.
     g_sq = g_sq + g_sq_v
     g_e = g_e + g_dn / (2.0 * _PI) + (g_sq / (2.0 * sq)) * 0.5
@@ -651,28 +723,28 @@ def _sample_contrib_vjp_plain(geo: _Geometry, offset: torch.Tensor,
              "specular": g_sp, "light": g_rel, "wo": g_wo,
              "n_l": g_nl_light, "t_l": a0 * g_rel, "b_l": a1 * g_rel,
              "emission": g_em}
-    return t4 * area, {f: grads[f].sum_to_size(getattr(geo, f).shape)
-                       for f in _SAMPLED}
+    return (em * area) * radiance, {
+        f: grads[f].sum_to_size(getattr(geo, f).shape) for f in _SAMPLED}
 
 
-def shade_float64(coords, normals, diffuse, rough_blinn, specular, light,
-                  n_l, t_l, b_l, emission, cam, offsets, shift, d_sample=None,
-                  scene_grads: bool = False):
-    """The kernels' arithmetic in float64 on the kernels' inputs: the
-    per-pixel terms rounded where the SVBRDF's dtype rounds them, the rest
-    in float64 (_sample_contrib_vjp_plain, one sample at a time). Without
-    d_sample the forward estimate (P, S, H, W, 3); with it the VJP's sums
-    in shade_vjp_plain's layout. A float64 reference for a bf16 SVBRDF,
-    which the plain version evaluated in float64 would not round."""
+def shade_transcribed(coords, normals, diffuse, rough_blinn, specular, light,
+                      n_l, t_l, b_l, emission, cam, offsets, shift,
+                      d_sample=None, scene_grads: bool = False,
+                      work=torch.float64):
+    """The kernels' arithmetic on the kernels' inputs in `work` precision:
+    the per-pixel terms rounded where the SVBRDF's dtype rounds them, the
+    rest as _sample_contrib_vjp_plain takes it, one sample at a time.
+    Without d_sample the forward estimate (P, S, H, W, 3); with it the
+    VJP's sums in shade_vjp_plain's layout."""
     geo = _flat_geometry(coords, normals, diffuse, rough_blinn, specular,
                          light, n_l, t_l, b_l, emission, cam)
     fields = _SAMPLED if scene_grads else _MAP_FIELDS
     g = (torch.zeros(()) if d_sample is None else d_sample).to(
-        device=coords.device, dtype=torch.float64)
+        device=coords.device, dtype=work)
     total, sums = None, None
     for k in range(offsets.shape[0]):
         c, grads = _sample_contrib_vjp_plain(geo, offsets[k], shift, g,
-                                             work=torch.float64)
+                                             work=work)
         total = c if total is None else total + c
         sums = (grads if sums is None else
                 {f: sums[f] + grads[f] for f in fields})
@@ -680,6 +752,14 @@ def shade_float64(coords, normals, diffuse, rough_blinn, specular, light,
         return total / offsets.shape[0]
     return tuple(sums[f] if f in _MAP_FIELDS or f == "wo"
                  else sums[f][:, :, 0, 0] for f in fields)
+
+
+def shade_float64(*inputs, d_sample=None, scene_grads: bool = False):
+    """shade_transcribed in float64: the float64 reference for a bf16
+    SVBRDF, whose per-pixel terms the plain version evaluated in float64
+    would not round."""
+    return shade_transcribed(*inputs, d_sample=d_sample,
+                             scene_grads=scene_grads, work=torch.float64)
 
 
 # --- The kernels' wrappers ---------------------------------------------------
@@ -697,21 +777,27 @@ def symbol(name: str, dtype: torch.dtype = torch.float32) -> str:
     return _ENTRIES[name] + FIELD_DTYPES[dtype]
 
 
+def _bind(lib, name: str, dtype: torch.dtype):
+    """The C entry of kernel `name` for an SVBRDF of `dtype` in the loaded
+    library `lib`, its signature declared."""
+    fn = getattr(lib, symbol(name, dtype))
+    # pointers: the 13 inputs and the output (forward); the 14 inputs, 6
+    # outputs (VJP). ints: P, S, H, W, spp (and scene_grads). The light's
+    # extent (double) and area (float). Then the stream.
+    vjp = name == "pathtrace_shade_vjp"
+    fn.argtypes = ([ctypes.c_void_p] * (20 if vjp else 14)
+                   + [ctypes.c_int] * (6 if vjp else 5)
+                   + [ctypes.c_double] * 2 + [ctypes.c_float]
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _kernel(name: str, dtype: torch.dtype):
     """The C entry of kernel `name` for an SVBRDF of `dtype`, its library
     built and loaded at first use and its signature declared."""
     if (name, dtype) not in _FUNCS:
-        fn = getattr(_build.load("pathtrace"), symbol(name, dtype))
-        # pointers: the 13 inputs and the output (forward); the 14 inputs,
-        # 6 outputs (VJP). ints: P, S, H, W, spp (and scene_grads). The
-        # light's extent (double) and area (float). Then the stream.
-        vjp = name == "pathtrace_shade_vjp"
-        fn.argtypes = ([ctypes.c_void_p] * (20 if vjp else 14)
-                       + [ctypes.c_int] * (6 if vjp else 5)
-                       + [ctypes.c_double] * 2 + [ctypes.c_float]
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FUNCS[name, dtype] = fn
+        _FUNCS[name, dtype] = _bind(_build.load("pathtrace"), name, dtype)
     return _FUNCS[name, dtype]
 
 

@@ -151,14 +151,13 @@ def render_conditioning(scene, svbrdf: torch.Tensor, samples,
     return worst
 
 
-def hold_render(actual, ref, ref64, cond, rtol: float = 1e-5) -> dict:
-    """The path tracer's render tolerance (each a tensor of render values,
-    `cond` from render_conditioning): every value within rel `rtol` of
-    `ref`, or no further from the float64 `ref64` than 4x the largest of
-    `ref`'s own distance from it, rel `rtol` and `cond`; at most 1 % of
-    the values beyond rel `rtol`. Raises RuntimeError otherwise; returns
-    the share beyond rtol and the largest deviation from float64 over its
-    allowance."""
+def render_distances(actual, ref, ref64, cond, rtol: float = 1e-5) -> dict:
+    """hold_render's numbers for render values `actual` (each a tensor of
+    render values, `cond` from render_conditioning): the largest deviation
+    from `ref`, the share of values beyond rel `rtol` of it, the largest
+    deviation from the float64 `ref64` over its allowance (4x the largest
+    of `ref`'s own distance from it, rel `rtol` and `cond`) among those,
+    and `outside`, the count of values beyond both tolerances."""
     actual, ref, ref64, cond = (x.double().cpu()
                                 for x in (actual, ref, ref64, cond))
     near = (actual - ref).abs() <= rtol * ref.abs()
@@ -170,11 +169,34 @@ def hold_render(actual, ref, ref64, cond, rtol: float = 1e-5) -> dict:
            "max_dist_over_allowed": float(
                (dist / allowed.clamp_min(1e-300))[~near].max())
            if bool((~near).any()) else 0.0}
-    bad = ~(near | (dist <= allowed))
-    if bool(bad.any()) or out["beyond_rtol"] > 0.01:
-        raise RuntimeError(f"path-traced renders: {int(bad.sum())} "
+    out["outside"] = int((~(near | (dist <= allowed))).sum())
+    return out
+
+
+def hold_render(actual, ref, ref64, cond, rtol: float = 1e-5) -> dict:
+    """The path tracer's render tolerance (each a tensor of render values,
+    `cond` from render_conditioning): every value within rel `rtol` of
+    `ref`, or no further from the float64 `ref64` than 4x the largest of
+    `ref`'s own distance from it, rel `rtol` and `cond`; at most 1 % of
+    the values beyond rel `rtol`. Raises RuntimeError otherwise; returns
+    render_distances: the share beyond rtol and the largest deviation from
+    float64 over its allowance among others."""
+    out = render_distances(actual, ref, ref64, cond, rtol)
+    if out["outside"] or out["beyond_rtol"] > 0.01:
+        raise RuntimeError(f"path-traced renders: {out['outside']} "
                              f"values beyond both tolerances; {out}")
     return out
+
+
+# The cases each path tracer kernel is held on against its plain version
+# (chip_smoke.py, utils/compare_builds.py): (batch, height, width, spp,
+# SVBRDF dtype, scene gradients).
+PATHTRACE_CASES = {
+    "full_f32": (8, 256, 256, (16, 8), torch.float32, False),
+    "full_bf16": (8, 256, 256, (16, 8), torch.bfloat16, False),
+    "ragged": (3, 250, 243, (16, 8), torch.float32, False),
+    "scene_grads": (2, 32, 32, (16, 8), torch.float32, True),
+}
 
 
 def pathtrace_case(batch: int, height: int, width: int, spp=(16, 8),
@@ -215,24 +237,16 @@ def _normwise(actual, expected) -> float:
     return float((actual - expected).norm() / expected.norm())
 
 
-def hold_pathtrace_kernels(case: dict, scene_grads: bool = False) -> dict:
-    """Each path tracer kernel against its plain version on a
-    pathtrace_case on the card. Raises RuntimeError unless:
-    - renders (the forward kernel, then the occlusion) pass hold_render
-      against the plain version's, with render_conditioning; the float64
-      render evaluates the kernel's own inputs (the f32 geometry) in
-      float64: the plain version's on them for an f32 SVBRDF,
-      shade_float64's for a bf16 one (the plain version in float64 would
-      not round the bf16 per-pixel terms);
-    - every sum of the VJP (the maps', with `scene_grads` also wo's and
-      the scene fields') lies no further from its float64 evaluation (as
-      for the renders) than 2x the plain version's own distance + 1e-5,
-      and for an f32 SVBRDF within 1e-4 of the plain version's (normwise)
-      wherever the plain version itself lies within 1e-4 of float64 (where
-      it does not, two f32 evaluations cannot agree to 1e-4: the Blinn
-      lobe's exponent reaches 2e4, and one ulp of n.h moves its gradient by
-      ~1e-3; the float64 rule holds alone there).
-    Returns the render check's numbers and each sum's three distances."""
+def pathtrace_references(case: dict, scene_grads: bool = False) -> dict:
+    """What the path tracer's kernels are held against on a pathtrace_case
+    (pathtrace_agreement): the plain version's render (the forward
+    estimator, then the occlusion) and its float64 render, which evaluates
+    the kernel's own inputs (the f32 geometry) in float64 (the plain
+    version's on them for an f32 SVBRDF, shade_float64's for a bf16 one:
+    the plain version in float64 would not round the bf16 per-pixel
+    terms), render_conditioning, and the VJP's sums by the plain version
+    and in float64 (the maps', with `scene_grads` also wo's and the scene
+    fields')."""
     from svbrdf_tpu_torch.ops import pathtrace as pt
 
     scenes, svbrdf, samples = case["scenes"], case["svbrdf"], case["samples"]
@@ -247,23 +261,42 @@ def hold_pathtrace_kernels(case: dict, scene_grads: bool = False) -> dict:
                                       scene_grads=kw["scene_grads"])
         return pt.shade_plain(*flat)
 
-    rendered = pt._shade(scenes, svbrdf, *samples.forward)
-    plain = pt._shade(scenes, svbrdf, *samples.forward,
-                      estimator=pt.shade_plain)
-    r64 = pt._shade(scenes, svbrdf, *samples.forward,
-                    estimator=lambda *flat: reference(flat))
-    cond = render_conditioning(scenes, svbrdf.float(), samples,
-                               device=svbrdf.device)
-    out = {"render": hold_render(rendered, plain, r64, cond)}
-    del rendered, plain, r64, cond
-
     flat, d = case["flat_bwd"], case["d_sample"]
-    kernel = pt.shade_vjp_cuda(*flat, d, scene_grads=scene_grads)
-    plain = pt.shade_vjp_plain(*flat, d, scene_grads=scene_grads)
-    ref = reference(flat, d_sample=d, scene_grads=scene_grads)
+    return {
+        "plain": pt._shade(scenes, svbrdf, *samples.forward,
+                           estimator=pt.shade_plain),
+        "float64": pt._shade(scenes, svbrdf, *samples.forward,
+                             estimator=lambda *flat: reference(flat)),
+        "cond": render_conditioning(scenes, svbrdf.float(), samples,
+                                    device=svbrdf.device),
+        "vjp_plain": pt.shade_vjp_plain(*flat, d, scene_grads=scene_grads),
+        "vjp_float64": reference(flat, d_sample=d, scene_grads=scene_grads)}
+
+
+def pathtrace_agreement(case: dict, refs: dict,
+                        scene_grads: bool = False) -> dict:
+    """The path tracer's kernels (the wrappers' CUDA launches) on a
+    pathtrace_case against its pathtrace_references, by the rules of
+    hold_pathtrace_kernels, without raising: the renders'
+    render_distances, each VJP sum's distances, and "passes", whether
+    every rule holds."""
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+
+    scenes, svbrdf, samples = case["scenes"], case["svbrdf"], case["samples"]
+    bf16 = svbrdf.dtype == torch.bfloat16
+    rendered = pt._shade(scenes, svbrdf, *samples.forward)
+    out = {"render": render_distances(rendered, refs["plain"],
+                                      refs["float64"], refs["cond"])}
+    passes = (not out["render"]["outside"]
+              and out["render"]["beyond_rtol"] <= 0.01)
+    del rendered
+
+    kernel = pt.shade_vjp_cuda(*case["flat_bwd"], case["d_sample"],
+                               scene_grads=scene_grads)
     fields = pt._SAMPLED if scene_grads else pt._MAP_FIELDS
     bad = []
-    for name, k, p, r in zip(fields, kernel, plain, ref):
+    for name, k, p, r in zip(fields, kernel, refs["vjp_plain"],
+                             refs["vjp_float64"]):
         dist = {"to_plain": _normwise(k, p), "to_float64": _normwise(k, r),
                 "plain_to_float64": _normwise(p, r),
                 "max_abs_err": float((k.double() - p.double()).abs().max())}
@@ -272,9 +305,54 @@ def hold_pathtrace_kernels(case: dict, scene_grads: bool = False) -> dict:
                 not bf16 and dist["plain_to_float64"] <= 1e-4
                 and dist["to_plain"] > 1e-4):
             bad.append(name)
-    if bad:
-        raise RuntimeError(f"path tracer VJP: {bad} beyond tolerance; {out}")
+    out["vjp_beyond_tolerance"] = bad
+    out["passes"] = passes and not bad
     return out
+
+
+def hold_pathtrace_kernels(case: dict, scene_grads: bool = False) -> dict:
+    """Each path tracer kernel against its plain version on a
+    pathtrace_case on the card (pathtrace_references,
+    pathtrace_agreement). Raises RuntimeError unless:
+    - renders (the forward kernel, then the occlusion) pass hold_render
+      against the plain version's, with render_conditioning and the
+      float64 render of the kernel's own inputs;
+    - every sum of the VJP (the maps', with `scene_grads` also wo's and
+      the scene fields') lies no further from its float64 evaluation (as
+      for the renders) than 2x the plain version's own distance + 1e-5,
+      and for an f32 SVBRDF within 1e-4 of the plain version's (normwise)
+      wherever the plain version itself lies within 1e-4 of float64 (where
+      it does not, two f32 evaluations cannot agree to 1e-4: the Blinn
+      lobe's exponent reaches 2e4, and one ulp of n.h moves its gradient by
+      ~1e-3; the float64 rule holds alone there).
+    Returns the render check's numbers and each sum's three distances."""
+    out = pathtrace_agreement(case, pathtrace_references(case, scene_grads),
+                              scene_grads)
+    render = out["render"]
+    if render["outside"] or render["beyond_rtol"] > 0.01:
+        raise RuntimeError(f"path-traced renders: {render['outside']} "
+                           f"values beyond both tolerances; {render}")
+    if out["vjp_beyond_tolerance"]:
+        raise RuntimeError(f"path tracer VJP: {out['vjp_beyond_tolerance']}"
+                           f" beyond tolerance; {out}")
+    return out
+
+
+def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Median of `runs` CUDA-event timings of fn() after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
 
 
 def kernel_ms(name: str, inputs, kernel=None, reps: int = 10,

@@ -16,11 +16,16 @@ ptxas registers and spills, the SASS total, the SASS instructions per
 element of its all-bf16 and all-f32 vector loops and the blocks of 256
 threads that fit one SM by those registers (sr_adam_code). For the path
 tracer's kernels (pathtrace.cu), in every tree that has the source, it
-reports each instantiation's ptxas registers and spills, SASS mix and
-blocks per SM at the path's shapes (S=9 scenes, spp 16 forward and 8
-backward; pathtrace_code); a tree without the source is said to lack it
-and skipped. For each of the
-five loss kernels, and for each one's
+reports each of the six instances' ptxas registers and spills, SASS mix,
+the FP64, FP32, MUFU and local-memory instructions of the whole kernel and
+of its loops (op_classes, loop_classes) and blocks per SM at the path's
+shapes (S=9 scenes, spp 16 forward and 8 backward; pathtrace_code); each
+tree's kernels, through the package's wrappers, against the plain
+versions and float64 on bench_setup.PATHTRACE_CASES by
+hold_pathtrace_kernels's rules, reported and not raised
+(pathtrace_agreement); and each instance's device time at full width
+(pathtrace_times). A tree without the source is said to lack it and
+skipped. For each of the five loss kernels, and for each one's
 bf16 instantiation where the tree has one (reported as <kernel>_bf16, on
 the same inputs cast to bf16), it reports:
   - ptxas registers and spill bytes;
@@ -44,6 +49,7 @@ device and the CUDA toolkit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -98,10 +104,33 @@ PATHTRACE_BLOCKS = {
 SR_ADAM_LOOPS = {"bf16": (4, 3), "f32": (8, 6)}
 SR_ADAM_THREADS = 256
 BF16_MANGLED = "__nv_bfloat16"
-SASS_OPS = ("FADD", "FMUL", "FFMA", "MUFU.RCP", "MUFU.RSQ", "MUFU.LG2",
-            "MUFU.EX2", "MUFU.SQRT", "BRA", "CALL", "LDS", "STS", "LDL",
-            "STL")
+SASS_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FRND",
+            "DADD", "DMUL", "DFMA", "F2F", "MUFU.RCP", "MUFU.RSQ",
+            "MUFU.LG2", "MUFU.EX2", "MUFU.SQRT", "MUFU.RCP64H",
+            "MUFU.RSQ64H", "BRA", "CALL", "LDS", "STS", "LDL", "STL")
+# The classes of SASS_OPS that op_classes sums: double-precision arithmetic
+# (the 64H MUFU ops are the double reciprocal and reciprocal square root's
+# seeds), single-precision arithmetic, compares and selects, every
+# special-function op, local-memory (spill) traffic.
+OP_CLASSES = {
+    "fp64": ("DADD", "DMUL", "DFMA", "MUFU.RCP64H", "MUFU.RSQ64H"),
+    "fp32": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FRND"),
+    "mufu": tuple(op for op in SASS_OPS if op.startswith("MUFU")),
+    "local": ("LDL", "STL"),
+}
 ROUNDS = 3
+# The path tracer's instances timed in every tree at the path's full width
+# (B=8, S=9, 256^2, spp 16 forward and 8 backward): (kernel, SVBRDF dtype
+# name, scene gradients).
+PATHTRACE_TIMED = {
+    "pathtrace_shade": ("pathtrace_shade", "float32", False),
+    "pathtrace_shade_bf16": ("pathtrace_shade", "bfloat16", False),
+    "pathtrace_shade_vjp": ("pathtrace_shade_vjp", "float32", False),
+    "pathtrace_shade_vjp_bf16": ("pathtrace_shade_vjp", "bfloat16", False),
+    "pathtrace_shade_vjp_scene": ("pathtrace_shade_vjp", "float32", True),
+    "pathtrace_shade_vjp_scene_bf16": ("pathtrace_shade_vjp", "bfloat16",
+                                       True),
+}
 
 
 def log(msg: str) -> None:
@@ -205,12 +234,26 @@ def parse_sass(text: str) -> dict:
             continue
         m = _INSTRUCTION.match(line)
         if m and current:
-            op = m.group(2)
-            key = op if op.startswith("MUFU") else op.split(".")[0]
+            key = _op_key(m.group(2))
             counts = out[current]
             counts["total"] += 1
             if key in SASS_OPS:
                 counts[key] = counts.get(key, 0) + 1
+    return out
+
+
+def _op_key(op: str) -> str:
+    """How an instruction is counted: MUFU by its function, the others
+    without their modifiers."""
+    return op if op.startswith("MUFU") else op.split(".")[0]
+
+
+def op_classes(mix: dict) -> dict:
+    """{class: count} of OP_CLASSES in a SASS mix (parse_sass's counts for
+    one kernel or one loop), and the total."""
+    out = {name: sum(mix.get(op, 0) for op in ops)
+           for name, ops in OP_CLASSES.items()}
+    out["total"] = mix.get("total", 0)
     return out
 
 
@@ -220,24 +263,7 @@ def sass_loops(text: str, kernel: str) -> list:
     {"first": address, "last": address, "instructions": n, "ldg128": n,
     "stg128": n} (16-byte global loads and stores), innermost first. Branch
     targets may be labels (.L_x_N, as CUDA 12 prints them) or addresses."""
-    instructions, labels, pending, current = [], {}, [], None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            current = _kernel_of(m.group(1))
-            continue
-        if current != kernel:
-            continue
-        m = re.match(r"\s*(\.L_x_\d+):", line)
-        if m:
-            pending.append(m.group(1))
-            continue
-        m = _INSTRUCTION.match(line)
-        if m:
-            address = int(m.group(1), 16)
-            labels.update((label, address) for label in pending)
-            pending = []
-            instructions.append((address, m.group(2), m.group(3)))
+    instructions, labels = _instructions(text, kernel)
     loops = []
     for address, op, rest in instructions:
         if op.split(".")[0] != "BRA":
@@ -258,6 +284,52 @@ def sass_loops(text: str, kernel: str) -> list:
                       "stg128": sum(o.startswith("STG") and ".128" in o
                                     for o in body)})
     return sorted(loops, key=lambda loop: loop["instructions"])
+
+
+def _instructions(text: str, kernel: str) -> tuple:
+    """([(address, op, operands)], {label: address}) of kernel `kernel`'s
+    SASS in cuobjdump -sass output."""
+    instructions, labels, pending, current = [], {}, [], None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = _kernel_of(m.group(1))
+            continue
+        if current != kernel:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSTRUCTION.match(line)
+        if m:
+            address = int(m.group(1), 16)
+            labels.update((label, address) for label in pending)
+            pending = []
+            instructions.append((address, m.group(2), m.group(3)))
+    return instructions, labels
+
+
+def loop_classes(text: str, kernel: str) -> list:
+    """For each loop of kernel `kernel` (sass_loops, innermost first) that
+    holds a special-function op (the path tracer's sample loop, and the
+    VJP's loop over scenes around it), its address range and op_classes of
+    its static instructions."""
+    instructions, _ = _instructions(text, kernel)
+    out = []
+    for loop in sass_loops(text, kernel):
+        mix = {"total": 0}
+        for address, op, _ in instructions:
+            if loop["first"] <= address <= loop["last"]:
+                key = _op_key(op)
+                mix["total"] += 1
+                if key in SASS_OPS:
+                    mix[key] = mix.get(key, 0) + 1
+        classes = op_classes(mix)
+        if classes["mufu"]:
+            out.append({"first": loop["first"], "last": loop["last"],
+                        **classes})
+    return out
 
 
 def blocks_by_registers(registers: int, threads: int = SR_ADAM_THREADS
@@ -304,18 +376,107 @@ def pathtrace_code(csrc: Path, ptxas: str):
     bf16 one as <name>_bf16), or None for a tree without pathtrace.cu."""
     if PT_SOURCE not in tree_sources(csrc):
         return None
+    from svbrdf_tpu_torch.ops import _build
+
     lib_path = csrc / "_build" / f"lib{PT_SOURCE}.so"
     lib = ctypes.CDLL(str(lib_path))
-    regs, mix, out = ptxas_lines(ptxas), sass_mix(lib_path), {}
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    regs, mix, out = ptxas_lines(ptxas), parse_sass(sass), {}
     for kernel, (entry, args) in PATHTRACE_BLOCKS.items():
         for suffix in ("", "_bf16"):
             query = getattr(lib, f"{entry}{suffix}_blocks_per_sm")
             query.argtypes = [ctypes.c_int] * len(args)
             query.restype = ctypes.c_int
-            out[kernel + suffix] = {"ptxas": regs.get(kernel + suffix),
-                                    "sass": mix.get(kernel + suffix),
-                                    "blocks_per_sm": query(*args)}
+            name = kernel + suffix
+            out[name] = {"ptxas": regs.get(name), "sass": mix.get(name),
+                         "classes": op_classes(mix.get(name, {})),
+                         "loops": loop_classes(sass, name),
+                         "blocks_per_sm": query(*args)}
     return out
+
+
+@contextlib.contextmanager
+def pathtrace_library(lib):
+    """Route ops/pathtrace's CUDA wrappers to the kernels of `lib` (a
+    tree's loaded libpathtrace.so) inside the block, and back after it."""
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+
+    threads = lib.svbrdf_pathtrace_threads
+    threads.argtypes = []
+    threads.restype = ctypes.c_int
+    saved = dict(pt._FUNCS), pt.threads_per_block
+    pt._FUNCS.clear()
+    pt._FUNCS.update({(name, dtype): pt._bind(lib, name, dtype)
+                      for name in pt._ENTRIES for dtype in pt.FIELD_DTYPES})
+    pt.threads_per_block = threads
+    try:
+        yield
+    finally:
+        pt._FUNCS.clear()
+        pt._FUNCS.update(saved[0])
+        pt.threads_per_block = saved[1]
+
+
+def pathtrace_agreement(libs: dict) -> dict:
+    """{tree: {case: agreement}}: each tree's path tracer kernels on every
+    bench_setup.PATHTRACE_CASES case against the package's plain versions
+    and float64 (bench_setup.pathtrace_agreement, hold_pathtrace_kernels's
+    rules, reported and not raised: an older tree or a variant may fail
+    them), the references computed once a case."""
+    import torch
+
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    out = {name: {} for name in libs}
+    for label, (batch, height, width, spp, dtype, scene_grads) in \
+            bench_setup.PATHTRACE_CASES.items():
+        case = bench_setup.pathtrace_case(batch, height, width, spp,
+                                          dtype=dtype)
+        refs = bench_setup.pathtrace_references(case, scene_grads)
+        for name, lib in libs.items():
+            with pathtrace_library(lib):
+                out[name][label] = bench_setup.pathtrace_agreement(
+                    case, refs, scene_grads)
+            log(f"{name} pathtrace {label}: {json.dumps(out[name][label])}")
+        del case, refs
+        torch.cuda.empty_cache()
+    return out
+
+
+def pathtrace_times(libs: dict) -> dict:
+    """{tree: {instance: {"ms", "ms_rounds"}}}: each PATHTRACE_TIMED
+    instance of each tree through the package's wrappers at full width
+    (bench_setup.pathtrace_case), the median of 20 CUDA-event timings
+    (bench_setup.cuda_ms), in ROUNDS rounds that alternate the order of
+    the trees; the median of the rounds."""
+    import torch
+
+    from svbrdf_tpu_torch.ops import pathtrace as pt
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    cases = {dtype: bench_setup.pathtrace_case(8, 256, 256, (16, 8),
+                                               dtype=getattr(torch, dtype))
+             for dtype in ("float32", "bfloat16")}
+
+    def call(kernel, dtype, scene_grads):
+        case = cases[dtype]
+        if kernel == "pathtrace_shade":
+            return lambda: pt.shade_cuda(*case["flat"])
+        return lambda: pt.shade_vjp_cuda(*case["flat_bwd"], case["d_sample"],
+                                         scene_grads=scene_grads)
+
+    names = list(libs)
+    rounds = {name: {k: [] for k in PATHTRACE_TIMED} for name in names}
+    for r in range(ROUNDS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            with pathtrace_library(libs[name]):
+                for instance, spec in PATHTRACE_TIMED.items():
+                    rounds[name][instance].append(
+                        bench_setup.cuda_ms(call(*spec)))
+    return {name: {k: {"ms": statistics.median(v), "ms_rounds": v}
+                   for k, v in per.items()} for name, per in rounds.items()}
 
 
 class Tree:
@@ -461,6 +622,15 @@ def main(argv=None) -> None:
                 **against_plain(built[name], key, *inputs[key[1]])}
             log(f"{name} {k}: {json.dumps(per_kernel[k])}")
         result["trees"][name] = per_kernel
+    libs = {name: ctypes.CDLL(str(csrc / "_build" / f"lib{PT_SOURCE}.so"))
+            for name, csrc in trees.items()
+            if PT_SOURCE in tree_sources(csrc)}
+    result["pathtrace_agreement"] = pathtrace_agreement(libs)
+    for name, per in pathtrace_times(libs).items():
+        for instance, times in per.items():
+            result["pathtrace"][name][instance].update(times)
+        log(f"{name} pathtrace ms: " + ", ".join(
+            f"{k} {v['ms']:.4f}" for k, v in per.items()))
     names = list(trees)
     rounds = {name: {key: [] for key in built[name].kernels}
               for name in names}

@@ -290,3 +290,37 @@ def test_a_tree_without_the_path_tracer_is_skipped(tmp_path):
     (tmp_path / "pathtrace.cu").write_text("")
     assert compare_builds.tree_sources(tmp_path)[-1] == "pathtrace"
 
+
+
+PATHTRACE_SASS = """\
+\t\tFunction : _ZN45_GLOBAL__N__4ad17bb0_12_pathtrace_cu_53d63c4612shade_kernelIfEEvPKT_S3_S3_S3_S3_PKfS5_S5_S5_S5_S5_S5_S5_Pfiiiifff
+        /*0000*/                   DADD R4, R2, R6 ;
+        /*0010*/                   F2F.F32.F64 R8, R4 ;
+.L_x_1:
+        /*0020*/                   MUFU.RSQ R9, R8 ;
+        /*0030*/                   DFMA R4, R2, R6, R4 ;
+        /*0040*/                   FFMA R10, R9, R9, R8 ;
+        /*0050*/                   FMNMX R11, R10, RZ, !PT ;
+        /*0060*/                   STL [R1], R11 ;
+        /*0070*/                   MUFU.RCP64H R5, R3 ;
+        /*0080*/                   LDL R12, [R1] ;
+        /*0090*/               @P0 BRA `(.L_x_1) ;
+        /*00a0*/                   DMUL R4, R2, R6 ;
+        /*00b0*/                   EXIT ;
+"""
+
+
+def test_op_classes_of_a_kernel_and_its_loops():
+    """The path tracer's SASS classes: double-precision arithmetic (DADD,
+    DMUL, DFMA and the 64H MUFU seeds; not the conversions), FP32 (FFMA,
+    FMNMX), every MUFU op and the spill traffic, over the kernel and over
+    its loop that holds a special-function op."""
+    mix = compare_builds.parse_sass(PATHTRACE_SASS)["pathtrace_shade"]
+    assert mix["F2F"] == 1 and mix["MUFU.RCP64H"] == 1
+    assert compare_builds.op_classes(mix) == {
+        "fp64": 4, "fp32": 2, "mufu": 2, "local": 2, "total": 12}
+    assert compare_builds.loop_classes(PATHTRACE_SASS, "pathtrace_shade") \
+        == [{"first": 0x20, "last": 0x90, "fp64": 2, "fp32": 2, "mufu": 2,
+             "local": 2, "total": 8}]
+    assert compare_builds.op_classes({}) == {
+        "fp64": 0, "fp32": 0, "mufu": 0, "local": 0, "total": 0}

@@ -6,8 +6,12 @@ against the plain versions there); here the plain versions are held to the
 code they were factored out of, bit for bit, and the VJP's line-for-line
 transcription (`_sample_contrib_vjp_plain`) to autograd of
 `_sample_contrib`: normwise rel 1e-10 in float64, 1e-5 in f32, on inputs
-that put every clamp on both sides and at its tie. Inputs are small (32^2,
-B=2, S=9, spp (4, 2)) and made from numpy seeds.
+that put every clamp on both sides and at its tie. The kernels' algebra
+(no colour channel in the sample loop, 1 - n.h without cancellation),
+transcribed in f32 (`shade_transcribed`), is held to the plain versions by
+the card's rules (bench_setup.pathtrace_agreement), and its two precision
+devices are shown to be needed. Inputs are small (32^2, B=2, S=9, spp
+(4, 2)) and made from numpy seeds.
 """
 
 import numpy as np
@@ -238,9 +242,9 @@ def test_sample_vjp_transcription_matches_autograd(dtype, tol):
     autograd of _sample_contrib on the same inputs in the same dtype, the
     value and all ten sampled fields' gradients, each normwise, on inputs
     that reach every clamp's both sides and its tie. (The f32 transcription
-    computes the sample's geometry in float64, as the kernels do: its value
-    lies within f32's conditioning of the f32 autograd's, not within 1e-5
-    of each of its values.)"""
+    takes 1 - n.h without cancellation and the cosines' dot products in
+    float64, as the kernels do: its value lies within f32's conditioning
+    of the f32 autograd's, not within 1e-5 of each of its values.)"""
     geo, size = _tie_geometry(dtype)
     geo = pt._Geometry(*(x.to(dtype) for x in geo))
     offset, shift = _tie_samples(size, dtype)
@@ -385,3 +389,112 @@ def test_float64_reference_rounds_where_the_svbrdf_rounds():
     near = float((plain - ref).norm() / ref.norm())
     assert near <= 1e-4
     assert float((upcast - ref).norm() / ref.norm()) >= 100 * near
+
+
+# --- The kernels' algebra, transcribed in f32 -------------------------------
+
+
+def _transcribed_f32(*inputs, scene_grads=False):
+    """shade_transcribed in f32, called as the kernels' wrappers are: the
+    13 inputs, then d_sample for the VJP."""
+    d_sample = inputs[13] if len(inputs) > 13 else None
+    return pt.shade_transcribed(*inputs[:13], d_sample=d_sample,
+                                scene_grads=scene_grads, work=torch.float32)
+
+
+def _agreement_of_transcription(monkeypatch, case, scene_grads=False):
+    """bench_setup.pathtrace_agreement with the kernels' launches replaced
+    by their f32 transcription (the render's and the VJP's)."""
+    refs = bench_setup.pathtrace_references(case, scene_grads)
+    monkeypatch.setattr(pt, "shade", _transcribed_f32)
+    monkeypatch.setattr(pt, "shade_vjp_cuda", _transcribed_f32)
+    return bench_setup.pathtrace_agreement(case, refs, scene_grads)
+
+
+@pytest.mark.parametrize("dtype,scene_grads", [
+    (torch.float32, False), (torch.bfloat16, False), (torch.float32, True)])
+def test_channel_free_algebra_in_f32_passes_the_kernels_rules(
+        monkeypatch, dtype, scene_grads):
+    """The kernels' arithmetic (the channel-free sample loop: four scalar
+    sums, the channels applied once a pixel and scene) transcribed in f32
+    against the plain versions on a small case, by hold_pathtrace_kernels's
+    rules: renders by hold_render (within rel 1e-5 of the plain version or
+    within 4x the allowance of float64), each VJP sum as close to float64
+    as the plain version (2x + 1e-5)."""
+    case = bench_setup.pathtrace_case(2, 32, 32, (16, 8), dtype=dtype,
+                                      device="cpu")
+    out = _agreement_of_transcription(monkeypatch, case, scene_grads)
+    assert out["passes"], out
+    assert out["render"]["max_dist_over_allowed"] <= 0.5
+
+
+def test_a_bf16_render_keeps_the_rounding_of_one_minus_specular(
+        monkeypatch):
+    """delta = (1 - specular) - bf16(1 - specular) stays in the diffuse
+    term: without it the f32 transcription's bf16 render moves beyond
+    hold_render's tolerance of the plain bf16 version and float64."""
+    case = bench_setup.pathtrace_case(2, 32, 32, (16, 8),
+                                      dtype=torch.bfloat16, device="cpu")
+    refs = bench_setup.pathtrace_references(case)
+    scenes, svbrdf, samples = case["scenes"], case["svbrdf"], case["samples"]
+
+    def render():
+        return pt._shade(scenes, svbrdf, *samples.forward,
+                         estimator=_transcribed_f32)
+
+    bench_setup.hold_render(render(), refs["plain"], refs["float64"],
+                            refs["cond"])
+    monkeypatch.setattr(pt, "_delta", lambda sp, oms: torch.zeros_like(oms))
+    dropped = render()
+    with pytest.raises(RuntimeError, match="path-traced renders"):
+        bench_setup.hold_render(dropped, refs["plain"], refs["float64"],
+                                refs["cond"])
+
+
+def _half_vectors(normals, angles, rng):
+    """For each normal an unnormalized half vector at each angle from it:
+    n rotated by the angle about a random axis perpendicular to n, scaled
+    by a length in [1, 2] (|wi + wo|), in float64."""
+    n = normals / normals.norm(dim=-1, keepdim=True)
+    axis = torch.linalg.cross(n, torch.from_numpy(rng.normal(
+        size=n.shape)))
+    axis = axis / axis.norm(dim=-1, keepdim=True)
+    t = angles[:, None, None]
+    h = n * torch.cos(t) + torch.linalg.cross(axis, n) * torch.sin(t)
+    return h * torch.from_numpy(rng.uniform(1.0, 2.0, h.shape[:-1] + (1,)))
+
+
+@pytest.mark.parametrize("normal_dtype", [torch.float32, torch.bfloat16])
+def test_one_minus_nh_keeps_its_relative_error(normal_dtype):
+    """_one_minus_nh (the kernels' one_minus_nh) in f32 against float64 on
+    unit and near-unit normals (normalized, then rounded to f32 or bf16)
+    at angles from 1e-4 rad to 1 rad: relative error within 1e-6, so the
+    Blinn lobe nh^e at e = 2e4 within 1e-4 wherever it counts (e (1 -
+    n.h) <= 80). 1 minus the f32 n.h is an ulp of 1 off, and misses that
+    bound at e = 2e4."""
+    rng = np.random.default_rng(21)
+    normals = torch.from_numpy(rng.normal(size=(64, 3)))
+    normals[:, 2] = normals[:, 2].abs()
+    normals = (normals / normals.norm(dim=-1, keepdim=True)).to(
+        normal_dtype).double()
+    angles = torch.from_numpy(np.geomspace(1e-4, 1.0, 41))
+    hr = _half_vectors(normals, angles, rng).float()
+    n = normals.float().expand(hr.shape)
+    rh = torch.rsqrt(pt.dot(hr, hr))
+    nlen, x0 = pt._norm_terms(n, torch.float32)
+    x = pt._one_minus_nh(n, nlen, x0, hr, rh)[..., 0].double()
+    hr64, n64 = hr.double(), normals.expand(hr.shape)
+    h64 = hr64 / hr64.norm(dim=-1, keepdim=True)
+    exact = 1.0 - pt.dot(n64, h64)[..., 0]
+    # Relative to the two terms' magnitudes |1 - |n|| + |n| (1 - cos): a
+    # bf16 normal longer than 1 makes them cancel for any arithmetic.
+    length = n64.norm(dim=-1)
+    scale = (1.0 - length).abs() + length * (1.0 - pt.dot(
+        n64 / length[..., None], h64)[..., 0])
+    assert float(((x - exact).abs() / scale).max()) <= 1e-6
+    e = 2e4
+    counts = e * exact <= 80.0
+    lobe_err = e * (x - exact).abs()
+    assert float(lobe_err[counts].max()) <= 1e-4
+    naive = 1.0 - pt.dot(n, hr * rh)[..., 0].double()
+    assert float((e * (naive - exact).abs())[counts].max()) > 1e-4
