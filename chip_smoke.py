@@ -374,17 +374,23 @@ PATHTRACE_KERNELS = {
 #     12) 24; d^2 5 and wi from one rsqrt 3 / 1; cos_surf and cos_light
 #     with their clips 12; w = cs cl (1/d)^2 3; h (sum 3, |.|^2 5, one
 #     rsqrt, scale 3) 11 / 1; n.h and wo.h with clips 14; n.wi's clip 2;
-#     pow(n.h, e) 1 / 2; (1 - wo.h)^5 4; G1(n.wi) (clips 4, 1 - ct^2 2, a
-#     from one rsqrt 2 / 1, the rational 9 / 1, the select 1) 18 / 2; r =
-#     G1 pw / nl 2 / 1; the four sums (1 - x5 1, w r 1, three FMAs and an
-#     add) 9 -> 108 / 7 (a per-channel algebra: 145 / 7);
+#     pow(n.h, e) 1 / 2; (1 - wo.h)^5 4; G1(n.wi) as a quotient (clips 4,
+#     1 - ct^2 2, a from one rsqrt 2 / 1, the rational's numerator and
+#     denominator 8, their selects 2) 18 / 1; r = pw num / (den nl) from
+#     one reciprocal (den nl 1, two products) 3 / 1; the four sums (1 - x5
+#     1, w r 1, three FMAs and an add) 9 -> 109 / 6 (G1's quotient and 1 /
+#     nl as two reciprocals: 108 / 7; a per-channel algebra: 145 / 7);
 #     per pixel and scene: wo (cam - coords 3, |.|^2 5, rsqrt, scale 3)
 #     11 / 1, light - coords 3, n.wo and its clip 7, G1(n.wo) 18 / 2, A =
 #     G1 dn / (4 nv) 3 / 1, three channels from the sums (diffuse 2, A (sp
-#     (R2 + RX) + oms RX) 5, em area / spp 2) 27 -> 69 / 4;
+#     (R2 + RX) + oms RX) 5, em area / spp 2) 27 -> 69 / 4 (G1's quotient
+#     and 1 / nv from one reciprocal, 70 / 3, would not lower the bound:
+#     with the sample's 109 / 6 the forward is FP32-bound);
 #     per pixel: r's clip, 1/r, e, (e + 2)/(2 pi), sqrt(.5 e + 1) 11 / 2,
 #     dif / pi, 1 - specular 6 -> 17 / 2;
-#   VJP without scene gradients, per sample: the forward's 108 / 7; the
+#   VJP without scene gradients, per sample (FP32-bound: each reciprocal
+#     shared by one more product would raise its bound, so the forward's
+#     terms are counted with two) the forward's 108 / 7; the
 #     coefficients' B (4) and d w r (2) 6; d cos_surf 2; d pw, d G1, d nl
 #     (t 2, 1, 1, 2) 6; G1(n.wi)'s VJP 28; pow's (e log n.h 2, e pw / n.h
 #     3 / 1) 5 / 1; the clips' derivatives 6; d n.wi 4; h 3 and d normals 12
@@ -397,7 +403,7 @@ PATHTRACE_KERNELS = {
 #     chain to rough_blinn 9 -> 38 / 2.
 #   With scene gradients the VJP adds ~110 FP32 a sample (wo, wi, rel and
 #   the per-block partials): its bound is given for the training kernel.
-PATHTRACE_OPS = {"pathtrace_shade": {"sample": (108, 7), "view": (69, 4),
+PATHTRACE_OPS = {"pathtrace_shade": {"sample": (109, 6), "view": (69, 4),
                                      "pixel": (17, 2)},
                  "pathtrace_shade_vjp": {"sample": (182, 8),
                                          "view": (135, 4),
@@ -1390,7 +1396,7 @@ def phase_pathtrace_kernels(rates: dict, build_log: str) -> dict:
                         if k == name or k.startswith(name + "_")
                         and "vjp" not in k[len(name):]}
                  for name in PATHTRACE_KERNELS}
-    code = pathtrace_code(registers)
+    code = pathtrace_code(build_log)
     batch, size, n_scenes, spp = MAIN["batch"], MAIN["size"], 9, (16, 8)
     times = {}
     for dtype, suffix in ((torch.float32, ""), (BF16, "_bf16")):
@@ -1423,26 +1429,23 @@ def phase_pathtrace_kernels(rates: dict, build_log: str) -> dict:
             "registers": registers, "code": code}
 
 
-def pathtrace_code(registers: dict) -> dict:
+def pathtrace_code(build_log: str) -> dict:
     """Each path tracer instance's registers and spill bytes (ptxas, from
     phase 2's log; none where the library was built before this run) beside
-    its static FP64 instructions and local loads and stores (cuobjdump
-    -sass of the built library, compare_builds.op_classes), printed a line
-    each."""
+    its static FP64 instructions and local loads and stores
+    (compare_builds.pathtrace_library_code on the built library), printed a
+    line each."""
     from svbrdf_tpu_torch.ops import _build
     from svbrdf_tpu_torch.utils import compare_builds
 
-    cuobjdump = str(pathlib.Path(_build._nvcc()).with_name("cuobjdump"))
-    mix = compare_builds.parse_sass(subprocess.run(
-        [cuobjdump, "-sass", str(_build.library_path("pathtrace"))],
-        check=True, capture_output=True, text=True).stdout)
-    ptxas = {k: v for per in registers.values() for k, v in per.items()}
+    built = compare_builds.pathtrace_library_code(
+        _build.library_path("pathtrace"), build_log)
     code = {}
-    for instance in compare_builds.PATHTRACE_TIMED:
-        if instance not in mix:
+    for instance, c in built.items():
+        if c["sass"] is None:
             raise RuntimeError(f"pathtrace: no {instance} in the SASS")
-        classes = compare_builds.op_classes(mix[instance])
-        code[instance] = {**ptxas.get(instance, {}), "fp64": classes["fp64"],
+        classes = c["classes"]
+        code[instance] = {**(c["ptxas"] or {}), "fp64": classes["fp64"],
                           "ldl_stl": classes["local"],
                           "sass_total": classes["total"]}
         c = code[instance]
@@ -1627,10 +1630,7 @@ def sr_adam_code(build_log: str) -> dict:
     from svbrdf_tpu_torch.ops import _build
     from svbrdf_tpu_torch.utils import compare_builds
 
-    cuobjdump = str(pathlib.Path(_build._nvcc()).with_name("cuobjdump"))
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(_build.library_path("sr_adam"))], check=True,
-                          capture_output=True, text=True).stdout
+    sass = compare_builds.sass_text(_build.library_path("sr_adam"))
     code = compare_builds.sr_adam_code(sass, build_log)
     if set(code) != {"sr_adam", "sr_adam_bf16mu"}:
         raise RuntimeError(f"sr_adam: kernels {sorted(code)} in the SASS")

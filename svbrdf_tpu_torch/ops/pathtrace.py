@@ -496,14 +496,23 @@ def _clip_grad(x, lo, hi):
         x, torch.as_tensor(lo, dtype=x.dtype, device=x.device)), hi)
 
 
-def _smith_g1(xn, sq):
-    """_blinn_smith_g1 with sqrt(0.5 e + 1) given (the kernels' smith_g1)."""
+def _smith_g1_quotient(xn, sq):
+    """_blinn_smith_g1 with sqrt(0.5 e + 1) given, as (num, den): the
+    rational fit's numerator and denominator below a = 1.6, 1 and 1 above
+    (the kernels' smith_g1_quotient)."""
     ct = _clip(xn, _EPS, 1.0)
     st = torch.sqrt(_clip(1.0 - ct * ct, 1e-12, 1.0))
     a = sq * ct / st
-    rational = ((3.535 * a + 2.181 * a * a)
-                / (1.0 + 2.276 * a + 2.577 * a * a))
-    return torch.where(a < 1.6, rational, torch.ones_like(rational))
+    fit = a < 1.6
+    one = torch.ones_like(a)
+    return (torch.where(fit, 3.535 * a + 2.181 * a * a, one),
+            torch.where(fit, 1.0 + 2.276 * a + 2.577 * a * a, one))
+
+
+def _smith_g1(xn, sq):
+    """_blinn_smith_g1 with sqrt(0.5 e + 1) given (the kernels' smith_g1)."""
+    num, den = _smith_g1_quotient(xn, sq)
+    return num / den
 
 
 def _smith_g1_vjp(xn, sq, g):
@@ -624,17 +633,17 @@ def _sample_contrib_vjp_plain(geo: _Geometry, offset: torch.Tensor,
     lt, lb = lw * dot(nl64, t64), lh * dot(nl64, b64)
     cn = dot(n64, lc64) + sh64[..., 0:1] * nt + sh64[..., 1:2] * nb
     cl0 = dot(nl64, lc64) + sh64[..., 0:1] * lt + sh64[..., 1:2] * lb
-    # sample_terms: the wrap of u = offset + 0.5 + shift decided in `work`
+    # sample_terms: u = offset + 0.5 + shift less its floor in `work`
     off = offset[..., None, None, :]
     u = (off.to(work) + 0.5) + shift.to(work)
-    wrap = (u >= 1.0).to(work)
-    a0 = ((u[..., 0:1] - wrap[..., 0:1]) - 0.5) * lw
-    a1 = ((u[..., 1:2] - wrap[..., 1:2]) - 0.5) * lh
+    fl = torch.floor(u)
+    a0 = ((u[..., 0:1] - fl[..., 0:1]) - 0.5) * lw
+    a1 = ((u[..., 1:2] - fl[..., 1:2]) - 0.5) * lh
     rel = lc + a0 * t_l + a1 * b_l
     rsq = torch.rsqrt(dot(rel, rel))
     inv_ds = rsq * rsq
     wi = rel * rsq
-    d = off.to(f64) - wrap.to(f64)
+    d = off.to(f64) - fl.to(f64)
     cs_raw = (cn + d[..., 0:1] * nt + d[..., 1:2] * nb).to(work) * rsq
     cl_raw = -((cl0 + d[..., 0:1] * lt + d[..., 1:2] * lb).to(work) * rsq)
     cs = _clip(cs_raw, 0.0)
@@ -653,9 +662,11 @@ def _sample_contrib_vjp_plain(geo: _Geometry, offset: torch.Tensor,
     x4 = (xv * xv) * (xv * xv)
     x5 = xv * x4
     nl = _clip(cs_raw, _EPS, 1.0)
-    inv_nl = 1.0 / nl
-    g1l = _smith_g1(nl, sq)
-    r = (g1l * pw) * inv_nl
+    num, den = _smith_g1_quotient(nl, sq)
+    q = 1.0 / (den * nl)
+    inv_nl = den * q
+    g1r = num * q
+    r = g1r * pw
     # One sample's sums (Sums) and its radiance (channel_sum).
     W0, W1 = w, w * (1.0 - x5)
     R2, RX = (w * r) * (1.0 - x5), (w * r) * x5
@@ -674,8 +685,9 @@ def _sample_contrib_vjp_plain(geo: _Geometry, offset: torch.Tensor,
     gq = eA * x5 + gA
     B = r * gq + (beta * (1.0 - x5) + alpha)
     g_cs = (B * cl) * inv_ds
-    t = (w * gq) * inv_nl
-    g_pw = t * g1l
+    wq = w * gq
+    t = wq * inv_nl
+    g_pw = wq * g1r
     g_nl_g1, g_sq = _smith_g1_vjp(nl, sq, t * pw)
     g_nl = -t * r + g_nl_g1
     g_e = g_pw * pw * lg

@@ -206,14 +206,18 @@ def ptxas_lines(text: str) -> dict:
     return out
 
 
-def sass_mix(lib: Path) -> dict:
-    """{kernel: {op: count, "total": n}} of a library (cuobjdump -sass)."""
+def sass_text(lib: Path) -> str:
+    """cuobjdump -sass of a built library (cuobjdump beside nvcc)."""
     from svbrdf_tpu_torch.ops import _build
 
     cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
-    return parse_sass(subprocess.run(
-        [cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
-        text=True).stdout)
+    return subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def sass_mix(lib: Path) -> dict:
+    """{kernel: {op: count, "total": n}} of a library (cuobjdump -sass)."""
+    return parse_sass(sass_text(lib))
 
 
 _INSTRUCTION = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -371,18 +375,22 @@ def sr_adam_code(sass: str, ptxas: str) -> dict:
 
 
 def pathtrace_code(csrc: Path, ptxas: str):
-    """{instance: {"ptxas", "sass", "blocks_per_sm"}} of the path tracer's
-    kernels in a built tree (each kernel's f32 instance under its name, the
-    bf16 one as <name>_bf16), or None for a tree without pathtrace.cu."""
+    """pathtrace_library_code of a built tree, or None for a tree without
+    pathtrace.cu."""
     if PT_SOURCE not in tree_sources(csrc):
         return None
-    from svbrdf_tpu_torch.ops import _build
+    return pathtrace_library_code(csrc / "_build" / f"lib{PT_SOURCE}.so",
+                                  ptxas)
 
-    lib_path = csrc / "_build" / f"lib{PT_SOURCE}.so"
+
+def pathtrace_library_code(lib_path: Path, ptxas: str) -> dict:
+    """{instance: {"ptxas", "sass", "classes", "loops", "blocks_per_sm"}}
+    of the path tracer's kernels in a built libpathtrace (each kernel's
+    f32 instance under its name, the bf16 one as <name>_bf16; "ptxas" and
+    "sass" None where the log or the SASS lacks the instance) and ptxas's
+    log of its build."""
     lib = ctypes.CDLL(str(lib_path))
-    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], check=True,
-                          capture_output=True, text=True).stdout
+    sass = sass_text(lib_path)
     regs, mix, out = ptxas_lines(ptxas), parse_sass(sass), {}
     for kernel, (entry, args) in PATHTRACE_BLOCKS.items():
         for suffix in ("", "_bf16"):
@@ -594,12 +602,9 @@ def main(argv=None) -> None:
     inputs = {dtype: (loss_inputs(8, 256, 9, dtype=dtype),
                       loss_inputs_near(8, 256, 9, dtype=dtype))
               for dtype in rf.PLANE_DTYPES}
-    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
     built = {}
     for name, csrc in trees.items():
-        sass = subprocess.run(
-            [cuobjdump, "-sass", str(csrc / "_build" / f"lib{SR_SOURCE}.so")],
-            check=True, capture_output=True, text=True).stdout
+        sass = sass_text(csrc / "_build" / f"lib{SR_SOURCE}.so")
         result.setdefault("sr_adam", {})[name] = sr_adam_code(sass,
                                                               logs[name])
         log(f"{name} sr_adam: {json.dumps(result['sr_adam'][name])}")

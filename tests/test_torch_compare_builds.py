@@ -324,3 +324,47 @@ def test_op_classes_of_a_kernel_and_its_loops():
              "local": 2, "total": 8}]
     assert compare_builds.op_classes({}) == {
         "fp64": 0, "fp32": 0, "mufu": 0, "local": 0, "total": 0}
+
+
+def test_pathtrace_library_code_reads_each_instance(monkeypatch, tmp_path):
+    """A built libpathtrace's instances from one disassembly of it
+    (sass_text, here its stand-in): each instance's op classes and loops
+    from its SASS, ptxas's registers where the log has them, blocks per SM
+    from the library's queries at the path's shapes."""
+    queried = []
+
+    class Query:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *args):
+            queried.append((self.name, args))
+            return 4
+
+    class Library:
+        def __getattr__(self, name):
+            return Query(name)
+
+    disassembled = []
+    monkeypatch.setattr(compare_builds.ctypes, "CDLL",
+                        lambda path: Library())
+    monkeypatch.setattr(compare_builds, "sass_text",
+                        lambda lib: disassembled.append(lib)
+                        or PATHTRACE_SASS)
+    ptxas = ("ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__4ad"
+             "17bb0_12_pathtrace_cu_53d63c4612shade_kernelIfEEvPKT_S3_S3_S3"
+             "_S3_PKfS5_S5_S5_S5_S5_S5_S5_Pfiiiifff' for 'sm_90a'\n"
+             "ptxas info    : Used 62 registers, used 1 barriers\n")
+    lib = tmp_path / "libpathtrace.so"
+    code = compare_builds.pathtrace_library_code(lib, ptxas)
+    assert disassembled == [lib]
+    assert sorted(code) == sorted(
+        k + s for k in compare_builds.PATHTRACE_BLOCKS for s in ("", "_bf16"))
+    shade = code["pathtrace_shade"]
+    assert shade["ptxas"] == {"registers": 62}
+    assert shade["classes"]["fp64"] == 4 and shade["classes"]["local"] == 2
+    assert [loop["mufu"] for loop in shade["loops"]] == [2]
+    assert shade["blocks_per_sm"] == 4
+    assert code["pathtrace_shade_vjp_bf16"]["sass"] is None
+    assert ("svbrdf_pathtrace_shade_vjp_bf16_blocks_per_sm", (9, 8, 0)) \
+        in queried
