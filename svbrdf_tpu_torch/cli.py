@@ -151,7 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-step random streams.")
     p.add_argument("--profile-dir", dest="profile_dir", default=None,
                    help="If set, write a torch.profiler Chrome trace of "
-                        "training steps 2-4 here (trace.json).")
+                        "training steps 2-4 here (trace.json). Its host "
+                        "ranges name the step's phases (step.prepare, "
+                        "step.forward, step.loss, step.backward, "
+                        "step.optimizer) and the data layer's work "
+                        "(data.raw_batch; data.decode, one a cache miss).")
     p.add_argument("--import-torch-checkpoint",
                    dest="import_torch_checkpoint", default=None,
                    help="Path to a PyTorch reference checkpoint "

@@ -35,6 +35,7 @@ import torch
 
 from svbrdf_tpu_torch.data import pipeline, strips
 from svbrdf_tpu_torch.data.prefetch import PrefetchPool
+from svbrdf_tpu_torch.utils import profiling
 
 
 def strip_tiles(path: str, input_image_count: int, n_read: int,
@@ -163,10 +164,12 @@ class SvbrdfDataset:
 
     def _decoded(self, idx: int):
         """self._decode of sample `idx`: from the pool if there is one
-        (its worker's if requested), else here."""
-        if self._pool is not None:
-            return self._pool.take(idx)
-        return self._decode(self.file_paths[idx])
+        (its worker's if requested), else here. Called on a cache miss
+        only, each inside a data.decode span: their count is the misses'."""
+        with profiling.span("data.decode"):
+            if self._pool is not None:
+                return self._pool.take(idx)
+            return self._decode(self.file_paths[idx])
 
     def _read_strip_u8(self, idx: int) -> np.ndarray:
         cached = self._cache.get(idx)
@@ -271,7 +274,11 @@ class SvbrdfDataset:
         With `rows`, only those rows of the batch (a data-parallel rank's):
         the partners are drawn for every index, so the host RNG advances as
         for the whole batch, and only the rows and their partners are
-        decoded."""
+        decoded. The whole call is a data.raw_batch span."""
+        with profiling.span("data.raw_batch"):
+            return self._raw_batch(indices, rows)
+
+    def _raw_batch(self, indices, rows: Optional[slice]):
         indices = [int(i) for i in indices]
         drawn = None
         if self.mix_materials and not (self.scale_mode == "crop"

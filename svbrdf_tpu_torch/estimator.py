@@ -25,6 +25,7 @@ from svbrdf_tpu_torch.models import build_model
 from svbrdf_tpu_torch.ops import codecs
 from svbrdf_tpu_torch.parallel.step import make_predict_fn
 from svbrdf_tpu_torch.training.checkpoint import Checkpoint
+from svbrdf_tpu_torch.utils import profiling
 
 
 class SvbrdfEstimator:
@@ -66,28 +67,42 @@ class SvbrdfEstimator:
         x = x.to(self.device, torch.float32)
         return self._predict(x).float().cpu().numpy()
 
-    def predict_from_photos(self, paths: Sequence[str],
-                            is_linear: bool = False) -> np.ndarray:
-        """Photograph files -> SVBRDF maps (single batch)."""
+    @staticmethod
+    def _read_photos(paths: Sequence[str],
+                     is_linear: bool = False) -> np.ndarray:
+        """Photograph files -> one (B, H, W, 3) batch, linear RGB."""
         imgs = np.stack([strips.read_image(p) for p in paths])
         if not is_linear:
             imgs = np.clip(imgs, 0.0, 1.0) ** 2.2
-        return self.predict(imgs)
+        return imgs
+
+    def predict_from_photos(self, paths: Sequence[str],
+                            is_linear: bool = False) -> np.ndarray:
+        """Photograph files -> SVBRDF maps (single batch)."""
+        return self.predict(self._read_photos(paths, is_linear))
 
     def predict_to_files(self, paths: Sequence[str], out_dir: str,
                          is_linear: bool = False) -> list:
         """Write per-input [normals|diffuse|roughness|specular] map strips,
-        <out_dir>/<photo stem>_svbrdf.png; returns their paths."""
+        <out_dir>/<photo stem>_svbrdf.png; returns their paths. The call's
+        three parts are host spans (utils/profiling.span): predict.decode
+        (reading and linearising the photos), predict.forward (to the
+        device, the model, back to numpy) and predict.encode (the strips
+        assembled and written)."""
         out = pathlib.Path(out_dir)
         out.mkdir(parents=True, exist_ok=True)
-        svbrdfs = self.predict_from_photos(paths, is_linear)
+        with profiling.span("predict.decode"):
+            imgs = self._read_photos(paths, is_linear)
+        with profiling.span("predict.forward"):
+            svbrdfs = self.predict(imgs)
         written = []
-        for path, sv in zip(paths, svbrdfs):
-            maps = codecs.unpack_svbrdf(torch.from_numpy(sv))
-            strip = torch.cat([codecs.encode_as_unit_interval(maps.normals),
-                               maps.diffuse, maps.roughness, maps.specular],
-                              dim=1)
-            target = out / (pathlib.Path(path).stem + "_svbrdf.png")
-            strips.write_image(str(target), strip.numpy())
-            written.append(str(target))
+        with profiling.span("predict.encode"):
+            for path, sv in zip(paths, svbrdfs):
+                maps = codecs.unpack_svbrdf(torch.from_numpy(sv))
+                strip = torch.cat(
+                    [codecs.encode_as_unit_interval(maps.normals),
+                     maps.diffuse, maps.roughness, maps.specular], dim=1)
+                target = out / (pathlib.Path(path).stem + "_svbrdf.png")
+                strips.write_image(str(target), strip.numpy())
+                written.append(str(target))
         return written

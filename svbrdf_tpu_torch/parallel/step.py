@@ -7,6 +7,9 @@ from the step's torch.Generator, and dropout from torch's default generator
 of the device. On one device that is TrainStep; on a rank of a data group
 (parallel/mesh), DataParallelTrainStep, which runs the step one device runs
 on the same global batch, the order of the gradient reduction aside.
+A step's phases are host spans (utils/profiling.span): step.prepare,
+step.forward, step.loss, step.backward (with the reduction) and
+step.optimizer.
 
 Precision, as in the JAX package: a model computing in bf16 (its
 `compute_dtype`) gets its prepared inputs and its f32 maps cast to bf16 at
@@ -32,6 +35,7 @@ from svbrdf_tpu_torch.ops.pathtrace import RenderSamples, Samples
 from svbrdf_tpu_torch.parallel import mesh
 from svbrdf_tpu_torch.parallel.optimizer import AdamBf16SR
 from svbrdf_tpu_torch.scene import Scene
+from svbrdf_tpu_torch.utils import profiling
 
 
 class PrepConfig(NamedTuple):
@@ -278,20 +282,25 @@ class TrainStep:
         step = self.step_index + 1 if step is None else step
         if span is None:
             span = _span(batch["svbrdf"].shape[0], self.group)
-        pred = self.forward(batch["inputs"])
-        loss = loss_rows(self.loss_fn, pred, batch["svbrdf"], self.generator,
-                         span, scenes, samples)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        loss = self.reduce(loss)
-        self.apply_gradients(step)
+        with profiling.span("step.forward"):
+            pred = self.forward(batch["inputs"])
+        with profiling.span("step.loss"):
+            loss = loss_rows(self.loss_fn, pred, batch["svbrdf"],
+                             self.generator, span, scenes, samples)
+        with profiling.span("step.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            loss = self.reduce(loss)
+        with profiling.span("step.optimizer"):
+            self.apply_gradients(step)
         self.step_index = step
         return loss
 
     def __call__(self, raw_batch: dict,
                  step: Optional[int] = None) -> torch.Tensor:
-        batch, span = prepare_rows(raw_batch, self.prep, self.generator,
-                                   self.group)
+        with profiling.span("step.prepare"):
+            batch, span = prepare_rows(raw_batch, self.prep, self.generator,
+                                       self.group)
         return self.update(batch, step=step, span=span)
 
 

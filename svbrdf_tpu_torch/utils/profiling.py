@@ -1,11 +1,18 @@
-"""Step-time statistics and trace capture for the training loop.
+"""Step-time statistics, trace capture and the program's host spans.
 
 Counterpart of svbrdf_tpu/utils/profiling.py. `StepTimer` keeps the
 wall-clock times of measured steps; given a `sync` (torch.cuda.synchronize
 on the card) it waits for the device before reading the clock at both ends,
 so a step's time is the card's and not the enqueue's. `trace_steps` wraps a
 window of steps in a torch.profiler trace and writes it as a Chrome trace
-(viewable in Perfetto or chrome://tracing).
+(viewable in Perfetto or chrome://tracing). `span` names a stretch of the
+program's host work on an active profiler's clock. The program's spans:
+the train step's phases, step.prepare, step.forward, step.loss,
+step.backward and step.optimizer (parallel/step.TrainStep and the steps
+built on it); the data layer's data.raw_batch and, one a cache miss,
+data.decode (data/dataset.SvbrdfDataset); a prediction call's
+predict.decode, predict.forward and predict.encode
+(estimator.SvbrdfEstimator.predict_to_files).
 """
 
 from __future__ import annotations
@@ -16,6 +23,23 @@ import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records a host range `name`, with its start
+    and end, on the active torch.profiler, on the clock of the profiler's
+    device activity. Without an active profiler it records nothing and
+    costs a few hundred ns; one open when a profiler starts records nothing
+    (a profiler's start or stop inside a span is harmless).
+
+    The range is a function-scope record: the profiler keeps it on the
+    host's timeline only. A user-scope one (record_function) would be
+    mirrored onto the card's timeline as an annotation."""
+    return _RecordFunctionFast(name) if _profiler_enabled() else _NO_SPAN
 
 
 @contextlib.contextmanager
