@@ -1,2 +1,2 @@
 from svbrdf_tpu_torch.experiments.map_recovery import (  # noqa: F401
-    fixed_scene_rendering_loss, recover_maps)
+    CaptureStep, fixed_scene_rendering_loss, recover_latent, recover_maps)

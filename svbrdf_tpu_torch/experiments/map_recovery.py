@@ -12,6 +12,14 @@ defaults.
 Clamping the maps to [0, 1] is a maximum then a minimum, as jnp.clip is:
 at a value exactly on a bound the gradient splits evenly between the two,
 where torch.clamp would pass it whole.
+
+Latent capture (MaterialGAN; the port's own, no JAX counterpart):
+`CaptureStep` optimizes a frozen generator's W+ and noise maps (models/
+stylegan2) until renders of its maps under each material's flash scenes
+match the photos, by the log-L1 rendering loss of
+fixed_scene_rendering_loss with the photos as the target; `recover_latent`
+iterates it. Departures from MaterialGAN: no VGG perceptual term, and W+
+and noise are optimized together every iteration (MaterialGAN alternates).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from svbrdf_tpu_torch.device import resolve_device
 from svbrdf_tpu_torch.ops import codecs, render, sampling
 from svbrdf_tpu_torch.parallel.step import stream_seed
 from svbrdf_tpu_torch.scene import Scene
+from svbrdf_tpu_torch.utils.profiling import span
 
 # The stream of the per-step render generators (the JAX package's
 # losses._RENDER_KEY_TAG): distinct from the scene draws' generator.
@@ -142,3 +151,82 @@ def recover_maps(generator: torch.Generator, target_svbrdf,
     with torch.no_grad():
         svbrdf = assemble(free)
     return RecoveryResult(svbrdf=svbrdf, losses=torch.stack(trace))
+
+
+class CaptureStep:
+    """One iteration of latent capture over B materials at once.
+
+    model: a StyleGAN2Generator (models.build_model("materialgan")), frozen
+    here (requires_grad_(False): no weight gradient is taken). photos (B,
+    N, H, W, 3) linear flash photos and scenes, a Scene of (B, N, 3)
+    fields: photo n of material b is lit and seen as scene (b, n). wplus
+    (B, num_ws, w_dim) defaults to model.w_avg in every row; noises to
+    model.make_noises(B, generator). Both are copied, and optimized by
+    torch.optim.Adam (eps 1e-8).
+
+    A call: synthesis and decode to the maps (B, H, W, 12), render.render
+    under each material's scenes, losses.l1_loss of log(render +
+    EPSILON_RENDER) against log(photo + EPSILON_RENDER), backward, Adam;
+    it returns the loss (a device scalar) and counts itself in `steps`.
+    The four phases are the spans capture.synthesis, capture.loss,
+    capture.backward and capture.optimizer.
+    """
+
+    def __init__(self, model, photos: torch.Tensor, scenes: Scene,
+                 wplus: Optional[torch.Tensor] = None, noises=None,
+                 learning_rate: float = 2e-2,
+                 generator: Optional[torch.Generator] = None):
+        self.model = model.requires_grad_(False)
+        batch = photos.shape[0]
+        if wplus is None:
+            wplus = model.w_avg.expand(batch, model.num_ws, -1)
+        if noises is None:
+            noises = model.make_noises(batch, generator)
+        self.wplus = wplus.detach().clone().requires_grad_()
+        self.noises = [n.detach().clone().requires_grad_() for n in noises]
+        self.scenes = scenes
+        self.target = torch.log(photos + losses.EPSILON_RENDER)
+        self.optimizer = torch.optim.Adam([self.wplus, *self.noises],
+                                          lr=learning_rate, eps=1e-8)
+        self.steps = 0
+
+    def maps(self) -> torch.Tensor:
+        """The generator's maps (B, H, W, 12) at the current latents."""
+        return self.model(self.wplus, self.noises)
+
+    def __call__(self) -> torch.Tensor:
+        with span("capture.synthesis"):
+            maps = self.maps()
+        with span("capture.loss"):
+            renders = render.render(self.scenes, maps[:, None])
+            loss = losses.l1_loss(
+                torch.log(renders + losses.EPSILON_RENDER), self.target)
+        with span("capture.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        with span("capture.optimizer"):
+            self.optimizer.step()
+        self.steps += 1
+        return loss.detach()
+
+
+class CaptureResult(NamedTuple):
+    svbrdf: torch.Tensor  # (B, H, W, 12), on the device
+    losses: torch.Tensor  # (steps,) per-step loss trace, f32
+    wplus: torch.Tensor  # (B, num_ws, w_dim)
+    noises: list  # the noise maps, (B, 1, r, r) each
+
+
+def recover_latent(model, photos, scenes: Scene, steps: int = 200,
+                   learning_rate: float = 2e-2,
+                   generator: Optional[torch.Generator] = None
+                   ) -> CaptureResult:
+    """`steps` iterations of CaptureStep(model, photos, scenes) from w_avg
+    and noise drawn from `generator`, on the model's device."""
+    step = CaptureStep(model, photos, scenes, learning_rate=learning_rate,
+                       generator=generator)
+    trace = torch.stack([step() for _ in range(steps)])
+    with torch.no_grad():
+        svbrdf = step.maps()
+    return CaptureResult(svbrdf, trace, step.wplus.detach(),
+                         [n.detach() for n in step.noises])

@@ -3,15 +3,28 @@ import torch
 from svbrdf_tpu_torch.models.generator import Generator
 from svbrdf_tpu_torch.models.multi_view import MultiViewModel
 from svbrdf_tpu_torch.models.single_view import SingleViewModel
+from svbrdf_tpu_torch.models.stylegan2 import StyleGAN2Generator
 
-__all__ = ["Generator", "MultiViewModel", "SingleViewModel", "build_model"]
+__all__ = ["Generator", "MultiViewModel", "SingleViewModel",
+           "StyleGAN2Generator", "build_model"]
 
 
 def build_model(model_type: str, use_coords: bool = False, depth: int = 8,
                 num_filters: int = 64, device="cuda", seed: int = 0,
-                dtype=torch.float32):
-    """Model factory by name ('single' | 'multi'), its parameters made on
-    `device` from `seed` (f32), computing in `dtype`."""
+                dtype=torch.float32, **sizes):
+    """Model factory by name ('single' | 'multi' | 'materialgan'), its
+    parameters made on `device` from `seed` (f32), computing in `dtype`.
+    'materialgan' is MaterialGAN's StyleGAN2 generator, f32, at config-f
+    unless `sizes` (StyleGAN2Generator's resolution, w_dim,
+    mapping_layers, max_channels, channel_base) say otherwise; it takes
+    none of the U-Nets' arguments."""
+    if model_type == "materialgan":
+        if dtype != torch.float32:
+            raise ValueError("the materialgan generator computes in f32")
+        return StyleGAN2Generator(device=device, seed=seed, **sizes)
+    if sizes:
+        raise TypeError(f"unexpected arguments {sorted(sizes)} for model "
+                        f"type '{model_type}'")
     if model_type == "single":
         return SingleViewModel(num_filters, depth, use_coords, device=device,
                                seed=seed, dtype=dtype)

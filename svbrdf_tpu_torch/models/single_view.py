@@ -20,13 +20,19 @@ from svbrdf_tpu_torch.models.generator import Generator
 from svbrdf_tpu_torch.ops import codecs
 
 
-def head_to_svbrdf(sv9: torch.Tensor) -> torch.Tensor:
-    """(..., 9) head output -> tanh -> packed (..., 12) SVBRDF in output
-    ranges, decoded in f32."""
-    maps = codecs.unpack_svbrdf(codecs.decode_svbrdf(torch.tanh(sv9.float())))
+def decode_head(x9: torch.Tensor) -> torch.Tensor:
+    """(..., 9) channels in [-1, 1] -> packed (..., 12) SVBRDF in output
+    ranges."""
+    maps = codecs.unpack_svbrdf(codecs.decode_svbrdf(x9))
     unit = codecs.encode_as_unit_interval
     return codecs.pack_svbrdf(maps.normals, unit(maps.diffuse),
                               unit(maps.roughness), unit(maps.specular))
+
+
+def head_to_svbrdf(sv9: torch.Tensor) -> torch.Tensor:
+    """(..., 9) head output -> tanh -> packed (..., 12) SVBRDF in output
+    ranges, decoded in f32."""
+    return decode_head(torch.tanh(sv9.float()))
 
 
 class SingleViewModel(nn.Module):

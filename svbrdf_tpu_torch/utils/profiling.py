@@ -12,7 +12,9 @@ step.backward and step.optimizer (parallel/step.TrainStep and the steps
 built on it); the data layer's data.raw_batch and, one a cache miss,
 data.decode (data/dataset.SvbrdfDataset); a prediction call's
 predict.decode, predict.forward and predict.encode
-(estimator.SvbrdfEstimator.predict_to_files).
+(estimator.SvbrdfEstimator.predict_to_files); a latent capture
+iteration's capture.synthesis, capture.loss, capture.backward and
+capture.optimizer (experiments/map_recovery.CaptureStep).
 """
 
 from __future__ import annotations
