@@ -17,6 +17,14 @@ Phases, each raising (and so exiting non-zero) on any failure:
      the training kernels) against it in float64; each bf16 instantiation
      against the f32 one on the upcast planes; and checked to give a loss
      and gradients of exactly 0 for pred equal to gt;
+  3a. the U-Net block tail's kernel pair (csrc/norm_merge.cu) held to its
+     plain version at every tail shape of both full-width models (batch 8,
+     24 rows, and the estimator's batch 1), f32 and bf16
+     (bench_setup.hold_tail_kernels); each configuration's tails timed
+     together forward and backward (device time) beside their byte bound
+     and the plain version; registers and blocks per SM
+     (phase_norm_merge); every path below that runs a model counts its
+     launches, one a direction a tail a step (_tail_launches);
   3b. the fused SR-Adam update (csrc/sr_adam.cu, one multi-tensor launch
      per optimizer step) against its plain version, bit-exact: one-leaf
      tables of the largest conv leaf and a 1-D leaf of the full-width
@@ -1123,6 +1131,47 @@ def _expect(counts: dict, expected: dict, what: str) -> None:
         raise RuntimeError(f"{what}: launch counts {counts}, expected {want}")
 
 
+def _tail_launches(kind: str, train: int, forwards: int = 0,
+                   depth: int = MAIN["depth"]) -> dict:
+    """The block tail's launches (ops.norm_merge) in `train` train steps
+    and `forwards` more forwards (eval steps, predict calls) of the
+    `kind` model of `depth` blocks run whole on the card: a forward
+    launches the forward kernel once a tail (bench_setup.tail_cases), a
+    train step also the backward kernel once a tail."""
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    tails = len(bench_setup.tail_cases(kind, 1, 2 ** depth, depth))
+    return {"norm_merge_fwd": tails * (train + forwards),
+            "norm_merge_bwd": tails * train}
+
+
+def _grids(printout: str) -> int:
+    """Comparison grids a CLI run printed that it wrote: after training it
+    predicts each held-out sample, one forward each (training/loop.run_test,
+    on rank 0 alone)."""
+    return sum(line.startswith("wrote ") and line.endswith(".png")
+               for line in printout.splitlines())
+
+
+def _spatial_tail_launches(train: int, forwards: int, size: int,
+                           depth: int = MAIN["depth"],
+                           world: int = 2) -> dict:
+    """_tail_launches of the single-view model sharded by height over
+    `world` ranks (parallel/spatial), on each rank: only the blocks that
+    run whole there launch the kernels, the encoder blocks whose output
+    and the decoder blocks whose input does not split (spatial.splits: a
+    height that is a multiple of the world and at least one row a rank);
+    the sharded ones take spatial._norm_merge. The first encoder block has
+    no tail."""
+    def whole(height):
+        return height % world != 0 or height < world
+
+    tails = (sum(whole(size >> (i + 1)) for i in range(1, depth))
+             + sum(whole(size >> (depth - i)) for i in range(depth)))
+    return {"norm_merge_fwd": tails * (train + forwards),
+            "norm_merge_bwd": tails * train}
+
+
 def phase_path(path: str, program) -> dict:
     """One path with every launch counter set to 0 just before and read
     just after: 5 train steps, 1 eval step, predict. A bf16-SR path also
@@ -1163,6 +1212,10 @@ def phase_path(path: str, program) -> dict:
                       if "fwdgrad" in k or k == "sr_adam"}
     elif bf16sr:
         train_only["sr_adam"] = expected["sr_adam"]
+    # The block tails: the train steps', then the eval step's and
+    # predict's forwards.
+    train_only.update(_tail_launches(spec[0][0], STEPS))
+    expected.update(_tail_launches(spec[0][0], STEPS, 2))
     _expect(after_train, train_only, f"{path} after the train steps")
     _expect(counts, expected, f"{path} after eval and predict")
     if bf16sr:
@@ -1765,13 +1818,19 @@ def _cli_train(name, argv, kernels, steps, validation_batches,
                sr_adam=False):
     """A training run: its launches must be the loop's train steps
     (kernels[0]) and validation batches (kernels[1]), with `sr_adam` one
-    sr_adam launch per step, 0 elsewhere."""
+    sr_adam launch per step, the block tails' as _tail_launches gives them
+    for the steps, the validation batches and the held-out samples'
+    grids, 0 elsewhere."""
     run, out, counts = _cli(name, argv)
     if (run.steps, run.validation_batches) != (steps, validation_batches):
         raise RuntimeError(f"cli {name}: {run.steps} steps and "
                            f"{run.validation_batches} validation batches, "
                            f"expected {steps} and {validation_batches}")
-    expected = {kernels[0]: run.steps, kernels[1]: run.validation_batches}
+    kind = (argv[argv.index("--model-type") + 1] if "--model-type" in argv
+            else "single")
+    expected = {kernels[0]: run.steps, kernels[1]: run.validation_batches,
+                **_tail_launches(kind, run.steps,
+                                 run.validation_batches + _grids(out))}
     if sr_adam:
         expected["sr_adam"] = run.steps * _sr_adam_launches(run.model)
     _expect(counts, expected, f"cli {name}")
@@ -1871,6 +1930,8 @@ def _cli_pathtracing(train, per_epoch, path=TRACED_PATH):
     expected = {k: run.steps * per_step.get(k, 0)
                 + run.validation_batches * per_batch.get(k, 0)
                 for k in {**per_step, **per_batch}}
+    expected.update(_tail_launches("single", run.steps,
+                                   run.validation_batches + _grids(out)))
     if not f32:
         expected["sr_adam"] = run.steps * _sr_adam_launches(run.model)
     _expect(counts, expected, f"cli {path}")
@@ -1986,7 +2047,9 @@ def phase_cli(build_program_ms: dict) -> dict:
             "--mode", "test", "--input-dir", str(REPO / "data" / "test"),
             "--image-count", "10", "--model-dir", str(model_dir),
             "--dtype", "float32"] + width)
-        _expect(counts, {}, "cli single_mixed_test")
+        # A forward a sample.
+        _expect(counts, _tail_launches("single", 0, len(written)),
+                "cli single_mixed_test")
         grid = strips.read_image_u8(written[0])
         summary = json.loads((model_dir / "test_outputs" /
                               "metrics.json").read_text())
@@ -2152,7 +2215,11 @@ def _dp_launcher_runs(card: str) -> dict:
             _expect(counts, {"mixed_fwdgrad_bf16": run.steps,
                              "mixed_fwd_bf16": run.validation_batches,
                              "sr_adam": run.steps * _sr_adam_launches(
-                                 run.model)}, f"dp {name}")
+                                 run.model),
+                             **_tail_launches("single", run.steps,
+                                              run.validation_batches
+                                              + _grids(text))},
+                    f"dp {name}")
             if entry is not None and ("process 0/1" not in text
                                       or "over nccl" not in text):
                 raise RuntimeError("dp launcher: not a world-1 NCCL group")
@@ -2231,7 +2298,7 @@ def _dp_world_two(card: str) -> dict:
                               ("bf16-SR", two_bf16, "mixed_fwdgrad_bf16")):
         if len(set(run["checksums"])) != 1:
             raise RuntimeError(f"dp world 2 {name}: replicas differ")
-        want = {kernel: steps}
+        want = {kernel: steps, **_tail_launches("single", steps)}
         if run is two_bf16:
             want["sr_adam"] = steps
         for r, counts in enumerate(run["launches"]):
@@ -2258,8 +2325,8 @@ def _dp_world_two(card: str) -> dict:
         one["losses"][0])
     for name, run in (("f32", group1), ("bf16-SR", group1_bf16)):
         kernel = "mixed_fwdgrad" if run is group1 else "mixed_fwdgrad_bf16"
-        want = {kernel: steps, **({"sr_adam": steps}
-                                  if run is group1_bf16 else {})}
+        want = {kernel: steps, **_tail_launches("single", steps),
+                **({"sr_adam": steps} if run is group1_bf16 else {})}
         _expect(run["launches"][0], want, f"dp world 1 nccl {name}")
     if rel1_first > DP_TOL["loss_rel_first"] or rel1 > DP_TOL["loss_rel"]:
         raise RuntimeError(f"dp world 1 (NCCL group) f32: first loss rel "
@@ -2311,7 +2378,9 @@ def _dp_exact(two_off: dict, two_on: dict, steps: int) -> dict:
         if len(set(two["checksums"])) != 1:
             raise RuntimeError(f"dp world 2 32^2 {name}: replicas differ")
         for r, counts in enumerate(two["launches"]):
-            _expect(counts, {"mixed_fwdgrad": steps},
+            _expect(counts, {"mixed_fwdgrad": steps,
+                             **_tail_launches("single", steps,
+                                              depth=DP_EXACT["depth"])},
                     f"dp world 2 32^2 {name} rank {r}")
         out[name] = {
             "loss_rel": max(abs(a - b) / abs(b)
@@ -2464,8 +2533,10 @@ def _tail_estimator(model_dir: pathlib.Path, data: dict, root: pathlib.Path
         raise RuntimeError(f"tail estimator: on {est.device}")
     photos = data["photos"][:TAIL["predict_batch"]]
     images = np.stack([strips.read_image(p) for p in photos]) ** 2.2
+    # One forward a call.
     maps, _, counts = _tail_run("estimator predict",
-                                lambda: est.predict(images))
+                                lambda: est.predict(images),
+                                _tail_launches("single", 0, 1))
     fresh = build_model("single", False, CLI["depth"], CLI["num_filters"],
                         device=TAIL["device"], seed=1)
     _quiet(lambda: Checkpoint.load(model_dir).restore_params(fresh))
@@ -2480,7 +2551,7 @@ def _tail_estimator(model_dir: pathlib.Path, data: dict, root: pathlib.Path
         raise RuntimeError(f"tail estimator: maps {maps.shape}")
     out_dir = root / "predicted"
     written, _, _ = _tail_run("estimator files", lambda: est.predict_to_files(
-        photos, str(out_dir)))
+        photos, str(out_dir)), _tail_launches("single", 0, 1))
     for path in written:
         if strips.read_image_u8(path).shape != (size, 4 * size, 3):
             raise RuntimeError(f"tail estimator: {path} misread")
@@ -2580,7 +2651,8 @@ def _tail_examples(root: pathlib.Path, model_dir: pathlib.Path,
                    data: dict) -> dict:
     """Each of the four examples' main(argv) once on the toy strips;
     renderer_compare renders its f32 maps once through the path tracer's
-    forward kernel, the others launch no kernel."""
+    forward kernel, predict runs one forward of the model (its block
+    tails' forward kernel), the others launch no kernel."""
     from svbrdf_tpu_torch.examples import (predict, recover_maps,
                                            renderer_compare, turntable)
 
@@ -2603,12 +2675,14 @@ def _tail_examples(root: pathlib.Path, model_dir: pathlib.Path,
                           str(TAIL["example_recovery_steps"])],
                          [out / "recovered.png"]),
     }
+    expected = {"renderer_compare": {"pathtrace_shade": 1},
+                "predict": _tail_launches("single", 0, 1)}
     result = {}
     for name, (main_fn, argv, files) in runs.items():
         argv = argv + ["--device", TAIL["device"]]
         _, seconds, counts = _tail_run(
             f"example {name}", lambda: _quiet(main_fn, argv),
-            {"pathtrace_shade": 1} if name == "renderer_compare" else None)
+            expected.get(name))
         missing = [str(f) for f in files if not f.is_file()]
         if missing:
             raise RuntimeError(f"tail example {name} wrote no {missing}")
@@ -2856,10 +2930,17 @@ def _spatial_cli(backend: str, images) -> dict:
                 raise RuntimeError(f"spatial cli rank {rank}: {run['steps']} "
                                    f"steps, {run['validation_batches']} "
                                    f"validation batches")
+            # The sharded steps and validation batches, then rank 0's
+            # whole forwards of the held-out samples.
+            sharded = _spatial_tail_launches(
+                run["steps"], run["validation_batches"], CLI["size"],
+                CLI["depth"])
+            whole = _tail_launches("single", 0, _grids(run["text"]))
             _expect(run["launches"], {
                 "render_fwdgrad": run["steps"],
                 "render_fwd": run["validation_batches"],
-                "sr_adam": run["steps"] * run["sr_adam_per_step"]},
+                "sr_adam": run["steps"] * run["sr_adam_per_step"],
+                **{k: sharded[k] + whole[k] for k in sharded}},
                 f"spatial cli rank {rank}")
             if (not math.isfinite(run["last_loss"]) or "Spatial group: H "
                     "split over 2 rank(s)" not in run["text"]):
@@ -2956,19 +3037,26 @@ def phase_spatial(inputs) -> dict:
                                f"{rels[0]:g}, loss rel {max(rels):g}, update "
                                f"normwise {update:g}, over {tol}")
     for name, ranks, want in (
-            ("train", two, {"render_fwdgrad": steps}),
-            ("train 32^2", two_small, {"render_fwdgrad": steps}),
+            ("train", two, {"render_fwdgrad": steps,
+                            **_spatial_tail_launches(steps, 0,
+                                                     MAIN["size"])}),
+            ("train 32^2", two_small, {
+                "render_fwdgrad": steps,
+                **_spatial_tail_launches(steps, 0, DP_EXACT["size"],
+                                         DP_EXACT["depth"])}),
             *((f"memory {s}^2 batch {b}", r,
-               {"render_fwdgrad": SPATIAL["memory_steps"]})
+               {"render_fwdgrad": SPATIAL["memory_steps"],
+                **_spatial_tail_launches(SPATIAL["memory_steps"], 0, s)})
               for (s, b), r in zip(SPATIAL["memory"], two_memory))):
         if len(set(ranks[0]["checksums"])) != 1:
             raise RuntimeError(f"spatial world 2 {name}: replicas differ")
         for r, counts in enumerate(ranks[0]["launches"]):
             _expect(counts, want, f"spatial world 2 {name} rank {r}")
+    whole = _spatial_tail_launches(0, 1, MAIN["size"])
     for r, e in enumerate(two_eval):
-        _expect(e["eval_launches"], {"render_fwd": 1},
+        _expect(e["eval_launches"], {"render_fwd": 1, **whole},
                 f"spatial eval rank {r}")
-        _expect(e["predict_launches"], {}, f"spatial predict rank {r}")
+        _expect(e["predict_launches"], whole, f"spatial predict rank {r}")
     eval_rel = abs(two_eval[0]["eval"] - one_eval) / abs(one_eval)
     maps_abs = float((two_eval[0]["maps"] - one_maps).abs().max())
     if eval_rel > DP_TOL["loss_rel_first"] or maps_abs > SPATIAL["maps_abs"]:
@@ -3044,6 +3132,156 @@ def phase_spatial(inputs) -> dict:
     return out
 
 
+# The block tail's kernels (csrc/norm_merge.cu): replace no TPU kernel (XLA
+# fuses the tail in the JAX package, at the line named).
+NORM_MERGE = {"name": "norm_merge", "route": "cuda",
+              "source": "svbrdf_tpu_torch/csrc/norm_merge.cu",
+              "replaces": "svbrdf_tpu/models/layers.py:194",
+              "tpu_kernel": None}
+# Configurations of the tails' timings: model, batch, activations' dtype.
+NORM_MERGE_CONFIGS = {"single_bf16": ("single", 8, BF16),
+                      "multi_bf16": ("multi", 8, BF16),
+                      "predict_f32": ("single", 1, torch.float32)}
+# GPU clock cycles torch.cuda._sleep spins before a timed sequence, so the
+# host has queued all of it before the start event runs (~30 ms).
+NORM_MERGE_SLEEP = 50_000_000
+
+
+def _device_ms(fn, runs: int = 10) -> float:
+    """Median device time of the launches fn() queues: a spin queued first
+    keeps the card busy while the host queues them, so the events time the
+    device work alone, not the host's."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(NORM_MERGE_SLEEP)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(statistics.median(times))
+
+
+def _tail_bytes(case: tuple, size: int) -> tuple:
+    """(forward, backward) bytes a tail must move, each value read or
+    written once, activations `size` bytes a value: x in, out out where it
+    is written; dout (and x with the norm) in, dx out where it is written;
+    the per-plane vectors and the statistics."""
+    b, c, h, w, norm, merge, tap, _ = case
+    n, planes = b * c * h * w, b * c
+    fwd = n * size * (2 if norm or merge else 1) + planes * (
+        4 * (2 if norm else 1) + (size if merge else 0))
+    bwd = 0
+    if norm or tap or merge:
+        bwd = n * size * (1 + norm + (norm or tap)) + planes * (
+            4 * (2 * norm + tap) + (size if merge else 0) + 8 * norm)
+    return fwd, bwd
+
+
+def phase_norm_merge(rates: dict) -> dict:
+    """The tail's kernels: held to the plain version at every tail of the
+    three configurations (bench_setup.hold_tail_kernels); each
+    configuration's tails timed together, forward and backward (device
+    time), beside their byte bound and the plain version; registers and
+    blocks per SM of every instance. Their launches are counted on every
+    path that runs a model (_tail_launches)."""
+    from svbrdf_tpu_torch.ops import norm_merge as nm
+    from svbrdf_tpu_torch.utils import bench_setup
+
+    start = time.perf_counter()
+    out = {"checks": {}, "times": {}, "code": {}}
+    for name, (kind, batch, dtype) in NORM_MERGE_CONFIGS.items():
+        cases = bench_setup.tail_cases(kind, batch, MAIN["size"])
+        holds = [bench_setup.hold_tail_kernels(c) for c in sorted(set(cases))]
+        failed = {str(h["case"]): h["failed"] for h in holds if h["failed"]}
+        worst = {k: max(h[k] if k in ("out", "mean") else h[k][0] / max(
+            h[k][1], 1e-30) for h in holds if k in h)
+            for k in ("out", "mean", "dx", "dw", "db", "dm")}
+        out["checks"][name] = {"cases": len(holds), "failed": failed,
+                               "worst": worst}
+        log(f"norm_merge {name}: {len(holds)} tail shapes held; worst "
+            f"forward rel {worst['out']:.2e} (tap {worst['mean']:.2e}), "
+            f"gradients' distance over the plain version's: " + ", ".join(
+                f"{k} {worst[k]:.3f}" for k in ("dx", "dw", "db", "dm"))
+            + (f"; FAILED {failed}" if failed else ""))
+        if failed:
+            raise RuntimeError(f"norm_merge kernels off the plain version: "
+                               f"{failed}")
+        tails = []
+        for c in cases:
+            t = bench_setup.tail_inputs(c, 0)
+            cast = {k: (v.to(dtype) if k != "g" else v) for k, v in t.items()}
+            cast["stats"] = nm.norm_merge_fwd_cuda(
+                cast["x"], cast.get("weight"), cast.get("bias"),
+                cast.get("m"))[1]
+            tails.append((c, cast))
+
+        def forward():
+            for _, t in tails:
+                nm.norm_merge_fwd_cuda(t["x"], t.get("weight"),
+                                       t.get("bias"), t.get("m"))
+
+        def backward():
+            for c, t in tails:
+                norm = c[4]
+                nm.norm_merge_bwd_cuda(
+                    t["dout"], t.get("g"), t["x"] if norm else None,
+                    t["stats"] if norm else None, t.get("weight"), c[5])
+
+        def plain():
+            for c, t in tails:
+                leaves = {k: t[k].detach().requires_grad_()
+                          for k in ("x", "weight", "bias", "m") if k in t}
+                o, mean = nm.norm_merge_plain(
+                    leaves["x"], leaves.get("weight"), leaves.get("bias"),
+                    leaves.get("m"))
+                outs, cots = [o], [t["dout"]]
+                if c[6]:
+                    outs.append(mean)
+                    cots.append(t["g"])
+                torch.autograd.grad(outs, list(leaves.values()), cots,
+                                    allow_unused=True)
+
+        size = torch.tensor([], dtype=dtype).element_size()
+        fwd_bytes, bwd_bytes = map(sum, zip(*(_tail_bytes(c, size)
+                                              for c in cases)))
+        fwd_ms, bwd_ms = _device_ms(forward), _device_ms(backward)
+        plain_ms = _device_ms(plain, runs=5)
+        r = {"tails": len(cases), "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+             "fwd_bound_ms": fwd_bytes / rates["bytes"] * 1e3,
+             "bwd_bound_ms": bwd_bytes / rates["bytes"] * 1e3,
+             "plain_fwd_bwd_ms": plain_ms, "fwd_bytes": fwd_bytes,
+             "bwd_bytes": bwd_bytes,
+             "elements": sum(c[0] * c[1] * c[2] * c[3] for c in cases)}
+        r["fwd_share"] = r["fwd_bound_ms"] / fwd_ms
+        r["bwd_share"] = r["bwd_bound_ms"] / bwd_ms
+        out["times"][name] = r
+        log(f"norm_merge {name}: {len(cases)} tails, forward {fwd_ms:.4f} ms "
+            f"(bound {r['fwd_bound_ms']:.4f} ms, bytes, "
+            f"{100 * r['fwd_share']:.1f} %), backward {bwd_ms:.4f} ms "
+            f"(bound {r['bwd_bound_ms']:.4f} ms, "
+            f"{100 * r['bwd_share']:.1f} %); plain forward + backward "
+            f"{plain_ms:.4f} ms")
+        del tails
+        torch.cuda.empty_cache()
+    for direction in ("fwd", "bwd"):
+        for dtype in (torch.float32, BF16):
+            for mapping in nm.MAPPINGS:
+                key = (f"{direction}_{'bf16' if dtype == BF16 else 'f32'}_"
+                       f"{mapping}")
+                out["code"][key] = nm.kernel_attributes(direction == "bwd",
+                                                        dtype, mapping)
+    log("norm_merge registers, blocks per SM: " + ", ".join(
+        f"{k} {v['registers']}, {v['blocks_per_sm']}"
+        for k, v in out["code"].items()))
+    log(f"norm_merge phase {time.perf_counter() - start:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it "
@@ -3065,6 +3303,7 @@ def main() -> None:
     inputs, inputs_bf16 = input_sets["loss_inputs"], input_sets[
         "loss_inputs bf16"]
     errors = phase_kernels(input_sets)
+    tails = phase_norm_merge(rates)
     sr_checks = phase_sr_adam()
     agreement_bf16 = phase_agreement()
 
@@ -3227,6 +3466,22 @@ def main() -> None:
             cli_launches={p: {"f32": cli["runs"][p]["launches"][k],
                               "bf16": cli["runs"][p]["launches"][k + "_bf16"]}
                           for p in TRACED_PATHS}))
+    # The block tail's pair: launches (forward and backward) from the
+    # bf16-SR main path's run and every other path's; the main paths' tails
+    # timed together, their bound and share.
+    nm_keys = ("norm_merge_fwd", "norm_merge_bwd")
+    kernels.append(dict(
+        **NORM_MERGE, path="single_mixed_bf16",
+        launches=sum(counts["single_mixed_bf16"][k] for k in nm_keys),
+        launches_by_path={p: {k: c[k] for k in nm_keys}
+                          for p, c in counts.items()},
+        cli_launches={run: {k: c["launches"][k] for k in nm_keys}
+                      for run, c in cli["runs"].items()},
+        data_parallel_launches={k: dp_launches(k) for k in nm_keys},
+        spatial_launches={k: spatial_launches(k) for k in nm_keys},
+        tail_cli_launches={k: tail["cli"]["launches"][k] for k in nm_keys},
+        checks=tails["checks"], times=tails["times"], code=tails["code"],
+        library_ms=None))
     steps_ms["agreement_bf16"] = agreement_bf16
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels, "steps_ms": steps_ms,

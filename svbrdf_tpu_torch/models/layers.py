@@ -16,6 +16,11 @@ normalization statistics, the channel means and the affine of the norm run
 in f32. Each cast is a no-op at f32, where the layers compute what they
 computed before the dtype existed, op for op.
 
+A block's tail, from its conv's output to its output (the pre-norm
+channel-mean tap, the optional InstanceNorm, the merge), is one
+ops.norm_merge call (`_tail`): one kernel a direction on the card, the
+plain op chain on the CPU.
+
 Init contract (init_params):
   conv kernels  ~ N(0, 0.02); no conv bias anywhere;
   merge Linear  ~ N(0, 0.01 * sqrt(1/fan_in)), no bias;
@@ -28,6 +33,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from svbrdf_tpu_torch.ops.norm_merge import (instance_norm, norm_merge,
+                                             spatial_mean)
 
 
 class Conv2d(nn.Conv2d):
@@ -72,13 +80,8 @@ class InstanceNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        x = x.float()
-        mean = torch.mean(x, dim=(2, 3), keepdim=True)
-        mean_sq = torch.mean(torch.square(x), dim=(2, 3), keepdim=True)
-        var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
-        y = (x - mean) * torch.rsqrt(var + self.eps)
-        y = y * self.weight[:, None, None] + self.bias[:, None, None]
-        return y.to(self.compute_dtype)
+        return instance_norm(x, self.weight, self.bias, self.eps,
+                             self.compute_dtype)
 
 
 class Merge(nn.Module):
@@ -112,10 +115,20 @@ class GlobalTrack(nn.Module):
         return F.selu(self.fully_connected(h))
 
 
-def spatial_mean(x):
-    """Channel means over H, W (the pre-norm tap into the global track),
-    in f32."""
-    return torch.mean(x.float(), dim=(2, 3))
+def _tail(unit, x, global_track):
+    """The tail of a block whose conv unit is `unit` (its norm, or None, and
+    its merge), on the conv's output x: (features, channel_mean), one
+    ops.norm_merge call. With neither a norm nor a global track (the first
+    encoder block's, whose tap the generator discards) the features are x
+    and there is no mean: (x, None)."""
+    norm = unit.norm
+    if norm is None and global_track is None:
+        return x, None
+    m = (None if global_track is None
+         else unit.merge.fully_connected(global_track))
+    if norm is None:
+        return norm_merge(x, m=m)
+    return norm_merge(x, norm.weight, norm.bias, m, norm.eps)
 
 
 class _ConvUnit(nn.Module):
@@ -147,12 +160,7 @@ class EncodingBlock(nn.Module):
     def forward(self, x, global_track):
         if self.use_activation:
             x = F.leaky_relu(x, 0.2)
-        u = self.conv
-        x = u.conv(x)
-        mean = spatial_mean(x)
-        if u.norm is not None:
-            x = u.norm(x)
-        return u.merge(x, global_track), mean
+        return _tail(self.conv, self.conv.conv(x), global_track)
 
 
 class ConvFeatureBlock(EncodingBlock):
@@ -227,12 +235,7 @@ class DecodingBlock(nn.Module):
         if skip is not None:
             x = torch.cat([x, skip], dim=1)
         x = F.leaky_relu(x, 0.2)
-        u = self.deconv
-        x = u.conv(x)
-        mean = spatial_mean(x)
-        if u.norm is not None:
-            x = u.norm(x)
-        x = u.merge(x, global_track)
+        x, mean = _tail(self.deconv, self.deconv.conv(x), global_track)
         if self.dropout is not None:
             x = self.dropout(x)
         return x, mean

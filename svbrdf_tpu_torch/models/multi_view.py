@@ -25,6 +25,7 @@ from svbrdf_tpu_torch.device import resolve_device
 from svbrdf_tpu_torch.models import layers as L
 from svbrdf_tpu_torch.models.generator import Generator
 from svbrdf_tpu_torch.models.single_view import head_to_svbrdf
+from svbrdf_tpu_torch.ops.norm_merge import norm_merge
 
 HEAD_FEATURES = (64, 32, 9)
 
@@ -73,8 +74,9 @@ class MultiViewModel(nn.Module):
         spatial = torch.amax(spatial.reshape(b, n, *spatial.shape[1:]), dim=1)
         g_pooled = torch.amax(global_vec.reshape(b, n, -1), dim=1)
 
-        x = self.merge(spatial, g_pooled)
-        g = self.gt1(L.spatial_mean(spatial), g_pooled)
+        # The tap and the merge of the pooled maps: a tail without a norm.
+        x, mean = norm_merge(spatial, m=self.merge.fully_connected(g_pooled))
+        g = self.gt1(mean, g_pooled)
         x, mean = self.conv1(x, g)
         g = self.gt2(mean, g)
         x, mean = self.conv2(x, g)

@@ -21,7 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mixed_loss", "rendering_loss", "sr_adam", "pathtrace")
+SOURCES = ("mixed_loss", "rendering_loss", "sr_adam", "pathtrace",
+           "norm_merge")
 
 # No --use_fast_math and -fmad=false, for the gradient kernels: they are
 # bit-exact against their plain torch versions, which needs IEEE logf and

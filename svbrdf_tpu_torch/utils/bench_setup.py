@@ -388,6 +388,209 @@ def kernel_ms(name: str, inputs, kernel=None, reps: int = 10,
     return float(np.median(times))
 
 
+def tail_cases(kind: str, batch: int, size: int, depth: int = 8,
+               num_filters: int = 64, views: int = 3) -> list:
+    """The block tails (ops.norm_merge calls) of one forward of the
+    single-view (`kind` "single") or multi-view ("multi", `views` views an
+    item) model on `batch` items of size^2, in their order: (B, C, H, W,
+    norm, merge, tap, last), norm and merge whether the tail has them, tap
+    whether its channel means feed the loss (a backward then takes their
+    cotangent), last whether its input is channels last on the card (the
+    encoder's: the images come NHWC and cuDNN keeps the layout; the
+    decoder's upsampling and the head's inputs are NCHW)."""
+    from svbrdf_tpu_torch.models.generator import encoder_features
+    from svbrdf_tpu_torch.models.multi_view import HEAD_FEATURES
+
+    multi = kind == "multi"
+    rows = batch * views if multi else batch
+    out_channels = 64 if multi else 9
+    enc = encoder_features(num_filters, depth)
+    # The first encoder block has no tail: no norm and no global track.
+    cases = [(rows, enc[i], size >> (i + 1), size >> (i + 1),
+              i < depth - 1, True, True, True) for i in range(1, depth)]
+    for i in range(depth):
+        last = i == depth - 1
+        side = size >> (depth - 1 - i)
+        cases.append((rows, out_channels if last else enc[depth - 2 - i],
+                      side, side, not last, True, multi or not last, False))
+    if multi:
+        cases.append((batch, out_channels, size, size, False, True, True,
+                      False))
+        for k, c in enumerate(HEAD_FEATURES):
+            cases.append((batch, c, size, size, k < 2, True, k < 2, False))
+    return cases
+
+
+TAIL_RTOL = 1e-5  # the forward's out and tap against the plain version
+# A gradient within this (normwise) of float64 passes whatever the plain
+# version's distance: with a few planes (a batch-1 row of 3 channels) both
+# f32 summation orders sit a few 1e-7 from float64 and their ratio is
+# noise; 1e-6 is 17 f32 epsilons.
+TAIL_GRAD_FLOOR = 1e-6
+
+
+def tail_inputs(case: tuple, seed: int = 0, device="cuda") -> dict:
+    """f32 inputs of a tail of tail_cases' form, drawn on `device` from
+    `seed`: x with per-plane offsets (conv outputs' means are not zero) and
+    dout, both channels last where the case says so, and weight and bias,
+    m, g where the tail has a norm, a merge, a used tap."""
+    b, c, h, w, norm, merge, tap, last = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    layout = torch.channels_last if last else torch.contiguous_format
+    t = {"x": (draw(b, c, h, w) + draw(b, c, 1, 1, scale=2.0)).contiguous(
+             memory_format=layout),
+         "dout": draw(b, c, h, w).contiguous(memory_format=layout)}
+    if norm:
+        t["weight"] = 1.0 + draw(c, scale=0.3)
+        t["bias"] = draw(c, scale=0.5)
+    if merge:
+        t["m"] = draw(b, c)
+    if tap:
+        t["g"] = draw(b, c)
+    return t
+
+
+def tail_kernels(t: dict, dtype, param_dtype=None) -> dict:
+    """One forward and one backward launch of the tail's kernels on the
+    inputs `t` cast to `dtype` (weight and bias to `param_dtype`, `dtype`
+    by default): out, mean, rstd, dx, and dw, db (the planes' partials
+    summed over the batch), dm where the tail has them."""
+    from svbrdf_tpu_torch.ops import norm_merge as nm
+
+    param_dtype = param_dtype or dtype
+    x = t["x"].to(dtype)
+    w, b = (t[k].to(param_dtype) if k in t else None
+            for k in ("weight", "bias"))
+    m = t["m"].to(dtype) if "m" in t else None
+    out, stats = nm.norm_merge_fwd_cuda(x, w, b, m)
+    dx, dm, parts = nm.norm_merge_bwd_cuda(
+        t["dout"].to(dtype), t.get("g"), x if w is not None else None,
+        stats if w is not None else None, w, m is not None)
+    r = {"out": out, "mean": stats[0], "rstd": stats[1], "dx": dx, "dm": dm}
+    if parts is not None:
+        r["dw"], r["db"] = parts.sum(1)
+    return r
+
+
+def tail_plain(t: dict, dtype=torch.float32) -> dict:
+    """The plain version (norm_merge_plain and its autograd) on `t` cast
+    to `dtype`: out, mean, dx, dw, db, dm."""
+    from svbrdf_tpu_torch.ops import norm_merge as nm
+
+    leaves = {k: t[k].detach().to(dtype).requires_grad_()
+              for k in ("x", "weight", "bias", "m") if k in t}
+    out, mean = nm.norm_merge_plain(leaves["x"], leaves.get("weight"),
+                                    leaves.get("bias"), leaves.get("m"))
+    outputs, cots = [out], [t["dout"].to(dtype)]
+    if "g" in t:
+        outputs.append(mean)
+        cots.append(t["g"])
+    grads = torch.autograd.grad(outputs, list(leaves.values()), cots,
+                                allow_unused=True)
+    names = {"x": "dx", "weight": "dw", "bias": "db", "m": "dm"}
+    r = {names[k]: g for k, g in zip(leaves, grads)}
+    r.update(out=out.detach(), mean=mean.detach())
+    return r
+
+
+def tail_float64(t: dict, eps: float = 1e-5) -> dict:
+    """The tail in float64 with a two-pass variance, and autograd: the
+    reference the kernels' and the plain version's gradients are held to."""
+    leaves = {k: t[k].double().requires_grad_()
+              for k in ("x", "weight", "bias", "m") if k in t}
+    x = leaves["x"]
+    mean = x.mean(dim=(2, 3))
+    out = x
+    if "weight" in leaves:
+        mu = x.mean(dim=(2, 3), keepdim=True)
+        var = torch.square(x - mu).mean(dim=(2, 3), keepdim=True)
+        w, b = (leaves[k][:, None, None] for k in ("weight", "bias"))
+        out = (x - mu) / torch.sqrt(var + eps) * w + b
+    if "m" in leaves:
+        out = out + leaves["m"][:, :, None, None]
+    outputs, cots = [out], [t["dout"].double()]
+    if "g" in t:
+        outputs.append(mean)
+        cots.append(t["g"].double())
+    grads = torch.autograd.grad(outputs, list(leaves.values()), cots,
+                                allow_unused=True)
+    names = {"x": "dx", "weight": "dw", "bias": "db", "m": "dm"}
+    r = {names[k]: g for k, g in zip(leaves, grads)}
+    r.update(out=out.detach(), mean=mean.detach())
+    return r
+
+
+TAIL_VALUES = 1 << 22  # values a case's distances are taken over, at least
+
+
+def _stacked(runs, name):
+    return torch.cat([r[name].reshape(-1) for r in runs])
+
+
+def hold_tail_kernels(case: tuple, seed: int = 0) -> dict:
+    """The tail's kernels against the plain version on one case on the
+    card: f32 out and tap within TAIL_RTOL (normwise) of the plain f32
+    version's; each gradient no further (normwise) from the float64
+    reference than twice the plain f32 version's own distance (or than
+    TAIL_GRAD_FLOOR); the bf16 kernels equal to the f32 ones on the upcast
+    inputs up to the bf16 roundings (the tap, rstd and the dw, db partials
+    to the bit, dx and dm the f32 results rounded once, out the f32 y
+    rounded, plus m, rounded). A small case is drawn from several seeds
+    (seed, seed + 1, ...), up to 16, until TAIL_VALUES values, and the f32
+    distances are taken over all the draws: a tiny plane's one-pass
+    variance can cancel (a 2x2 plane far off zero), and one draw's ratio of
+    two f32 roundings' distances is then noise. Returns the distances and
+    `failed`, what broke the rules."""
+    b, c, h, w = case[:4]
+    draws = max(1, min(16, TAIL_VALUES // (b * c * h * w)))
+    k32, p32, r64 = [], [], []
+    for s in range(seed, seed + draws):
+        t = tail_inputs(case, s)
+        k32.append(tail_kernels(t, torch.float32))
+        p32.append(tail_plain(t))
+        r64.append(tail_float64(t))
+    t = tail_inputs(case, seed)
+    out = {"case": list(case), "draws": draws, "failed": []}
+    for name in ("out", "mean"):
+        out[name] = _normwise(_stacked(k32, name), _stacked(p32, name))
+        if not out[name] <= TAIL_RTOL:
+            out["failed"].append(name)
+    for name in ("dx", "dw", "db", "dm"):
+        if name not in p32[0]:
+            continue
+        ref = _stacked(r64, name)
+        dist = (_normwise(_stacked(k32, name), ref),
+                _normwise(_stacked(p32, name), ref))
+        out[name] = dist
+        if not dist[0] <= max(2 * dist[1], TAIL_GRAD_FLOOR):
+            out["failed"].append(name)
+    # bf16: the f32 kernels on the bf16 inputs upcast.
+    t16 = {k: v.to(torch.bfloat16).float() if k != "g" else v
+           for k, v in t.items()}
+    k16 = tail_kernels(t16, torch.bfloat16)
+    f32 = tail_kernels(t16, torch.float32)
+    expect = {"mean": f32["mean"], "dx": f32["dx"].bfloat16()}
+    if "weight" in t:
+        expect.update(rstd=f32["rstd"], dw=f32["dw"], db=f32["db"])
+    if "m" in t:
+        expect["dm"] = f32["dm"].bfloat16()
+        # y alone (no merge vector), rounded, plus m, rounded.
+        y = tail_kernels({k: v for k, v in t16.items() if k != "m"},
+                         torch.float32)["out"]
+        expect["out"] = (y.bfloat16().float() + t16["m"][:, :, None, None]
+                         ).bfloat16()
+    else:
+        expect["out"] = f32["out"].bfloat16()
+    out["bf16_unequal"] = [k for k, v in expect.items()
+                           if not torch.equal(k16[k], v)]
+    out["failed"] += [f"bf16 {k}" for k in out["bf16_unequal"]]
+    return out
+
+
 @dataclass
 class MainProgram:
     """A training program, ready to drive: train_step(raw), eval_step(raw),
@@ -478,6 +681,7 @@ def build_main_program(batch: int = 8, size: int = 256, depth: int = 8,
 
 def zero_launch_counts() -> None:
     """Set every kernel launch counter to 0."""
+    from svbrdf_tpu_torch.ops import norm_merge as nm
     from svbrdf_tpu_torch.ops import pathtrace
     from svbrdf_tpu_torch.ops import render_fused as rf
     from svbrdf_tpu_torch.ops import sr_adam
@@ -487,13 +691,17 @@ def zero_launch_counts() -> None:
         wrapper.launches = 0
         for dtype in wrapper.launches_by_dtype:
             wrapper.launches_by_dtype[dtype] = 0
-    sr_adam.sr_adam_multi_cuda.launches = 0
+    for wrapper in (sr_adam.sr_adam_multi_cuda, nm.norm_merge_fwd_cuda,
+                    nm.norm_merge_bwd_cuda):
+        wrapper.launches = 0
 
 
 def launch_counts() -> dict:
     """Every launch counter: each loss kernel's by planes dtype and each
     path tracer kernel's by SVBRDF dtype (the bf16 instantiation as
-    <kernel>_bf16), and sr_adam's."""
+    <kernel>_bf16), sr_adam's, and the block tail's pair (norm_merge_fwd,
+    norm_merge_bwd; both dtypes)."""
+    from svbrdf_tpu_torch.ops import norm_merge as nm
     from svbrdf_tpu_torch.ops import pathtrace
     from svbrdf_tpu_torch.ops import render_fused as rf
     from svbrdf_tpu_torch.ops import sr_adam
@@ -505,6 +713,8 @@ def launch_counts() -> dict:
                    for k, w in pathtrace.CUDA_WRAPPERS.items()
                    for dtype, n in w.launches_by_dtype.items()})
     counts["sr_adam"] = sr_adam.sr_adam_multi_cuda.launches
+    counts["norm_merge_fwd"] = nm.norm_merge_fwd_cuda.launches
+    counts["norm_merge_bwd"] = nm.norm_merge_bwd_cuda.launches
     return counts
 
 

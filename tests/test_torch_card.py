@@ -966,3 +966,140 @@ def test_pathtrace_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pt.shade_cuda(*flat[:1], flat[1].transpose(1, 2).contiguous()
                       .transpose(1, 2), *flat[2:])
 
+
+
+# The block tail's kernels (csrc/norm_merge.cu, ops/norm_merge.py):
+# bench_setup.hold_tail_kernels' rules at every tail shape of the two
+# full-width models, on ragged shapes, with strided cotangents.
+TAIL_CONFIGS = {"single": ("single", 8), "multi": ("multi", 8),
+                "predict": ("single", 1)}
+
+
+def _tail_failures(cases):
+    return {str(h["case"]): h for h in map(bench_setup.hold_tail_kernels,
+                                           cases) if h["failed"]}
+
+
+@pytest.mark.parametrize("config", sorted(TAIL_CONFIGS))
+def test_norm_merge_kernels_match_plain(cuda, config):
+    """Every tail of the single-view model at batch 8 and 1 (the
+    estimator's) and of the multi-view one at batch 8 (24 U-Net rows): the
+    warp, block and cluster mappings, f32 and bf16."""
+    kind, batch = TAIL_CONFIGS[config]
+    cases = sorted(set(bench_setup.tail_cases(kind, batch, 256)))
+    assert _tail_failures(cases) == {}
+
+
+def test_norm_merge_kernels_on_ragged_shapes(cuda):
+    """Planes that are no multiple of 8 values (the scalar loop), a large
+    ragged plane (scalar, block mapping, a cluster), 9 channels, one row,
+    channels last."""
+    cases = [(3, 5, 5, 7, True, True, True, False),
+             (2, 9, 3, 3, False, True, True, False),
+             (2, 4, 33, 33, True, True, False, False),
+             (1, 9, 100, 70, True, False, True, False),
+             (1, 3, 257, 255, True, True, True, False),
+             (4, 9, 64, 64, False, True, False, False),
+             (3, 5, 5, 7, True, True, True, True),
+             (2, 24, 40, 40, True, True, True, True),
+             (1, 16, 128, 128, True, True, True, True)]
+    assert _tail_failures(cases) == {}
+
+
+def test_norm_merge_takes_channels_last_and_strided_tensors(cuda):
+    """x channels last (the encoder's conv outputs), dout as a permuted NHWC
+    gradient and as a channel slice of a wider one, g a slice of a
+    concatenation's gradient: out and dx in x's layout, every result within
+    f32 summation order (1e-6 normwise) of the contiguous tensors'."""
+    from svbrdf_tpu_torch.ops import norm_merge as nm
+
+    t = bench_setup.tail_inputs((4, 16, 32, 32, True, True, True, False), 1)
+    x, w, b, m = (t[k] for k in ("x", "weight", "bias", "m"))
+    out, stats = nm.norm_merge_fwd_cuda(x, w, b, m)
+    ref = nm.norm_merge_bwd_cuda(t["dout"], t["g"], x, stats, w, True)
+    last = x.contiguous(memory_format=torch.channels_last)
+    out_last, stats_last = nm.norm_merge_fwd_cuda(last, w, b, m)
+    assert out_last.is_contiguous(memory_format=torch.channels_last)
+    assert bench_setup._normwise(out_last, out) <= 1e-6
+    assert bench_setup._normwise(stats_last, stats) <= 1e-6
+    nhwc = t["dout"].contiguous(memory_format=torch.channels_last)
+    wide = torch.cat([t["dout"], t["dout"]], dim=1)[:, :16]
+    g = torch.cat([t["g"], t["g"]], dim=1)[:, 16:]
+    for xs, st, dout in ((x, stats, nhwc), (x, stats, wide),
+                         (last, stats_last, nhwc)):
+        got = nm.norm_merge_bwd_cuda(dout, g, xs, st, w, True)
+        assert got[0].stride() == xs.stride()
+        for a, r in zip(got, ref):
+            assert bench_setup._normwise(a, r) <= 1e-6
+    # Without the norm: dx in dout's layout.
+    dx, dm, _ = nm.norm_merge_bwd_cuda(nhwc, g, want_dm=True)
+    dx_ref, dm_ref, _ = nm.norm_merge_bwd_cuda(t["dout"], g, want_dm=True)
+    assert dx.stride() == nhwc.stride()
+    assert torch.equal(dx, dx_ref)
+    assert bench_setup._normwise(dm, dm_ref) <= 1e-6
+
+
+def test_norm_merge_propagates_nan(cuda):
+    """A NaN in one plane's input: that plane's tap, and with the norm all
+    of its outputs and its dx, are NaN; no other plane's are."""
+    from svbrdf_tpu_torch.ops import norm_merge as nm
+
+    for case in ((2, 3, 64, 64, True, True, True, False),
+                 (2, 3, 8, 8, True, False, True, True),
+                 (2, 3, 64, 64, False, True, True, True)):
+        t = bench_setup.tail_inputs(case, 2)
+        t["x"][1, 2, 5, 3] = float("nan")
+        w, b, m = t.get("weight"), t.get("bias"), t.get("m")
+        out, stats = nm.norm_merge_fwd_cuda(t["x"], w, b, m)
+        dx, _, parts = nm.norm_merge_bwd_cuda(
+            t["dout"], t["g"], t["x"] if case[4] else None,
+            stats if case[4] else None, w, m is not None)
+        mean = stats[0]
+        assert torch.isnan(mean[1, 2]) and int(torch.isnan(mean).sum()) == 1
+        if case[4]:
+            for a in (out, dx):
+                assert bool(torch.isnan(a[1, 2]).all())
+                assert int(torch.isnan(a).sum()) == a[1, 2].numel()
+            assert bool(torch.isnan(parts[0, 1, 2]))
+        else:
+            assert bool(torch.isnan(out[1, 2, 5, 3]))
+            assert int(torch.isnan(out).sum()) == 1
+
+
+def test_norm_merge_launches_once_a_tail(cuda):
+    """A forward and backward of each model on the card launches the
+    forward and the backward kernel once a tail (the first encoder block
+    has none: no norm, no global track); an inference forward launches no
+    backward."""
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.ops import norm_merge as nm
+
+    for kind, shape in (("single", (2, 64, 64, 3)),
+                        ("multi", (2, 3, 64, 64, 3))):
+        model = build_model(kind, depth=6, num_filters=8, device="cuda",
+                            dtype=BF16)
+        images = torch.rand(*shape, device=cuda)
+        nm.norm_merge_fwd_cuda.launches = nm.norm_merge_bwd_cuda.launches = 0
+        model(images).sum().backward()
+        tails = 2 * 6 - 1 + (4 if kind == "multi" else 0)
+        assert (nm.norm_merge_fwd_cuda.launches,
+                nm.norm_merge_bwd_cuda.launches) == (tails, tails)
+        with torch.no_grad():
+            model(images)
+        assert (nm.norm_merge_fwd_cuda.launches,
+                nm.norm_merge_bwd_cuda.launches) == (2 * tails, tails)
+
+
+def test_norm_merge_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from svbrdf_tpu_torch.ops import norm_merge as nm
+
+    x = torch.zeros(2, 3, 4, 4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        nm.norm_merge_fwd_cuda(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        nm.norm_merge_fwd_cuda(x.double())
+    with pytest.raises(ValueError, match="weight and bias"):
+        nm.norm_merge_fwd_cuda(x, torch.ones(3, device=cuda))
+    with pytest.raises(ValueError, match="m must be"):
+        nm.norm_merge_fwd_cuda(x, m=torch.zeros(2, 3, device=cuda,
+                                                dtype=BF16))
