@@ -13,8 +13,7 @@ tensors: the op chain the blocks ran before the kernels (`spatial_mean`,
 `instance_norm`, the merge's broadcast add) with its autograd graph, so a
 CPU run computes that chain's values and gradients to the bit. Without
 gradients (inference, evaluation) the node is skipped. The kernels are
-held to the plain version on the card (tests/test_torch_card.py,
-chip_smoke.py).
+held to the plain version on the card (tests/test_torch_card.py).
 
 Not the spatially sharded tail (parallel/spatial._norm_merge), whose
 statistics need an all-reduce between the sums and the normalisation.

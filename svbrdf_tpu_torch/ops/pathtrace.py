@@ -35,8 +35,8 @@ samples. Both take a render's batch as P items of S scenes (`_layout`).
 `shade_vjp_plain`: the per-sample loop and one sample's autograd graph at
 a time) for CPU tensors; the geometry, the light quad's occlusion and the
 last pass of autograd through them stay torch ops. The kernels are held
-to the plain versions at a tolerance (chip_smoke.py); the VJP's line-for-
-line transcription `_sample_contrib_vjp_plain` is held to autograd on the
+to the plain versions at a tolerance (tests/test_torch_card.py); the VJP's
+line-for-line transcription `_sample_contrib_vjp_plain` is held to autograd on the
 CPU.
 """
 

@@ -62,8 +62,6 @@ and conv (the fold form's math) and has no such form.
 
 from __future__ import annotations
 
-import time
-from contextlib import contextmanager
 from typing import Callable, List, Optional
 
 import torch
@@ -99,45 +97,6 @@ def _rank(group) -> int:
     return 0 if group is None else group.rank
 
 
-# The collectives' calls, and with `sync` set (timed_collectives) their
-# host time, each synced on both sides.
-COLLECTIVES = {"calls": 0, "ms": 0.0, "sync": None}
-
-
-def _collective(fn) -> None:
-    """Run the collective fn(), counted in COLLECTIVES."""
-    stats = COLLECTIVES
-    stats["calls"] += 1
-    sync = stats["sync"]
-    if sync is None:
-        fn()
-        return
-    sync()
-    start = time.perf_counter()
-    fn()
-    sync()
-    stats["ms"] += (time.perf_counter() - start) * 1e3
-
-
-@contextmanager
-def timed_collectives(device):
-    """Count the collectives of the body from 0 and time each on the host,
-    the device synced before and after it; yields COLLECTIVES."""
-    dev = torch.device(device)
-    COLLECTIVES.update(calls=0, ms=0.0, sync=(
-        (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
-        else (lambda: None)))
-    try:
-        yield COLLECTIVES
-    finally:
-        COLLECTIVES["sync"] = None
-
-
-def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    _collective(lambda: dist.all_reduce(t))
-    return t
-
-
 class _AllGather(torch.autograd.Function):
     """Stack every rank's tensor, (world, ...), by all_gather; adjoint: the
     all-reduce-sum of the cotangents, then this rank's slot."""
@@ -147,12 +106,13 @@ class _AllGather(torch.autograd.Function):
         ctx.rank = group.rank
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(group.world)]
-        _collective(lambda: dist.all_gather(parts, x))
+        dist.all_gather(parts, x)
         return torch.stack(parts)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = _all_reduce(grad.clone(memory_format=torch.contiguous_format))
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad)
         return grad[ctx.rank], None
 
 
@@ -162,12 +122,15 @@ class _ShardSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce(x.clone(memory_format=torch.contiguous_format))
+        total = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(total)
+        return total
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad.clone(
-            memory_format=torch.contiguous_format)), None
+        total = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(total)
+        return total, None
 
 
 def shard_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -471,7 +434,7 @@ def shard_total(share: torch.Tensor, group) -> torch.Tensor:
     differentiable)."""
     total = share.detach().float().reshape(1).clone()
     if _world(group) > 1:
-        _all_reduce(total)
+        dist.all_reduce(total)
     return total[0]
 
 

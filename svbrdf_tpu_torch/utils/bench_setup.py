@@ -6,16 +6,16 @@ the rendering-only loss. The same code as the CLI's builds the models,
 masters and optimizers (models.build_model, parallel/step).
 
 Counterpart of svbrdf_tpu/utils/bench_setup.py (synthetic_raw_batch and
-build_headline_program) for the port: one place that builds what
-chip_smoke.py drives, so the two cannot drift apart.
+build_headline_program) for the port: one place that builds what the card
+tests (tests/test_torch_card.py), the smoke run (chip_smoke.py) and the CPU
+tests drive, with the rules that hold the kernels to their plain versions
+and the launches each path makes.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 import tempfile
-import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -189,8 +189,8 @@ def hold_render(actual, ref, ref64, cond, rtol: float = 1e-5) -> dict:
 
 
 # The cases each path tracer kernel is held on against its plain version
-# (chip_smoke.py, utils/compare_builds.py): (batch, height, width, spp,
-# SVBRDF dtype, scene gradients).
+# (tests/test_torch_card.py, utils/compare_builds.py): (batch, height,
+# width, spp, SVBRDF dtype, scene gradients).
 PATHTRACE_CASES = {
     "full_f32": (8, 256, 256, (16, 8), torch.float32, False),
     "full_bf16": (8, 256, 256, (16, 8), torch.bfloat16, False),
@@ -336,56 +336,6 @@ def hold_pathtrace_kernels(case: dict, scene_grads: bool = False) -> dict:
         raise RuntimeError(f"path tracer VJP: {out['vjp_beyond_tolerance']}"
                            f" beyond tolerance; {out}")
     return out
-
-
-def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median of `runs` CUDA-event timings of fn() after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return float(np.median(times))
-
-
-def kernel_ms(name: str, inputs, kernel=None, reps: int = 10,
-              runs: int = 20) -> float:
-    """Device time of one raw launch of loss kernel `name` on `inputs`
-    (loss_inputs on the card): the median over `runs` of `reps`
-    back-to-back launches between two CUDA events, divided by reps. A launch
-    queued before the start event keeps the card busy while the host queues
-    the rest, so the events time the kernels alone (no wrapper sum of the
-    partials, no host gaps). `kernel` is as for render_fused._launch."""
-    from svbrdf_tpu_torch.ops import render_fused as rf
-
-    pred_t, _, scenes9 = inputs
-    floats = rf.kernel_floats(name, pred_t, scenes9)
-
-    def launch():
-        rf._launch(name, *inputs, 0, 0, floats, kernel)
-
-    for _ in range(3):
-        launch()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        launch()
-        start.record()
-        for _ in range(reps):
-            launch()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / reps)
-    return float(np.median(times))
 
 
 def tail_cases(kind: str, batch: int, size: int, depth: int = 8,
@@ -718,6 +668,124 @@ def launch_counts() -> dict:
     return counts
 
 
+# The paths at full width (depth 8, 64 filters, 256^2, batch 8, seeded
+# weights): (model kind, loss kind), compute dtype, master policy,
+# renderer, and the loss kernels' launches (train step, eval step); sr_adam
+# (one table a bf16-SR step) and the block tails come on top. The path
+# tracer's kernels render the prediction in the compute dtype and the
+# target in f32 (the path-traced loss does not cast it), and take the
+# prediction's VJP.
+PATHS = {
+    "single_mixed": (("single", "mixed"), torch.float32, None, "local",
+                     ({"mixed_fwdgrad": 1}, {"mixed_fwd": 1})),
+    "multi_rendering": (("multi", "rendering"), torch.float32, None, "local",
+                        ({"render_fwdgrad": 1}, {"render_fwd": 1})),
+    "single_mixed_bf16": (("single", "mixed"), torch.bfloat16, "bf16sr",
+                          "local", ({"mixed_fwdgrad_bf16": 1},
+                                    {"mixed_fwd_bf16": 1})),
+    "multi_rendering_bf16": (("multi", "rendering"), torch.bfloat16,
+                             "bf16sr", "local",
+                             ({"render_fwdgrad_bf16": 1},
+                              {"render_fwd_bf16": 1})),
+    "single_mixed_pathtracing": (
+        ("single", "mixed"), torch.bfloat16, "bf16sr", "pathtracing",
+        ({"pathtrace_shade_bf16": 1, "pathtrace_shade": 1,
+          "pathtrace_shade_vjp_bf16": 1},
+         {"pathtrace_shade_bf16": 1, "pathtrace_shade": 1})),
+    "single_mixed_pathtracing_f32": (
+        ("single", "mixed"), torch.float32, None, "pathtracing",
+        ({"pathtrace_shade": 2, "pathtrace_shade_vjp": 1},
+         {"pathtrace_shade": 2})),
+}
+
+
+def tail_launches(kind: str, train: int, forwards: int = 0,
+                  depth: int = 8) -> dict:
+    """The block tails' launches (ops.norm_merge) in `train` train steps
+    and `forwards` more forwards of the `kind` model of `depth` blocks run
+    whole on the card: a forward launches the forward kernel once a tail
+    (tail_cases), a train step also the backward kernel."""
+    tails = len(tail_cases(kind, 1, 2 ** depth, depth))
+    return {"norm_merge_fwd": tails * (train + forwards),
+            "norm_merge_bwd": tails * train}
+
+
+def sr_adam_launches(model: torch.nn.Module) -> int:
+    """sr_adam launches of one AdamBf16SR step of `model`: one per table
+    of the leaves the last backward gave a gradient (one bucket: every leaf
+    shares its param group and count)."""
+    from svbrdf_tpu_torch.ops import sr_adam
+
+    stepped = sum(p.grad is not None for p in model.parameters())
+    return -(-stepped // sr_adam.max_leaves())
+
+
+GRAD_EXACT = 1e-6  # a training kernel's gradient off its plain version's,
+# over max |plain value|, at the paths' shapes
+
+
+def grad_distance(actual: torch.Tensor, expected: torch.Tensor) -> float:
+    """max |actual - expected| / max |expected| in float64: a training
+    kernel's gradient against its plain version's, held to GRAD_EXACT at
+    the paths' shapes. The two round every op alike (no FMA contraction,
+    x / c as x * (1/c), as torch takes a tensor divided by a Python number)
+    and agree to the last bit on an H100 with torch 2.11; a kernel that
+    rounds one op otherwise is ~1e-4 away (a normal's gradient scales one
+    ulp by up to 1/denom^3 ~ 1e9), so a torch that rounds these ops
+    otherwise fails the rule with no fault in the kernel."""
+    err = (actual.double() - expected.double()).abs().max()
+    return float(err / expected.double().abs().max())
+
+
+def sr_adam_model_leaves(kind: str, state: str, seed: int = 11,
+                         device="cuda") -> list:
+    """ops/sr_adam.SrLeaf of every leaf of the full-width `kind` model,
+    random parameters, gradients and moments from `seed`. State 'bf16sr':
+    the bf16-SR main path's dtypes (>=2-D leaves bf16 master, gradient and
+    moments; 1-D f32); 'bf16': the 'bf16' state mode's (f32 parameters and
+    gradients, bf16 mu, f32 nu)."""
+    from svbrdf_tpu_torch.ops import sr_adam
+
+    dev = resolve_device(device)
+    shapes = [tuple(p.shape) for p in build_model(
+        kind, False, 8, 64, device=dev).parameters()]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    leaves = []
+    for i, shape in enumerate(shapes):
+        dt = torch.bfloat16 if len(shape) >= 2 else torch.float32
+        dts = ((dt,) * 4 if state == "bf16sr" else
+               (torch.float32, torch.float32, torch.bfloat16, torch.float32))
+        ts = [(torch.randn(shape, generator=g, device=dev) * sc).to(d)
+              for sc, d in zip((0.02, 1e-3, 1e-4), dts)]
+        ts.append((torch.rand(shape, generator=g, device=dev)
+                   * 1e-6).to(dts[3]))
+        leaves.append(sr_adam.SrLeaf(i, *ts))
+    return leaves
+
+
+def hold_sr_adam_multi(leaves: list, s, launches: int) -> None:
+    """The multi-tensor SR-Adam kernel on copies of `leaves` against
+    parallel/optimizer.sr_adam_multi_plain on other copies, with the
+    scalars `s`: raises AssertionError unless it launched `launches` times
+    and p, mu and nu are equal to the bit, in their dtypes."""
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    def copy(lf):
+        return sr_adam.SrLeaf(lf.index, *(t.clone() for t in lf[1:]))
+
+    kern = [copy(lf) for lf in leaves]
+    plain = [copy(lf) for lf in leaves]
+    before = sr_adam.sr_adam_multi_cuda.launches
+    sr_adam.sr_adam_multi_cuda(kern, s, {})
+    assert sr_adam.sr_adam_multi_cuda.launches == before + launches
+    opt.sr_adam_multi_plain(plain, s)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        for x, y in zip(a[1:], b[1:]):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
 def train_steps(program: dict, steps: int, group=None,
                 state: Optional[dict] = None,
                 batch: Optional[dict] = None, scenes=None,
@@ -738,24 +806,17 @@ def train_steps(program: dict, steps: int, group=None,
 
     With a spatial group (`space`) this is the rank's part of the spatially
     sharded run (build_program's `space`): `batch` is given whole to every
-    rank, the collectives are counted and timed (spatial.timed_collectives)
-    and the weights come back from rank 0 alone. `dropout_seed` leaves
+    rank, and the weights come back from rank 0 alone. `dropout_seed` leaves
     dropout on, torch's default generators seeded with it first (a
     spatial run draws the masks one device draws); `grads` adds the last
     step's gradients ("grads", f32 on the CPU, None where a parameter has
     none).
 
-    Returns {"losses": the group's mean loss a step, "step_ms": host time
-    a step (synced by the loss's fetch), "params0" / "params": the weights
-    before and after (f32, on the CPU), "launches": the kernel launches of
-    the steps on each rank}, with a group also "checksums": each rank's
-    replica checksum (mesh.replica_checksums), and "reduce_ms": the host
-    time of one reduce_gradients of the last step's gradients over the
-    group, synced (the wait for the slower rank included; median of 5).
-    With `space`: "collective_ms" (host ms of the collectives a step,
-    synced on both sides), "collective_calls" (a step), "peak_bytes" (the
-    device's peak allocation over the steps, 0 on the CPU) and, as with a
-    group, every rank's "launches", "checksums" and "reduce_ms"."""
+    Returns {"losses": the group's mean loss a step, "params0" /
+    "params": the weights before and after (f32, on the CPU), "launches":
+    the kernel launches of the steps on each rank}, with a group or a
+    spatial group also "checksums": each rank's replica checksum
+    (mesh.replica_checksums)."""
     # Only cuDNN's on/off switch: torch.backends.cudnn.flags would also
     # reset its TF32 setting, which precision_scope owns.
     saved = torch.backends.cudnn.enabled
@@ -788,22 +849,16 @@ def _train_steps(program, steps, group, state, batch, scenes, space,
         rows = (slice(None) if group is None
                 else group.rows(len(batch["svbrdf"])))
         batch = {k: v[rows].to(dev) for k, v in batch.items()}
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
     zero_launch_counts()
-    losses, step_ms = [], []
-    with (spatial.timed_collectives(dev) if space is not None
-          else contextlib.nullcontext()) as collectives:
-        for k in range(steps):
-            start = time.perf_counter()
-            if batch is None:
-                loss = prog.train_step(prog.raw)
-            else:
-                loss = prog.train_step.update(
-                    batch, scenes=scenes[k].to(dev) if scenes else None)
-            losses.append(float(loss))
-            step_ms.append((time.perf_counter() - start) * 1e3)
-    out = {"losses": losses, "step_ms": step_ms, "params0": params0,
+    losses = []
+    for k in range(steps):
+        if batch is None:
+            loss = prog.train_step(prog.raw)
+        else:
+            loss = prog.train_step.update(
+                batch, scenes=scenes[k].to(dev) if scenes else None)
+        losses.append(float(loss))
+    out = {"losses": losses, "params0": params0,
            "params": ([p.detach().float().cpu() for p in model.parameters()]
                       if main else None),
            "launches": [launch_counts()]}
@@ -811,13 +866,8 @@ def _train_steps(program, steps, group, state, batch, scenes, space,
         out["grads"] = [None if p.grad is None else p.grad.float().cpu()
                         for p in model.parameters()]
     if space is not None:
-        out.update(collective_ms=collectives["ms"] / steps,
-                   collective_calls=collectives["calls"] / steps,
-                   peak_bytes=(torch.cuda.max_memory_allocated(dev)
-                               if dev.type == "cuda" else 0))
         group = space
     if group is not None:
-        out["reduce_ms"] = _reduce_ms(prog.train_step, group, dev)
         launches = [None] * group.world
         torch.distributed.all_gather_object(launches, out["launches"][0],
                                             group=group.host_group)
@@ -831,22 +881,6 @@ def spatial_train_steps(program: dict, steps: int, group,
     """train_steps(program, steps, space=group, **kwargs): the rank's part
     of the spatially sharded run (a rank_runs job)."""
     return train_steps(program, steps, space=group, **kwargs)
-
-
-def _reduce_ms(train_step, group, dev, runs: int = 5) -> float:
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    loss = torch.zeros((), device=dev)
-    times = []
-    for _ in range(runs):
-        sync()
-        start = time.perf_counter()
-        step_lib.reduce_gradients(train_step.params, loss, group)
-        sync()
-        times.append((time.perf_counter() - start) * 1e3)
-    return float(np.median(times))
 
 
 def _steps_with_backend(args, kwargs, group) -> dict:

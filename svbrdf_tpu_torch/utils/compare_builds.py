@@ -40,8 +40,8 @@ the same inputs cast to bf16), it reports:
     may compute the same function with other roundings;
   - device time at the main path's shapes (B=8, 256^2, S=9): 10
     back-to-back launches between CUDA events, median of 20
-    (bench_setup.kernel_ms), in ROUNDS rounds that alternate the order of the trees; the median of the rounds
-    and every round.
+    (kernel_ms), in ROUNDS rounds that alternate the order of the trees;
+    the median of the rounds and every round.
 Prints one JSON object last; --out also writes it to FILE. Needs a CUDA
 device and the CUDA toolkit.
 """
@@ -453,11 +453,65 @@ def pathtrace_agreement(libs: dict) -> dict:
     return out
 
 
+def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Median of `runs` CUDA-event timings of fn() after `warmup` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def kernel_ms(name: str, inputs, kernel=None, reps: int = 10,
+              runs: int = 20) -> float:
+    """Device time of one raw launch of loss kernel `name` on `inputs`
+    (bench_setup.loss_inputs on the card): the median over `runs` of `reps`
+    back-to-back launches between two CUDA events, divided by reps. A launch
+    queued before the start event keeps the card busy while the host queues
+    the rest, so the events time the kernels alone (no wrapper sum of the
+    partials, no host gaps). `kernel` is as for render_fused._launch."""
+    import torch
+
+    from svbrdf_tpu_torch.ops import render_fused as rf
+
+    pred_t, _, scenes9 = inputs
+    floats = rf.kernel_floats(name, pred_t, scenes9)
+
+    def launch():
+        rf._launch(name, *inputs, 0, 0, floats, kernel)
+
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        launch()
+        start.record()
+        for _ in range(reps):
+            launch()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return statistics.median(times)
+
+
 def pathtrace_times(libs: dict) -> dict:
     """{tree: {instance: {"ms", "ms_rounds"}}}: each PATHTRACE_TIMED
     instance of each tree through the package's wrappers at full width
     (bench_setup.pathtrace_case), the median of 20 CUDA-event timings
-    (bench_setup.cuda_ms), in ROUNDS rounds that alternate the order of
+    (cuda_ms), in ROUNDS rounds that alternate the order of
     the trees; the median of the rounds."""
     import torch
 
@@ -482,7 +536,7 @@ def pathtrace_times(libs: dict) -> dict:
             with pathtrace_library(libs[name]):
                 for instance, spec in PATHTRACE_TIMED.items():
                     rounds[name][instance].append(
-                        bench_setup.cuda_ms(call(*spec)))
+                        cuda_ms(call(*spec)))
     return {name: {k: {"ms": statistics.median(v), "ms_rounds": v}
                    for k, v in per.items()} for name, per in rounds.items()}
 
@@ -572,7 +626,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("compare_builds: needs a CUDA device")
     from svbrdf_tpu_torch.ops import _build, render_fused as rf
-    from svbrdf_tpu_torch.utils.bench_setup import (kernel_ms, loss_inputs,
+    from svbrdf_tpu_torch.utils.bench_setup import (loss_inputs,
                                                     loss_inputs_near)
 
     trees = {}

@@ -1,4 +1,4 @@
-"""Analytic FLOP accounting for the train step, for MFU reporting.
+"""Analytic FLOP accounting for the train step, and the cards' peaks.
 
 Counterpart of svbrdf_tpu/utils/flops.py. Counts the convolution and dense
 MACs of the Generator U-Net plus an estimate of the shading work of the
@@ -107,17 +107,3 @@ def train_step_flops(batch: int = 8, image_size: int = 256,
     fwd = generator_forward_flops(image_size, folded_decoder=folded_decoder)
     fwd += shading_flops(image_size)
     return 3 * fwd * batch
-
-
-def mfu(step_seconds: float, batch: int = 8, image_size: int = 256,
-        dtype: str = "bfloat16", folded_decoder: bool = False,
-        device_name: str = None) -> float:
-    """Model FLOPs utilization in [0, 1] against the peak of the card named
-    `device_name` (default: torch.cuda.get_device_name(0), which needs a
-    card) for `dtype`."""
-    if device_name is None:
-        import torch
-
-        device_name = torch.cuda.get_device_name(0)
-    flops = train_step_flops(batch, image_size, folded_decoder)
-    return flops / step_seconds / peak_flops(device_name, dtype)

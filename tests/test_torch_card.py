@@ -1,32 +1,47 @@
-"""The loss CUDA kernels and the port's training programs on the card.
+"""The port on the card: its CUDA kernels against their plain versions,
+its programs, CLI, launcher, data and spatial parallelism, inference API
+and tools, each with its kernel launches counted.
 
 Every test here needs a CUDA device (and nvcc, which builds the kernels at
-first use); each decides inside the test and skips without one. The file
-imports nothing of JAX, so on a machine with a card and without JAX it runs
-on its own, without the repo's conftest.py (which sets JAX up):
+first use); each decides inside the test or a fixture and skips without
+one. The file imports nothing of JAX, so on a machine with a card and
+without JAX it runs on its own, without the repo's conftest.py (which sets
+JAX up):
 
     python -m pytest --noconftest tests/test_torch_card.py -q
+
+It is the port's one card check; its timings come from the benchmark
+(bench_gpu/run.py --trace 1). Full width (B=8, 256^2, S=9; depth 8, 64
+filters) where a check is about the kernels' shapes or the main path's
+launches; the smallest size that exercises it elsewhere (the CLI, the
+launcher, the toy data, the examples, spatial sharding).
 
 Tolerances: loss rtol 1e-5 (the kernel sums one partial per block, the
 plain version over the whole image; the value-only kernels and the kernel
 with both gradients also shade with other roundings, csrc/value_shading.cuh
 and csrc/value_vjp.cuh). dpred rtol 2e-4 with an absolute floor of 1e-3 *
-max|dpred| for the two training kernels: they round every op as the plain
-versions do on the card, and on an H100 the two agree to the last bit
-(chip_smoke.py holds that at the main path's shapes); the floor keeps these
-tests true under a torch that rounds some op otherwise, where an ulp grows
-large: a normal's gradient sums 27 terms per pixel, some scaled by
-1 / denom^3 (up to 1e9 near the clamp). The kernel with both gradients is
-held normwise (_assert_both_close, test_both_kernel_within_tolerance). A
-bf16 kernel computes what its f32 instantiation computes on the upcast
-planes, each gradient rounded once to bf16. The fused SR-Adam kernel
-(csrc/sr_adam.cu) is bit-exact against its plain version, in its 'bf16'
-state mode too; a bf16 step with bf16-SR masters on the card is held to
-the same step on the CPU as chip_smoke.py holds it. TF32 is off for every test.
+max|dpred| for the two training kernels at small sizes: they round every op
+as the plain versions do on the card, and on an H100 the two agree to the
+last bit, which the paths' shapes hold (_assert_grad_exact); the floor
+keeps the small tests true under a torch that rounds some op otherwise,
+where an ulp grows large: a normal's gradient sums 27 terms per pixel, some
+scaled by 1 / denom^3 (up to 1e9 near the clamp). The kernel with both
+gradients is held normwise (_assert_both_close,
+test_both_kernel_within_tolerance). A bf16 kernel computes what its f32
+instantiation computes on the upcast planes, each gradient rounded once to
+bf16. The fused SR-Adam kernel (csrc/sr_adam.cu) is bit-exact against its
+plain version, in its 'bf16' state mode too; a bf16 step with bf16-SR
+masters on the card is held to the same step on the CPU. TF32 is off in
+the test process (the `cuda` fixture); ranks it spawns start with torch's
+defaults.
 """
 
+import contextlib
+import io
 import itertools
+import json
 import math
+import pathlib
 
 import numpy as np
 import pytest
@@ -40,6 +55,9 @@ from svbrdf_tpu_torch.scene import Scene
 from svbrdf_tpu_torch.utils import bench_setup
 
 torch.set_num_threads(1)
+
+BF16 = torch.bfloat16
+REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -92,6 +110,73 @@ def _assert_both_close(out, ref):
     for grad, ref_grad in zip(out[1:], ref[1:]):
         assert grad.dtype == ref_grad.dtype
         assert _normwise(grad, ref_grad) <= 1e-3
+
+
+def _assert_grad_exact(actual, expected):
+    """A training kernel's gradient against its plain version at the
+    paths' shapes (bench_setup.grad_distance)."""
+    assert bench_setup.grad_distance(actual, expected) \
+        <= bench_setup.GRAD_EXACT
+
+
+def _outputs(out):
+    """(loss, gradients...) of a kernel's wrapper or plain version."""
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _counted(fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after: (result, launches)."""
+    torch.cuda.synchronize()
+    bench_setup.zero_launch_counts()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, bench_setup.launch_counts()
+
+
+def _expect_launches(counts, expected):
+    """Every launch counter (bench_setup.launch_counts) at `expected`'s
+    value, 0 where `expected` names none."""
+    assert set(expected) <= set(counts)
+    assert counts == {k: expected.get(k, 0) for k in counts}
+
+
+def _spatial_tail_launches(train, forwards, size, depth, world=2):
+    """bench_setup.tail_launches of the single-view model sharded by
+    height over `world` ranks (parallel/spatial), on each rank: only the
+    blocks that run whole there launch the kernels, those whose height does
+    not split (spatial.splits: a multiple of the world and at least one row
+    a rank); the sharded ones take spatial._norm_merge. The first encoder
+    block has no tail."""
+    def whole(height):
+        return height % world != 0 or height < world
+
+    tails = (sum(whole(size >> (i + 1)) for i in range(1, depth))
+             + sum(whole(size >> (depth - i)) for i in range(depth)))
+    return {"norm_merge_fwd": tails * (train + forwards),
+            "norm_merge_bwd": tails * train}
+
+
+def _grids(printout):
+    """Comparison grids a CLI run printed that it wrote: after training it
+    predicts each held-out sample, one forward each (on rank 0 alone)."""
+    return sum(line.startswith("wrote ") and line.endswith(".png")
+               for line in printout.splitlines())
+
+
+@contextlib.contextmanager
+def _torch_default_tf32():
+    """TF32 as torch sets it by default (convolutions on, matrix products
+    off), as a process that never set it runs: the spatial CLI's ranks."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 @pytest.mark.parametrize("size", [32, 20])  # 20^2 = 400: a ragged last block
@@ -364,15 +449,16 @@ def test_bf16_kernels_match_plain(cuda, name):
 def test_both_kernel_within_tolerance(cuda, dtype, near):
     """The kernel with both gradients (csrc/value_vjp.cuh) on
     bench_setup.loss_inputs (far) or loss_inputs_near at the paths' shapes
-    (B=8, 256^2, S=9; seed 3, where chip_smoke.py takes seed 0): loss rel
+    (B=8, 256^2, S=9, seed 3; test_kernels_on_the_paths_inputs takes
+    seed 0): loss rel
     <= 1e-5 against its plain version; dpred and dgt against the plain
     version in float64 (on the same, quantized, planes) normwise no further
     than 2x the plain version's own distance from it, and for f32 <= 2e-4
     (bf16's own rounding is ~2e-3), over the pixels at least
     render_fused.KINK_MARGIN from the loss's kinks, where f32 evaluations
-    agree on the one-sided derivative (chip_smoke.py prints the distances
-    over all pixels); exactly 0 for pred = gt; a NaN in pred gives a NaN
-    loss."""
+    agree on the one-sided derivative (closer, one such pixel can put the
+    plain version itself 1e-2 from float64 over the whole image); exactly 0
+    for pred = gt; a NaN in pred gives a NaN loss."""
     make = bench_setup.loss_inputs_near if near else bench_setup.loss_inputs
     p, g, s9 = make(8, 256, 9, seed=3, device=cuda, dtype=dtype)
     out = rf.rendering_loss_fwdgrad_both_cuda(p, g, s9)
@@ -392,6 +478,98 @@ def test_both_kernel_within_tolerance(cuda, dtype, near):
     q = p.clone()
     q[1, 3, 7, 5] = math.nan
     assert math.isnan(float(rf.rendering_loss_fwdgrad_both_cuda(q, g, s9)[0]))
+
+
+@pytest.mark.parametrize("near", [False, True], ids=["far", "near"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(rf.PLAIN_VERSIONS))
+def test_kernels_on_the_paths_inputs(cuda, name, dtype, near):
+    """Each loss kernel at the paths' shapes (B=8, 12 x 256 x 256 planes,
+    S=9) on bench_setup.loss_inputs (pred far from gt) or loss_inputs_near
+    (pred near gt, as validation sees a trained model), f32 or bf16 planes:
+    loss rel 1e-5 against its plain version; every gradient finite and in
+    the planes' dtype; the two training kernels' gradients exact
+    (_assert_grad_exact for f32 planes, equal for bf16: each the f32 value
+    rounded once), `both`'s held by test_both_kernel_within_tolerance. A
+    bf16 launch equals its f32 instantiation on the upcast planes, the
+    gradients rounded once; with pred far from gt its loss lies within
+    rel 2e-2 of the f32 loss on the unquantized planes, as the JAX
+    package's bf16 test holds it (near gt, rounding each side to bf16,
+    ~2e-3, moves it further than the 1e-3 that parts them). pred = gt gives
+    a loss and gradients of exactly 0."""
+    make = bench_setup.loss_inputs_near if near else bench_setup.loss_inputs
+    inputs = make(8, 256, 9, device=cuda, dtype=dtype)
+    wrapper, plain = rf.CUDA_WRAPPERS[name], rf.PLAIN_VERSIONS[name]
+    out, ref = _outputs(wrapper(*inputs)), _outputs(plain(*inputs))
+    _assert_close(out[0], ref[0], rtol=1e-5)
+    for grad, ref_grad in zip(out[1:], ref[1:]):
+        assert grad.dtype == dtype and bool(torch.isfinite(grad).all())
+        if name == "render_fwdgrad_both":
+            continue
+        if dtype == BF16:
+            assert torch.equal(grad, ref_grad)
+        else:
+            _assert_grad_exact(grad, ref_grad)
+    if dtype == BF16:
+        pred_t, gt_t, scenes9 = inputs
+        out32 = _outputs(wrapper(pred_t.float(), gt_t.float(), scenes9))
+        assert torch.equal(out[0], out32[0])
+        for grad, grad32 in zip(out[1:], out32[1:]):
+            assert torch.equal(grad, grad32.to(BF16))
+        if not near:
+            loss32 = float(_outputs(wrapper(*make(8, 256, 9,
+                                                  device=cuda)))[0])
+            assert abs(float(out[0]) - loss32) <= 2e-2 * abs(loss32)
+    gt_t, scenes9 = inputs[1], inputs[2]
+    zero = _outputs(wrapper(gt_t.clone(), gt_t, scenes9))
+    assert float(zero[0]) == 0.0
+    assert all(int(torch.count_nonzero(z)) == 0 for z in zero[1:])
+
+
+# The planes entries under autograd, each with the one kernel it must
+# launch: entry, its keywords, the kernel, the planes' dtype, the upstream
+# scalar (for bf16 not a bf16 value, so the product rounds).
+PLANES_ENTRIES = {
+    "rendering_target_grad": ("rendering_loss_fused_planes",
+                              {"want_target_grad": True},
+                              "render_fwdgrad_both", torch.float32, 3.0),
+    "mixed_bf16": ("mixed_loss_fused_planes", {}, "mixed_fwdgrad", BF16,
+                   3.1),
+    "rendering_target_grad_bf16": ("rendering_loss_fused_planes",
+                                   {"want_target_grad": True},
+                                   "render_fwdgrad_both", BF16, 3.1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLANES_ENTRIES))
+def test_planes_entries_give_the_kernels_gradients(cuda, case):
+    """A planes entry under autograd at the paths' shapes, both inputs
+    requiring grad, every launch counter read around the call and its
+    backward: the one value+gradient kernel launches once (its bf16
+    instantiation on bf16 planes) and nothing else; the loss equals that
+    kernel's, each .grad is in the planes' dtype and equals the kernel's
+    gradient times the upstream scalar in f32, rounded once; without the
+    target's gradient the target gets none."""
+    entry, kw, kernel, dtype, upstream = PLANES_ENTRIES[case]
+    p, g, s9 = bench_setup.loss_inputs(8, 256, 9, device=cuda, dtype=dtype)
+    scenes = Scene(s9[..., 0:3], s9[..., 3:6], s9[..., 6:9])
+    pred, gt = p.clone().requires_grad_(), g.clone().requires_grad_()
+
+    def call():
+        loss = getattr(rf, entry)(pred, gt, scenes, **kw)
+        (upstream * loss).backward()
+        return loss.detach()
+
+    loss, counts = _counted(call)
+    _expect_launches(counts, {kernel + rf.PLANE_DTYPES[dtype]: 1})
+    ref_loss, *grads = rf.CUDA_WRAPPERS[kernel](p, g, s9)
+    assert torch.equal(loss, ref_loss)
+    have = [pred.grad, gt.grad] if len(grads) == 2 else [pred.grad]
+    if len(grads) == 1:
+        assert gt.grad is None
+    for grad, d in zip(have, grads):
+        assert grad.dtype == dtype
+        assert torch.equal(grad, (d.float() * upstream).to(dtype))
 
 
 @pytest.mark.parametrize("name", ["mixed_fwd", "render_fwd"])
@@ -443,6 +621,105 @@ def test_multi_view_rendering_program_on_card(cuda):
     assert out.shape == (2, 32, 32, 12) and bool(torch.isfinite(out).all())
 
 
+@pytest.mark.parametrize("kind, loss_kind, views", [
+    ("single", "mixed", 1), ("multi", "rendering", 3)])
+def test_step_card_matches_cpu(cuda, kind, loss_kind, views):
+    """One f32 train step, the eval loss and a prediction of a small model
+    (depth 5, 32^2, 8 filters, batch 2, dropout off) on the card against
+    the same program, weights, batch and scenes on the CPU, where the loss
+    runs the plain versions: losses rel 1e-4, the gradients normwise 1e-3,
+    the maps within 1e-4."""
+    from svbrdf_tpu_torch import losses
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.parallel import step as step_lib
+
+    g = torch.Generator().manual_seed(3)
+    prep = step_lib.PrepConfig(used_input_image_count=views,
+                               mix_materials=True)
+    raw = {k: torch.from_numpy(v) for k, v in
+           bench_setup.synthetic_raw_batch(2, 32, 0, seed=3).items()}
+    batch = step_lib.prepare(raw, prep, g)
+    scenes = sampling.generate_loss_scenes(2, generator=g)
+    loss_fn = losses.make_loss_fn(loss_kind)
+    results = {}
+    for dev in ("cpu", cuda):
+        model = build_model(kind, False, 5, 8, device="cpu", seed=3).to(dev)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.eval()
+        step = step_lib.make_train_step(
+            model, step_lib.make_optimizer(model.parameters()), loss_fn,
+            prep, None)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        sc = scenes.to(dev)
+        loss = float(step.update(b, scenes=sc))
+        grads = torch.cat([p.grad.flatten() for p in model.parameters()
+                           if p.grad is not None]).cpu()
+        with torch.no_grad():
+            pred = step_lib.make_predict_fn(model)(b["inputs"])
+            eval_loss = float(loss_fn(pred, b["svbrdf"], scenes=sc))
+        results[str(dev)] = (loss, grads, eval_loss, pred.cpu())
+    (lc, gc, ec, pc), (lg, gg, eg, pg) = results["cpu"], results[str(cuda)]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert abs(eg - ec) <= 1e-4 * abs(ec)
+    assert float((gg - gc).norm() / gc.norm()) <= 1e-3
+    assert float((pg - pc).abs().max()) <= 1e-4
+
+
+STEPS = 5
+
+
+@pytest.mark.parametrize("path", sorted(bench_setup.PATHS))
+def test_paths_launch_every_counter(cuda, path):
+    """A path at full width: 5 train steps, then an eval step and predict,
+    every launch counter read after the train steps and after the rest:
+    each exactly as the path's kernels, the block tails (one forward launch
+    a tail a forward, one backward a tail a train step) and sr_adam (one a
+    bf16-SR step) say, every other 0. Finite losses; a bf16-SR path keeps
+    bf16 >=2-D masters and f32 1-D ones and moves more than 5 % of the
+    bf16 elements (as tests/test_training.py::TestBf16SRMasters asks); the
+    prediction f32 maps of the batch's shape, unit normals, maps in
+    [0, 1]."""
+    from svbrdf_tpu_torch.device import precision_scope
+    from svbrdf_tpu_torch.parallel.step import prepare
+
+    kinds, dtype, master, renderer, (per_train, per_eval) = \
+        bench_setup.PATHS[path]
+    with precision_scope(dtype):
+        program = bench_setup.build_program(
+            *kinds, 8, 256, 8, 64, seed=0, device="cuda", dtype=dtype,
+            master_dtype=master, renderer=renderer)
+        before = [p.detach().clone() for p in program.model.parameters()]
+        losses, after_train = _counted(lambda: [
+            float(program.train_step(program.raw)) for _ in range(STEPS)])
+        sr = ({"sr_adam": STEPS
+               * bench_setup.sr_adam_launches(program.model)}
+              if master == "bf16sr" else {})
+        _expect_launches(after_train, {
+            **{k: STEPS * v for k, v in per_train.items()}, **sr,
+            **bench_setup.tail_launches(kinds[0], STEPS)})
+        images = prepare(program.raw, program.prep,
+                         program.generator)["inputs"]
+        (eval_loss, maps), counts = _counted(lambda: (
+            float(program.eval_step(program.raw)), program.predict(images)))
+    _expect_launches(counts, {**per_eval,
+                              **bench_setup.tail_launches(kinds[0], 0, 2)})
+    assert all(math.isfinite(x) for x in losses + [eval_loss])
+    if master == "bf16sr":
+        changed = total = 0
+        for p0, p in zip(before, program.model.parameters()):
+            assert p.dtype == (BF16 if p.dim() >= 2 else torch.float32)
+            if p.dim() >= 2:
+                changed += int((p0 != p).sum())
+                total += p.numel()
+        assert changed > 0.05 * total
+    assert maps.shape == (8, 256, 256, 12) and maps.dtype == torch.float32
+    assert bool(torch.isfinite(maps).all())
+    assert float((maps[..., :3].norm(dim=-1) - 1.0).abs().max()) <= 1e-4
+    assert 0.0 <= float(maps[..., 3:].min()) <= float(maps[..., 3:].max()) \
+        <= 1.0
+
+
 def test_cli_trains_resumes_and_tests_on_the_card(cuda, tmp_path):
     """The CLI at depth 5, 32^2, 8 filters, f32, on cuda:0: each train step
     launches the mixed value+gradient kernel once and nothing else runs a
@@ -450,17 +727,12 @@ def test_cli_trains_resumes_and_tests_on_the_card(cuda, tmp_path):
     the saved epoch; test mode writes a grid and metrics.json. The
     checkpoint written on the card, loaded on the CPU, predicts within 1e-4
     of the card."""
-    import contextlib
-    import io
-    import json
-    import pathlib
-
     from svbrdf_tpu_torch.main import main
     from svbrdf_tpu_torch.models import build_model
     from svbrdf_tpu_torch.parallel.step import make_predict_fn
     from svbrdf_tpu_torch.training.checkpoint import Checkpoint
 
-    data = pathlib.Path(__file__).resolve().parents[1] / "data"
+    data = REPO / "data"
     common = ["--image-count", "10", "--image-size", "32", "--model-depth",
               "5", "--num-filters", "8", "--batch-size", "2",
               "--model-dir", str(tmp_path / "m"), "--gpu-id", "0",
@@ -500,7 +772,233 @@ def test_cli_trains_resumes_and_tests_on_the_card(cuda, tmp_path):
     torch.testing.assert_close(on_cpu, on_card, rtol=0, atol=1e-4)
 
 
-BF16 = torch.bfloat16
+# The CLI runs: 101 maps-only 32^2 strips (the 1 % split holds one out:
+# 13 steps of 8 an epoch, one validation batch), depth 5, 8 filters.
+CLI_SAMPLES = 101
+PER_EPOCH = math.ceil(math.ceil(CLI_SAMPLES * 0.99) / 8)
+WIDTH = ["--image-size", "32", "--model-depth", "5", "--num-filters", "8",
+         "--batch-size", "8", "--gpu-id", "0"]
+MIXED = ["--used-image-count", "1", "--loss", "mixed"]
+RENDER = ["--model-type", "multi", "--used-image-count", "3", "--loss",
+          "render"]
+F32 = ["--dtype", "float32"]
+# The keys of the JAX package's metrics.json (svbrdf_tpu/metrics.py).
+METRIC_KEYS = ("rmse_normals", "rmse_diffuse", "rmse_roughness",
+               "rmse_specular", "log_rmse_diffuse", "log_rmse_specular",
+               "ssim_normals", "ssim_diffuse", "ssim_roughness",
+               "ssim_specular", "rendering_rmse")
+
+
+@pytest.fixture(scope="module")
+def maps_corpus(tmp_path_factory):
+    """CLI_SAMPLES maps-only 32^2 strips: the map tiles' corners of the two
+    training strips, written with the port's PNG writer, and symlinks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CLI runs on the card")
+    from svbrdf_tpu_torch.data import png, strips
+
+    out = tmp_path_factory.mktemp("maps")
+    for n, path in enumerate(strips.list_sample_files(
+            str(REPO / "data" / "train"))):
+        strip = strips.read_image_u8(path)
+        png.write_png_rgb8(str(out / f"maps_{n}.png"), np.concatenate(
+            [strip[:32, (10 + k) * 256:(10 + k) * 256 + 32]
+             for k in range(4)], axis=1))
+    for n in range(2, CLI_SAMPLES):
+        (out / f"link_{n:03d}.png").symlink_to(out / f"maps_{n % 2}.png")
+    return out
+
+
+def _train_argv(data, model_dir, *extra, devices=True):
+    return (["--mode", "train", "--input-dir", str(data), "--image-count",
+             "0", "--save-frequency", "1", "--validation-frequency", "1",
+             "--model-dir", str(model_dir)] + WIDTH
+            + (["--num-devices", "1"] if devices else []) + list(extra))
+
+
+def _cli(argv, entry=None):
+    """main(argv) (or entry(argv)) with its printout captured and every
+    launch counter read around it: (result, printout, launches)."""
+    from svbrdf_tpu_torch.main import main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result, counts = _counted(lambda: (entry or main)(argv))
+    return result, out.getvalue(), counts
+
+
+def _cli_train(argv, kernels, epochs, sr_adam=False, entry=None,
+               kind="single"):
+    """A training run of `epochs` epochs: PER_EPOCH steps and one
+    validation batch an epoch, the loss kernels (train step, eval step)
+    once each, sr_adam once a step where `sr_adam`, the block tails for
+    the steps, the validation batches and the held-out samples' grids, 0
+    elsewhere; a finite last loss. (run, printout)."""
+    run, text, counts = _cli(argv, entry)
+    assert (run.steps, run.validation_batches) == (epochs * PER_EPOCH,
+                                                   epochs)
+    expected = {kernels[0]: run.steps, kernels[1]: run.validation_batches,
+                **bench_setup.tail_launches(
+                    kind, run.steps, run.validation_batches + _grids(text),
+                    5)}
+    if sr_adam:
+        expected["sr_adam"] = (run.steps
+                               * bench_setup.sr_adam_launches(run.model))
+    _expect_launches(counts, expected)
+    assert math.isfinite(run.last_loss)
+    return run, text
+
+
+def _adam_steps(model_dir):
+    blob = torch.load(model_dir / "checkpoint.tar", map_location="cpu",
+                      weights_only=True)
+    return int(blob["optimizer_state_dict"]["state"][0]["step"])
+
+
+def _reloaded(model_dir, dtype=torch.float32, master=None):
+    """A fresh single-view model (depth 5, 8 filters) on the card restored
+    from the checkpoint in `model_dir`, its masters cast by `master`."""
+    from svbrdf_tpu_torch.models import build_model
+    from svbrdf_tpu_torch.parallel import step as step_lib
+    from svbrdf_tpu_torch.training.checkpoint import Checkpoint
+
+    fresh = build_model("single", False, 5, 8, device="cuda", seed=1,
+                        dtype=dtype)
+    with contextlib.redirect_stdout(io.StringIO()):
+        Checkpoint.load(model_dir).restore_params(fresh)
+    if master is not None:
+        with step_lib.master_dtype_scope():
+            step_lib.set_master_dtype_policy(master)
+            step_lib.master_cast(fresh)
+    return fresh
+
+
+def _same_prediction(a, b):
+    from svbrdf_tpu_torch.parallel.step import make_predict_fn
+
+    images = torch.rand(2, 1, 32, 32, 3, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    return torch.equal(make_predict_fn(a)(images), make_predict_fn(b)(images))
+
+
+def test_cli_with_a_validation_split_on_the_card(cuda, maps_corpus,
+                                                 tmp_path):
+    """The CLI in f32 on maps-only strips with a validation split: 2
+    epochs, then resumed to 3, then test mode, each with every launch
+    counter (_cli_train); the checkpoint's Adam step is the steps taken,
+    the logs hold a finite loss a step and a val_loss an epoch, a fresh
+    model restored from the checkpoint predicts the trained model's bits;
+    the resume continues from epoch 1; test mode runs one forward a sample
+    and writes a grid and every metric, finite."""
+    from svbrdf_tpu_torch.data import strips
+    from svbrdf_tpu_torch.training.tensorboard import read_scalars
+
+    model_dir = tmp_path / "single"
+    kernels = ("mixed_fwdgrad", "mixed_fwd")
+    first, _ = _cli_train(_train_argv(maps_corpus, model_dir, *MIXED, *F32,
+                                      "--epochs", "2", "--retrain"),
+                          kernels, 2)
+    assert _adam_steps(model_dir) == first.steps
+    scalars = read_scalars(str(model_dir / "logs"))
+    losses = [v for _, v in scalars["loss"]]
+    assert len(losses) == first.steps and all(map(math.isfinite, losses))
+    assert len(scalars["val_loss"]) == 2
+    assert _same_prediction(_reloaded(model_dir), first.model)
+
+    _, text = _cli_train(_train_argv(maps_corpus, model_dir, *MIXED, *F32,
+                                     "--epochs", "3"), kernels, 2)
+    assert "Restored epoch 1" in text
+    assert "Training from epoch 1 to 3" in text
+    assert _adam_steps(model_dir) == 4 * PER_EPOCH
+
+    written, _, counts = _cli(["--mode", "test", "--input-dir",
+                               str(REPO / "data" / "test"), "--image-count",
+                               "10", "--model-dir", str(model_dir),
+                               "--num-devices", "1"] + F32 + WIDTH)
+    _expect_launches(counts,
+                     bench_setup.tail_launches("single", 0, len(written), 5))
+    assert strips.read_image_u8(written[0]).shape == (64, 160, 3)
+    summary = json.loads((model_dir / "test_outputs" /
+                          "metrics.json").read_text())
+    assert all(math.isfinite(summary["mean"].get(k, math.nan))
+               for k in METRIC_KEYS)
+
+
+# CLI runs held by their launches: arguments, epochs, the loss kernels
+# (train step, eval step). The host path's first epoch decodes the strips
+# through the decode pool, the second reads its caches.
+CLI_RUNS = {
+    "single_mixed_cache": (MIXED + F32 + ["--device-data-cache"], 1,
+                           ("mixed_fwdgrad", "mixed_fwd")),
+    "multi_rendering_cache": (RENDER + F32 + ["--device-data-cache"], 1,
+                              ("render_fwdgrad", "render_fwd")),
+    "multi_rendering": (RENDER + F32, 2, ("render_fwdgrad", "render_fwd")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLI_RUNS))
+def test_cli_runs_launch_once_a_step(cuda, maps_corpus, tmp_path, name):
+    """The CLI with the device data cache, and the multi-view model with
+    the rendering loss: every launch counter as _cli_train says."""
+    args, epochs, kernels = CLI_RUNS[name]
+    _cli_train(_train_argv(maps_corpus, tmp_path / name, *args, "--epochs",
+                           str(epochs), "--retrain"), kernels, epochs,
+               kind="multi" if "--model-type" in args else "single")
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["default", "f32"])
+def test_cli_path_traced_on_the_card(cuda, maps_corpus, tmp_path, f32):
+    """--renderer pathtracing for 1 epoch at the CLI's defaults (bf16,
+    bf16-SR masters) or in f32: no loss kernel; the path tracer's kernels
+    as on the path (bench_setup.PATHS) a step and a validation batch;
+    sr_adam once a bf16-SR step; the block tails."""
+    path = "single_mixed_pathtracing" + ("_f32" if f32 else "")
+    run, text, counts = _cli(_train_argv(
+        maps_corpus, tmp_path / path, *MIXED, "--renderer", "pathtracing",
+        "--epochs", "1", "--retrain", *(F32 if f32 else ())))
+    assert (run.steps, run.validation_batches) == (PER_EPOCH, 1)
+    assert "Using renderer 'pathtracing'" in text
+    per_step, per_batch = bench_setup.PATHS[path][4]
+    expected = {k: run.steps * per_step.get(k, 0)
+                + run.validation_batches * per_batch.get(k, 0)
+                for k in {**per_step, **per_batch}}
+    expected.update(bench_setup.tail_launches(
+        "single", run.steps, run.validation_batches + _grids(text), 5))
+    if not f32:
+        expected["sr_adam"] = (run.steps
+                               * bench_setup.sr_adam_launches(run.model))
+    _expect_launches(counts, expected)
+    assert math.isfinite(run.last_loss)
+
+
+def test_cli_default_precision_resumes_and_reloads(cuda, maps_corpus,
+                                                   tmp_path):
+    """The CLI at its defaults (--dtype auto: bf16 on the card, bf16-SR
+    masters), as a user runs it: 2 epochs, then resumed to 3, the bf16
+    loss kernels and sr_adam once a step. The resume restores the policy
+    from the checkpoint and continues from epoch 1; the checkpoint holds
+    f32 weights and master_dtype 'bf16sr'; the resumed model's >=2-D
+    masters are bf16, its 1-D ones f32; a fresh bf16-SR model reloaded
+    from the checkpoint predicts the trained model's bits."""
+    model_dir = tmp_path / "default"
+    kernels = ("mixed_fwdgrad_bf16", "mixed_fwd_bf16")
+    _cli_train(_train_argv(maps_corpus, model_dir, *MIXED, "--epochs", "2",
+                           "--retrain"), kernels, 2, sr_adam=True)
+    resumed, text = _cli_train(_train_argv(maps_corpus, model_dir, *MIXED,
+                                           "--epochs", "3"),
+                               kernels, 2, sr_adam=True)
+    assert "Restored master_dtype 'bf16sr'" in text
+    assert "Training from epoch 1 to 3" in text
+    assert _adam_steps(model_dir) == 4 * PER_EPOCH
+    blob = torch.load(model_dir / "checkpoint.tar", map_location="cpu",
+                      weights_only=True)
+    assert {v.dtype for v in blob["model_state_dict"].values()} == {
+        torch.float32}
+    assert blob.get("master_dtype") == "bf16sr"
+    for p in resumed.model.parameters():
+        assert p.dtype == (BF16 if p.dim() >= 2 else torch.float32)
+    assert _same_prediction(_reloaded(model_dir, BF16, "bf16sr"),
+                            resumed.model)
 
 
 @pytest.mark.parametrize("dtypes", list(itertools.product(
@@ -508,16 +1006,25 @@ BF16 = torch.bfloat16
         "bf16" if t == BF16 else "f32" for t in d))
 def test_sr_adam_kernel_matches_plain(cuda, dtypes):
     """The fused SR-Adam update, each of its 16 storage combinations of (p,
-    g, mu, nu), on a leaf whose size is no multiple of the block and on
-    one past a grid's stride, at two (count, salt) pairs (the second past
-    JAX's int32 wrap of the moment salt): p, mu and nu equal to the plain
-    version's to the bit, one launch each."""
+    g, mu, nu), on a leaf whose size is no multiple of the block, on one
+    past a grid's stride, and on the largest conv and 1-D leaves of the
+    full-width single-view model, at three (count, salt) pairs (salts at 0,
+    the largest and another; counts past JAX's int32 wrap of the moment
+    salt): p, mu and nu equal to the plain version's to the bit, one launch
+    each."""
+    from svbrdf_tpu_torch.models.generator import Generator
     from svbrdf_tpu_torch.ops import sr_adam
     from svbrdf_tpu_torch.parallel import optimizer as opt
 
+    with torch.device("meta"):
+        params = list(Generator(9, 64, 8).parameters())
+    largest = [tuple(max((p for p in params if (p.dim() >= 2) == conv),
+                         key=lambda p: p.numel()).shape)
+               for conv in (True, False)]
     g = torch.Generator(device=cuda).manual_seed(4)
-    for shape in ((61, 33, 4, 4), (4096 * 256 + 7,)):
-        for count, salt in ((1, 0), (2148, 2 ** 31 - 2)):
+    for shape in ((61, 33, 4, 4), (4096 * 256 + 7,), *largest):
+        for count, salt in ((1, 0), (2148, 2 ** 31 - 2),
+                            (5000, 123456789)):
             leaf = [(torch.randn(shape, generator=g, device=cuda)
                      * sc).to(dt) for sc, dt in zip((0.02, 1e-3, 1e-4),
                                                     dtypes)]
@@ -607,28 +1114,6 @@ def _multi_leaves(dev, specs, seed):
     return leaves
 
 
-def _hold_multi(leaves, s, launches):
-    """The multi-tensor kernel on copies of `leaves` against
-    sr_adam_multi_plain on other copies: p, mu and nu equal to the bit,
-    `launches` launches."""
-    from svbrdf_tpu_torch.ops import sr_adam
-    from svbrdf_tpu_torch.parallel import optimizer as opt
-
-    def copy(lf):
-        return sr_adam.SrLeaf(lf.index, *(t.clone() for t in lf[1:]))
-
-    kern = [copy(lf) for lf in leaves]
-    plain = [copy(lf) for lf in leaves]
-    before = sr_adam.sr_adam_multi_cuda.launches
-    sr_adam.sr_adam_multi_cuda(kern, s, {})
-    assert sr_adam.sr_adam_multi_cuda.launches == before + launches
-    opt.sr_adam_multi_plain(plain, s)
-    torch.cuda.synchronize()
-    for a, b in zip(kern, plain):
-        for x, y in zip(a[1:], b[1:]):
-            assert x.dtype == y.dtype and torch.equal(x, y)
-
-
 # (moment salt base, master salt base): 0; both near 2^32, so leaf index +
 # base wraps.
 @pytest.mark.parametrize("bases", [(0, 0), (2 ** 32 - 40, 2 ** 32 - 3),
@@ -651,7 +1136,8 @@ def test_sr_adam_multi_kernel_matches_plain(cuda, bases):
               (73, 2 ** 23 + 13, combos[15], (0, 0, 0, 0)),
               (74, 2 ** 23 + 9, combos[0], (0, 0, 0, 0))]
     s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, 2148, *bases)
-    _hold_multi(_multi_leaves(cuda, specs, seed=5), s, 1)
+    bench_setup.hold_sr_adam_multi(_multi_leaves(cuda, specs, seed=5), s,
+                                   1)
 
 
 def test_sr_adam_multi_splits_tables(cuda):
@@ -664,7 +1150,8 @@ def test_sr_adam_multi_splits_tables(cuda):
     specs = [(i, 33 + i, (BF16, BF16, BF16, BF16) if i % 2
               else (torch.float32,) * 4, (0, 0, 0, 0)) for i in range(n)]
     s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, 7, 7 * 1000003, 99)
-    _hold_multi(_multi_leaves(cuda, specs, seed=6), s, 2)
+    bench_setup.hold_sr_adam_multi(_multi_leaves(cuda, specs, seed=6), s,
+                                   2)
 
 
 @pytest.mark.parametrize("count", [1, 2148])
@@ -684,7 +1171,7 @@ def test_sr_adam_bf16_state_mode_matches_plain(cuda, count):
     s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, count,
                          count * 1000003, 2 ** 31 - 2, bf16_mu_product=True)
     leaves = _multi_leaves(cuda, specs, seed=7)
-    _hold_multi(leaves, s, 1)
+    bench_setup.hold_sr_adam_multi(leaves, s, 1)
     from svbrdf_tpu_torch.ops import sr_adam
 
     flagged = [sr_adam.SrLeaf(lf.index, *(t.clone() for t in lf[1:]))
@@ -697,10 +1184,54 @@ def test_sr_adam_bf16_state_mode_matches_plain(cuda, count):
     assert not torch.equal(flagged[0].mu, plain[0].mu)
 
 
+def test_sr_adam_rounding_is_unbiased(cuda):
+    """The kernel's stochastic rounding on the card: nu = x * x (b2 = 1,
+    1 - b2 = 1) stored in bf16 through SR, the mean over 400 salts within
+    rel 1e-3 of the f32 value of every element, as the JAX package's test
+    holds sr_bf16."""
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.sqrt(torch.empty(64, device=cuda).uniform_(1e-8, 1e-4,
+                                                         generator=g))
+    acc = torch.zeros(64, dtype=torch.float64, device=cuda)
+    salts = 400
+    for salt in range(salts):
+        nu = torch.zeros(64, dtype=BF16, device=cuda)
+        sr_adam.sr_adam_update_cuda(
+            torch.zeros_like(x), x, torch.zeros_like(x), nu,
+            opt.AdamScalars(b1=0.9, omb1=0.1, b2=1.0, omb2=1.0, bc1=1.0,
+                            bc2=1.0, eps=1e-8, neg_lr=0.0, nu_salt=salt,
+                            master_salt=0))
+        acc += nu.double()
+    target = (x * x).double()
+    assert float(((acc / salts - target).abs() / target).max()) <= 1e-3
+
+
+@pytest.mark.parametrize("kind, state, count", [
+    ("single", "bf16sr", 2148), ("multi", "bf16sr", 2148),
+    ("single", "bf16", 1), ("single", "bf16", 2148)])
+def test_sr_adam_every_leaf_of_the_models(cuda, kind, state, count):
+    """Every leaf of the full-width `kind` model in one multi-tensor call,
+    random gradients and moments, a master salt that wraps with the leaf
+    index: bit-exact against the plain version, one launch a table. State
+    'bf16sr': the bf16-SR main path's dtypes (>=2-D leaves bf16 master,
+    gradient and moments; 1-D f32); 'bf16': the 'bf16' state mode's (f32
+    parameters and gradients, bf16 mu, f32 nu, optax's bf16-mu order)."""
+    from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.parallel import optimizer as opt
+
+    leaves = bench_setup.sr_adam_model_leaves(kind, state, device=cuda)
+    s = opt.adam_scalars(1e-5, (0.9, 0.999), 1e-8, count, count * 1000003,
+                         2 ** 32 - 40, bf16_mu_product=state == "bf16")
+    bench_setup.hold_sr_adam_multi(
+        leaves, s, math.ceil(len(leaves) / sr_adam.max_leaves()))
+
+
 def test_path_tracer_card_matches_cpu(cuda):
     """The path tracer (its kernels) on the card against the CPU on the same
-    injected samples (B=2, S=9, 32^2, spp (4, 2)), as chip_smoke.py holds
-    it: renders by bench_setup.hold_render (rel 1e-5, or where f32 is
+    injected samples (B=2, S=9, 32^2, spp (4, 2)): renders by bench_setup.hold_render (rel 1e-5, or where f32 is
     ill-conditioned against float64; the card sums 3-term dot products in
     another order than the CPU); the mixed loss rel 1e-5; its gradient for
     pred within 1e-4 of the CPU's (normwise) and as close to float64 as
@@ -768,6 +1299,18 @@ def test_path_traced_full_width_step(cuda):
             "pathtrace_shade_vjp": 0, "pathtrace_shade_vjp_bf16": 1}
 
 
+def test_path_traced_training_stays_finite(cuda):
+    """20 path-traced train steps at full width at the CLI's default
+    precision (utils/pathtrace_stability: structured maps, spp (16, 8)):
+    every fetched loss and every Adam second moment finite."""
+    from svbrdf_tpu_torch.parallel.step import master_dtype_scope
+    from svbrdf_tpu_torch.utils import pathtrace_stability
+
+    with master_dtype_scope(), contextlib.redirect_stderr(io.StringIO()):
+        record = pathtrace_stability.run(steps=20)
+    assert record["all_finite"] and record["adam_nu_finite"]
+
+
 def _dp_program(**extra):
     return dict(model_kind="single", loss_kind="mixed", batch=4, size=32,
                 depth=5, num_filters=8, seed=0, device="cuda", **extra)
@@ -789,17 +1332,30 @@ def _assert_losses(losses, ref):
     np.testing.assert_allclose(losses, ref, rtol=1e-4)
 
 
+def _dp_launches(kernel, steps, bf16sr=False):
+    """A rank's launches in `steps` data-parallel steps of _dp_program:
+    the loss kernel and the block tails once a step, sr_adam too with
+    bf16-SR masters."""
+    return {kernel: steps,
+            **bench_setup.tail_launches("single", steps, depth=5),
+            **({"sr_adam": steps} if bf16sr else {})}
+
+
 def test_data_parallel_world_one_over_nccl(cuda):
     """The data-parallel step in a world-1 NCCL group (what the launcher
     runs on one card) against the plain step on the card: the losses as
     test_data_parallel_world_two_on_the_card holds them (bit-equal where
-    cuDNN runs deterministically), mixed_fwdgrad once a step."""
-    (one,) = bench_setup.data_parallel_runs(
-        1, [((_dp_program(), 3), {})], timeout=300)
+    cuDNN runs deterministically); in f32 and bf16-SR, every launch
+    counter (_dp_launches)."""
+    bf16 = _dp_program(dtype=BF16, master_dtype="bf16sr")
+    one, one_bf16 = bench_setup.data_parallel_runs(
+        1, [((_dp_program(), 3), {}), ((bf16, 3), {})], timeout=300)
     plain = bench_setup.train_steps(_dp_program(), 3)
-    assert one["backend"] == "nccl"
+    assert one["backend"] == one_bf16["backend"] == "nccl"
     _assert_losses(one["losses"], plain["losses"])
-    assert one["launches"][0]["mixed_fwdgrad"] == 3
+    _expect_launches(one["launches"][0], _dp_launches("mixed_fwdgrad", 3))
+    _expect_launches(one_bf16["launches"][0],
+                     _dp_launches("mixed_fwdgrad_bf16", 3, True))
 
 
 def test_data_parallel_world_two_on_the_card(cuda):
@@ -810,8 +1366,8 @@ def test_data_parallel_world_two_on_the_card(cuda):
     takes other algorithms at batch 2 than at 4, so the weights part after
     the first step and Adam's first steps magnify that (the same run with
     cuDNN off is held at the CPU's tolerances below); then bf16-SR; the
-    replicas bit-identical after each, mixed_fwdgrad (and sr_adam in
-    bf16-SR) once a step on each rank."""
+    replicas bit-identical after each, every launch counter of each rank
+    (_dp_launches)."""
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     bf16 = _dp_program(dtype=torch.bfloat16, master_dtype="bf16sr")
     two, two_bf16 = bench_setup.data_parallel_runs(
@@ -825,8 +1381,8 @@ def test_data_parallel_world_two_on_the_card(cuda):
         assert run["backend"] == backend
         assert len(set(run["checksums"])) == 1
         for counts in run["launches"]:
-            assert counts[kernel] == 3
-    assert [c["sr_adam"] for c in two_bf16["launches"]] == [3, 3]
+            _expect_launches(counts, _dp_launches(kernel, 3,
+                                                  run is two_bf16))
 
 
 def test_data_parallel_world_two_on_the_card_without_cudnn(cuda):
@@ -835,7 +1391,8 @@ def test_data_parallel_world_two_on_the_card_without_cudnn(cuda):
     whose sums do not follow cuDNN's choice of algorithm for a batch size),
     f32, 5 steps: the CPU tests' tolerances, each step's loss rel 1e-5 and
     the update normwise 1e-4, so that a fault of the gradient reduction or
-    of the rows' draws cannot hide under cuDNN; replicas bit-identical."""
+    of the rows' draws cannot hide under cuDNN; replicas bit-identical;
+    every launch counter of each rank (_dp_launches)."""
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     (two,) = bench_setup.data_parallel_runs(
         2, [((_dp_program(), 5), {"cudnn": False})], backend,
@@ -844,7 +1401,41 @@ def test_data_parallel_world_two_on_the_card_without_cudnn(cuda):
     np.testing.assert_allclose(two["losses"], one["losses"], rtol=1e-5)
     assert _update_normwise(two, one) <= 1e-4
     assert len(set(two["checksums"])) == 1
-    assert [c["mixed_fwdgrad"] for c in two["launches"]] == [5, 5]
+    for counts in two["launches"]:
+        _expect_launches(counts, _dp_launches("mixed_fwdgrad", 5))
+
+
+def _max_abs(a, b):
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def test_launcher_world_one_matches_the_plain_cli(cuda, maps_corpus,
+                                                  tmp_path):
+    """The CLI's defaults (bf16, bf16-SR masters) for 1 epoch: plain,
+    through the launcher at world 1 (parallel/multihost --num-processes 1,
+    a world-1 NCCL group), plain again, dropout's generators reseeded
+    alike; every launch counter of each (_cli_train); the launcher's final
+    weights bit-equal to the plain runs' where those are, else no further
+    from the first than twice the plain runs' own distance (three draws of
+    one nondeterministic run: the third need not be the nearest)."""
+    from svbrdf_tpu_torch.parallel import multihost
+
+    weights = {}
+    for name, entry in (("plain_a", None), ("launcher", multihost.main),
+                        ("plain_b", None)):
+        argv = _train_argv(maps_corpus, tmp_path / name, *MIXED, "--epochs",
+                           "1", "--retrain", devices=entry is None)
+        if entry is not None:
+            argv = ["--num-processes", "1", "--"] + argv
+        torch.manual_seed(0)
+        run, text = _cli_train(argv, ("mixed_fwdgrad_bf16", "mixed_fwd_bf16"),
+                               1, sr_adam=True, entry=entry)
+        if entry is not None:
+            assert "process 0/1" in text and "over nccl" in text
+        weights[name] = [p.detach() for p in run.model.parameters()]
+    plain = _max_abs(weights["plain_a"], weights["plain_b"])
+    assert _max_abs(weights["launcher"], weights["plain_a"]) <= 2 * plain
 
 
 def test_spatial_world_two_on_the_card_without_cudnn(cuda):
@@ -854,7 +1445,8 @@ def test_spatial_world_two_on_the_card_without_cudnn(cuda):
     ranks and in the reference, f32, 5 steps: each step's loss rel 1e-5
     and the update normwise 1e-4 (the CPU tests' tolerances); replicas
     bit-identical; render_fwdgrad once a step on each rank at its row
-    offset, the mixed-loss kernels not at all."""
+    offset, the mixed-loss kernels not at all, the block tails only where
+    a block runs whole on the rank (_spatial_tail_launches)."""
     backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     (two,) = bench_setup.rank_runs(
         2, [(bench_setup.spatial_train_steps, (_dp_program(), 5),
@@ -864,65 +1456,199 @@ def test_spatial_world_two_on_the_card_without_cudnn(cuda):
     assert _update_normwise(two[0], one) <= 1e-4
     assert len(set(two[0]["checksums"])) == 1
     for counts in two[0]["launches"]:
-        assert counts["render_fwdgrad"] == 5 and counts["mixed_fwdgrad"] == 0
+        _expect_launches(counts, {"render_fwdgrad": 5,
+                                  **_spatial_tail_launches(5, 0, 32, 5)})
 
 
+@pytest.mark.parametrize("batch, size", [(2, 32), (8, 256)])
 @pytest.mark.parametrize("name", ["render_fwdgrad", "render_fwd"])
-def test_rendering_kernels_at_a_row_offset(cuda, name):
+def test_rendering_kernels_at_a_row_offset(cuda, name, batch, size):
     """The two kernels of the spatial path on the two row halves of an
-    image (row offset 0 and 16 of a global height 32) against their plain
-    versions at the same offset, and the halves' losses summed (and
-    gradients put together) against the whole image's."""
-    pred_t, gt_t, scenes9 = bench_setup.loss_inputs(2, 32, 9, device=cuda)
+    image (row offset 0 and size / 2 of the global height; small, and at
+    the paths' shapes, B=8, 256^2, S=9) against their plain versions at
+    the same offset (at 256^2 the gradient exact, _assert_grad_exact), and
+    the halves' losses summed (and gradients put together) against the
+    whole image's."""
+    pred_t, gt_t, scenes9 = bench_setup.loss_inputs(batch, size, 9,
+                                                    device=cuda)
     wrapper, plain = rf.CUDA_WRAPPERS[name], rf.PLAIN_VERSIONS[name]
-    whole = wrapper(pred_t, gt_t, scenes9)
-    whole = whole if isinstance(whole, tuple) else (whole,)
+    whole = _outputs(wrapper(pred_t, gt_t, scenes9))
+    half = size // 2
     halves = []
-    for lo in (0, 16):
-        args = (pred_t[:, :, lo:lo + 16].contiguous(),
-                gt_t[:, :, lo:lo + 16].contiguous(), scenes9, lo, 32)
-        got, ref = wrapper(*args), plain(*args)
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=0)
+    for lo in (0, half):
+        args = (pred_t[:, :, lo:lo + half].contiguous(),
+                gt_t[:, :, lo:lo + half].contiguous(), scenes9, lo, size)
+        got, ref = _outputs(wrapper(*args)), _outputs(plain(*args))
+        _assert_close(got[0], ref[0], rtol=1e-5)
         for g, r in zip(got[1:], ref[1:]):
-            torch.testing.assert_close(g, r, rtol=2e-4,
-                                       atol=1e-3 * float(r.abs().max()))
+            if size == 256:
+                _assert_grad_exact(g, r)
+            else:
+                _assert_grad_close(g, r)
         halves.append(got)
-    torch.testing.assert_close(halves[0][0] + halves[1][0], whole[0],
-                               rtol=1e-6, atol=0)
+    _assert_close(halves[0][0] + halves[1][0], whole[0], rtol=1e-6)
     if len(whole) > 1:
-        torch.testing.assert_close(
-            torch.cat([h[1] for h in halves], dim=2), whole[1], rtol=1e-6,
-            atol=1e-6 * float(whole[1].abs().max()))
+        _assert_close(torch.cat([h[1] for h in halves], dim=2), whole[1],
+                      rtol=1e-6, atol=1e-6 * float(whole[1].abs().max()))
+
+
+def _spatial_eval_rank(program, images, group):
+    """In a rank of the spatial group: the eval step on the program's raw
+    batch and the sharded predict of `images`, f32, each with every launch
+    counter read around it; the eval loss and the maps gathered on rank
+    0."""
+    from svbrdf_tpu_torch.device import precision_scope
+    from svbrdf_tpu_torch.parallel import spatial
+
+    with precision_scope(torch.float32):
+        prog = bench_setup.build_program(**program, space=group)
+        loss, eval_launches = _counted(lambda: float(prog.eval_step(
+            prog.raw)))
+        rows, predict_launches = _counted(lambda: prog.predict(
+            images.to(group.device)))
+    maps = spatial.gather_maps(rows, group)
+    return {"eval": loss, "eval_launches": eval_launches,
+            "predict_launches": predict_launches,
+            "maps": None if maps is None else maps.cpu()}
+
+
+@pytest.mark.parametrize("size", [32, 64])
+def test_spatial_eval_and_predict_match_one_device(cuda, size):
+    """An eval step and the sharded predict at world 2 on the card (both
+    ranks on cuda:0 over gloo where there is one card), f32, against one
+    device's: the eval loss rel 1e-5, the gathered maps within 1e-4; on
+    each rank render_fwd once for the eval step, the block tails only where
+    a block runs whole (at 32^2 the 1-row ones; at 64^2, depth 5, none)."""
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    program = dict(_dp_program(), size=size)
+    images = torch.rand((4, 1, size, size, 3),
+                        generator=torch.Generator().manual_seed(5))
+    (ranks,) = bench_setup.rank_runs(
+        2, [(_spatial_eval_rank, (program, images), {})], "cuda", backend,
+        timeout=300)
+    prog = bench_setup.build_program(**program)
+    one_eval = float(prog.eval_step(prog.raw))
+    one_maps = prog.predict(images.to(cuda)).cpu()
+    whole = _spatial_tail_launches(0, 1, size, 5)
+    for rank in ranks:
+        _expect_launches(rank["eval_launches"], {"render_fwd": 1, **whole})
+        _expect_launches(rank["predict_launches"], whole)
+    assert abs(ranks[0]["eval"] - one_eval) <= 1e-5 * abs(one_eval)
+    assert float((ranks[0]["maps"] - one_maps).abs().max()) <= 1e-4
+
+
+def _spatial_cli_rank(argv, images, group):
+    """In a rank of the spatial group: main.main(argv, group) with every
+    launch counter read around it; the run's steps, validation batches,
+    last loss, printout, the sr_adam launches a step of its optimizer, and
+    on rank 0 the trained model's maps of `images` (unsharded predict)."""
+    from svbrdf_tpu_torch import main as cli_main
+    from svbrdf_tpu_torch.parallel.optimizer import AdamBf16SR
+    from svbrdf_tpu_torch.parallel.step import make_predict_fn
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        run, launches = _counted(lambda: cli_main.main(argv, group))
+    out = {"launches": launches, "steps": run.steps,
+           "validation_batches": run.validation_batches,
+           "last_loss": run.last_loss, "text": text.getvalue(),
+           "sr_adam_per_step": (bench_setup.sr_adam_launches(run.model)
+                                if isinstance(run.optimizer, AdamBf16SR)
+                                else 0)}
+    if group.is_main:
+        out["maps"] = make_predict_fn(run.model)(
+            images.to(group.device)).cpu()
+    return out
+
+
+def test_spatial_cli_trains_on_two_ranks(cuda, maps_corpus, tmp_path):
+    """The CLI at its defaults with --shard-spatial 2 for 1 epoch,
+    main.main(argv, group) in two ranks: on each, PER_EPOCH steps and one
+    validation batch, render_fwdgrad once a step, render_fwd once a
+    validation batch, sr_adam as its optimizer takes it, the block tails
+    where a block runs whole plus rank 0's whole forwards of the held-out
+    samples, 0 elsewhere; a finite loss; the checkpoint's meta (upconv
+    'fold', master_dtype 'f32', epoch 0); a fresh model restored from it
+    predicts the trained model's bits."""
+    from svbrdf_tpu_torch.parallel.step import make_predict_fn
+    from svbrdf_tpu_torch.training.loop import resolve_dtype
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    model_dir = tmp_path / "spatial"
+    argv = _train_argv(maps_corpus, model_dir, *MIXED, "--epochs", "1",
+                       "--retrain", "--shard-spatial", "2", devices=False)
+    images = torch.rand((2, 1, 32, 32, 3),
+                        generator=torch.Generator().manual_seed(5))
+    (runs,) = bench_setup.rank_runs(
+        2, [(_spatial_cli_rank, (argv, images), {})], "cuda", backend,
+        timeout=600)
+    for run in runs:
+        assert (run["steps"], run["validation_batches"]) == (PER_EPOCH, 1)
+        sharded = _spatial_tail_launches(run["steps"],
+                                         run["validation_batches"], 32, 5)
+        whole = bench_setup.tail_launches("single", 0, _grids(run["text"]), 5)
+        _expect_launches(run["launches"], {
+            "render_fwdgrad": run["steps"],
+            "render_fwd": run["validation_batches"],
+            "sr_adam": run["steps"] * run["sr_adam_per_step"],
+            **{k: sharded[k] + whole[k] for k in sharded}})
+        assert math.isfinite(run["last_loss"])
+        assert "Spatial group: H split over 2 rank(s)" in run["text"]
+    blob = torch.load(model_dir / "checkpoint.tar", map_location="cpu",
+                      weights_only=True)
+    assert {k: blob.get(k) for k in ("upconv", "master_dtype", "epoch")} \
+        == {"upconv": "fold", "master_dtype": "f32", "epoch": 0}
+    fresh = _reloaded(model_dir, resolve_dtype("auto", "cuda"))
+    # TF32 as the ranks' processes left it: torch's defaults.
+    with _torch_default_tf32():
+        maps = make_predict_fn(fresh)(images.to(cuda)).cpu()
+    assert torch.equal(maps, runs[0]["maps"])
+
+
+def test_dryrun_spatial_needs_two_cards(cuda):
+    """dryrun.run_spatial(2): with one card it raises the no-card error
+    before a rank starts; with two, one spatial step gives a finite
+    loss."""
+    from svbrdf_tpu_torch.parallel import dryrun
+
+    if torch.cuda.device_count() >= 2:
+        assert math.isfinite(dryrun.run_spatial(2, timeout=300))
+    else:
+        with pytest.raises(ValueError):
+            dryrun.run_spatial(2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_pathtrace_kernels_match_plain(cuda, dtype):
+@pytest.mark.parametrize("batch, size", [(2, 64), (8, 256)])
+def test_pathtrace_kernels_match_plain(cuda, batch, size, dtype):
     """The path tracer's forward kernel and its VJP against their plain
-    versions (B=2, S=9, 64^2, spp (16, 8)) by bench_setup's rules:
-    renders by hold_render, each sum of the VJP as close to float64 as
-    the plain version (2x, plus 1e-5) and for an f32 SVBRDF within 1e-4 of
-    it where the plain version is within 1e-4 of float64."""
-    case = bench_setup.pathtrace_case(2, 64, 64, dtype=dtype)
+    versions (S=9, spp (16, 8); B=2 at 64^2, and the path's B=8 at 256^2)
+    by bench_setup's rules: renders by hold_render, each sum of the VJP as
+    close to float64 as the plain version (2x, plus 1e-5) and for an f32
+    SVBRDF within 1e-4 of it where the plain version is within 1e-4 of
+    float64."""
+    case = bench_setup.pathtrace_case(batch, size, size, dtype=dtype)
     out = bench_setup.hold_pathtrace_kernels(case)
     assert out["render"]["beyond_rtol"] <= 0.01
 
 
-def test_pathtrace_kernels_on_a_ragged_grid(cuda):
-    """250 x 243 pixels (a ragged last block of each row of blocks), B=3."""
-    case = bench_setup.pathtrace_case(3, 250, 243, spp=(4, 2))
+@pytest.mark.parametrize("spp", [(4, 2), (16, 8)])
+def test_pathtrace_kernels_on_a_ragged_grid(cuda, spp):
+    """250 x 243 pixels (a ragged last block of each row of blocks), B=3,
+    at a small spp and at the path's."""
+    case = bench_setup.pathtrace_case(3, 250, 243, spp=spp)
     bench_setup.hold_pathtrace_kernels(case)
 
 
-def test_pathtrace_vjp_with_scene_gradients(cuda):
+@pytest.mark.parametrize("spp", [(4, 2), (16, 8)])
+def test_pathtrace_vjp_with_scene_gradients(cuda, spp):
     """The VJP's scene instantiation (wo's cotangent and the scene fields'
-    per-block partials) at 32^2, and render_mc's gradients for the SVBRDF
-    and every scene field on the card against the CPU (normwise 1e-4, as
-    the CPU holds the port to JAX)."""
+    per-block partials) at 32^2, at a small spp and at the path's, and
+    render_mc's gradients for the SVBRDF and every scene field on the card
+    against the CPU (normwise 1e-4, as the CPU holds the port to JAX)."""
     from svbrdf_tpu_torch.ops import pathtrace as pt
 
-    case = bench_setup.pathtrace_case(2, 32, 32, spp=(4, 2))
+    case = bench_setup.pathtrace_case(2, 32, 32, spp=spp)
     bench_setup.hold_pathtrace_kernels(case, scene_grads=True)
 
     def grads(device):
@@ -940,12 +1666,15 @@ def test_pathtrace_vjp_with_scene_gradients(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_pathtrace_loss_zero_for_identical_maps(cuda, dtype):
-    """The path-traced mixed loss through the kernels: pred equal to the
-    target (same dtype, same samples) gives loss and gradient exactly 0."""
+@pytest.mark.parametrize("batch, size", [(2, 32), (8, 256)])
+def test_pathtrace_loss_zero_for_identical_maps(cuda, batch, size, dtype):
+    """The path-traced mixed loss through the kernels, small and at the
+    path's shapes: pred equal to the target (same dtype, same samples)
+    gives loss and gradient exactly 0."""
     from svbrdf_tpu_torch import losses
 
-    target = bench_setup.pathtrace_inputs(2, 32, device="cuda")[1].to(dtype)
+    target = bench_setup.pathtrace_inputs(batch, size,
+                                          device="cuda")[1].to(dtype)
     pred = target.clone().requires_grad_()
     loss = losses.make_loss_fn("mixed", "pathtracing")(
         pred, target, torch.Generator(device=cuda).manual_seed(1))
@@ -1103,3 +1832,175 @@ def test_norm_merge_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="m must be"):
         nm.norm_merge_fwd_cuda(x, m=torch.zeros(2, 3, device=cuda,
                                                 dtype=BF16))
+
+
+# The inference API and the tools on the card, on a toy corpus made there:
+# TOY_STRIPS train and as many test strips of 10 photos at 32^2, the train
+# directory filled with symlinks up to CLI_SAMPLES files.
+TOY_STRIPS = 8
+
+
+@pytest.fixture(scope="module")
+def toy_run(tmp_path_factory):
+    """The toy corpus generated on the card, the first photo of each test
+    strip written as a photo file, and the CLI at its defaults trained on
+    the photo strips for 1 epoch; each with the launches it made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the toy data render on the card")
+    from svbrdf_tpu_torch.data import png, strips, toy
+
+    root = tmp_path_factory.mktemp("toy")
+    n = TOY_STRIPS
+    with contextlib.redirect_stdout(io.StringIO()):
+        written, toy_launches = _counted(lambda: toy.generate_toy_dataset(
+            str(root / "toy"), n, n, 32, 10, seed=313, device="cuda"))
+    train = root / "toy" / "train"
+    for k in range(n, CLI_SAMPLES):
+        (train / f"link_{k:03d}.png").symlink_to(
+            train / f"toy_train_{k % n:02d}.png")
+    (root / "photos").mkdir()
+    photos = []
+    for path in written[n:]:
+        photo = root / "photos" / pathlib.Path(path).name
+        png.write_png_rgb8(str(photo), strips.read_image_u8(path)[:, :32])
+        photos.append(str(photo))
+    model_dir = root / "model"
+    run, text, cli_launches = _cli(
+        ["--mode", "train", "--input-dir", str(train), "--image-count", "10",
+         "--used-image-count", "1", "--loss", "mixed", "--epochs", "1",
+         "--retrain", "--save-frequency", "1", "--validation-frequency",
+         "1", "--model-dir", str(model_dir), "--num-devices", "1"] + WIDTH)
+    return {"root": root, "written": written, "toy_launches": toy_launches,
+            "photos": photos, "test": written[n:], "model_dir": model_dir,
+            "run": run, "text": text, "cli_launches": cli_launches}
+
+
+def test_toy_data_and_the_cli_on_the_card(cuda, toy_run):
+    """data/toy on the card: every strip (10 photos and 4 maps at 32^2)
+    written, no kernel launched (torch ops); the CLI at its defaults on
+    the photo strips: PER_EPOCH steps, one validation batch, the bf16 loss
+    kernels, sr_adam and the block tails (_cli_train's rule)."""
+    from svbrdf_tpu_torch.data import strips
+
+    assert len(toy_run["written"]) == 2 * TOY_STRIPS
+    for path in toy_run["test"]:
+        assert strips.read_image_u8(path).shape == (32, 14 * 32, 3)
+    _expect_launches(toy_run["toy_launches"], {})
+    run, text = toy_run["run"], toy_run["text"]
+    assert (run.steps, run.validation_batches) == (PER_EPOCH, 1)
+    _expect_launches(toy_run["cli_launches"], {
+        "mixed_fwdgrad_bf16": run.steps, "mixed_fwd_bf16": 1,
+        "sr_adam": run.steps * bench_setup.sr_adam_launches(run.model),
+        **bench_setup.tail_launches("single", run.steps, 1 + _grids(text), 5)})
+    assert math.isfinite(run.last_loss)
+
+
+def test_estimator_on_the_card(cuda, toy_run):
+    """SvbrdfEstimator.from_checkpoint on the card: predict on the test
+    photos, one forward (its block tails) a call, equal to a fresh model
+    restored from the same checkpoint and finite; predict_to_files writes
+    a map strip a photo, one forward a call."""
+    from svbrdf_tpu_torch.data import strips
+    from svbrdf_tpu_torch.estimator import SvbrdfEstimator
+    from svbrdf_tpu_torch.parallel.step import make_predict_fn
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        est = SvbrdfEstimator.from_checkpoint(toy_run["model_dir"],
+                                              device="cuda")
+    assert est.device.type == "cuda"
+    photos = toy_run["photos"]
+    images = np.stack([strips.read_image(p) for p in photos]) ** 2.2
+    maps, counts = _counted(lambda: est.predict(images))
+    _expect_launches(counts, bench_setup.tail_launches("single", 0, 1, 5))
+    direct = make_predict_fn(_reloaded(toy_run["model_dir"]))(
+        torch.from_numpy(images).to(cuda))
+    assert np.array_equal(maps, direct.cpu().numpy())
+    assert maps.shape == (len(photos), 32, 32, 12)
+    assert np.isfinite(maps).all()
+    written, counts = _counted(lambda: est.predict_to_files(
+        photos, str(toy_run["root"] / "predicted")))
+    _expect_launches(counts, bench_setup.tail_launches("single", 0, 1, 5))
+    assert len(written) == len(photos)
+    for path in written:
+        assert strips.read_image_u8(path).shape == (32, 128, 3)
+
+
+def test_map_recovery_on_the_card(cuda):
+    """experiments/map_recovery on the card: the diffuse map of a 256^2
+    toy material over 200 steps under 6 fixed scenes converges (last loss
+    below 0.3 x the first) and launches no kernel; at 16^2, 10 steps
+    against the same call on the CPU: loss rel 1e-4, maps 1e-4."""
+    from svbrdf_tpu_torch.data import toy
+    from svbrdf_tpu_torch.experiments import recover_maps
+
+    def scenes(seed):
+        drawn = sampling.generate_loss_scenes(
+            1, 3, 3, generator=torch.Generator().manual_seed(seed))
+        return Scene(drawn.camera_pos[0], drawn.light_pos[0],
+                     drawn.light_color[0])
+
+    target = toy.make_toy_svbrdf(np.random.default_rng(5), 256)
+    result, counts = _counted(lambda: recover_maps(
+        torch.Generator(device=cuda).manual_seed(0), target,
+        optimize=("diffuse",), steps=200, scenes=scenes(1), device=cuda))
+    _expect_launches(counts, {})
+    assert result.svbrdf.device.type == "cuda"
+    losses = result.losses.cpu()
+    assert float(losses[-1]) < 0.3 * float(losses[0])
+    small = toy.make_toy_svbrdf(np.random.default_rng(6), 16)
+    card, cpu = (recover_maps(torch.Generator(device=d).manual_seed(0),
+                              small, optimize=("diffuse",), steps=10,
+                              scenes=scenes(2), device=d)
+                 for d in ("cuda", "cpu"))
+    assert float(((card.losses.cpu() - cpu.losses).abs()
+                  / cpu.losses.abs()).max()) <= 1e-4
+    assert float((card.svbrdf.cpu() - cpu.svbrdf).abs().max()) <= 1e-4
+
+
+def test_turntable_gif_on_the_card(cuda, tmp_path):
+    """viz.turntable_frames on the card: 8 frames of 384^2 from a 256^2
+    toy material, no kernel launched, written as a GIF whose header,
+    frames, delays and loop block read back, and not black."""
+    from svbrdf_tpu_torch import viz
+    from svbrdf_tpu_torch.data import gif, toy
+
+    target = toy.make_toy_svbrdf(np.random.default_rng(7), 256)
+    path = tmp_path / "turntable.gif"
+    frames, counts = _counted(lambda: viz.turntable_frames(
+        target, n_frames=8, sensor_size=(384, 384), device=cuda))
+    _expect_launches(counts, {})
+    viz.save_animation(str(path), frames)
+    assert gif.gif_info(str(path)) == {"size": (384, 384), "frames": 8,
+                                       "delays_cs": [7] * 8, "loop": 0}
+    assert max(float(f.mean()) for f in frames) > 0.05
+
+
+@pytest.mark.parametrize("name", ["predict", "turntable", "renderer_compare",
+                                  "recover_maps"])
+def test_examples_on_the_card(cuda, toy_run, tmp_path, name):
+    """Each example's main(argv) on the toy run, --device cuda, writing its
+    file: predict runs one forward of the model (its block tails),
+    renderer_compare renders its f32 maps once through the path tracer's
+    forward kernel, the others launch no kernel."""
+    import importlib
+
+    strip, photos = toy_run["test"][0], toy_run["photos"][:2]
+    runs = {
+        "predict": ([str(toy_run["model_dir"]), str(tmp_path), *photos],
+                    [tmp_path / (pathlib.Path(p).stem + "_svbrdf.png")
+                     for p in photos],
+                    bench_setup.tail_launches("single", 0, 1, 5)),
+        "turntable": ([strip, str(tmp_path / "t.gif"), "4"],
+                      [tmp_path / "t.gif"], {}),
+        "renderer_compare": ([strip, str(tmp_path / "compare.png")],
+                             [tmp_path / "compare.png"],
+                             {"pathtrace_shade": 1}),
+        "recover_maps": ([strip, "diffuse", str(tmp_path / "r.png"), "50"],
+                         [tmp_path / "r.png"], {}),
+    }
+    argv, files, expected = runs[name]
+    main = importlib.import_module("svbrdf_tpu_torch.examples." + name).main
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, counts = _counted(lambda: main(argv + ["--device", "cuda"]))
+    _expect_launches(counts, expected)
+    assert all(f.is_file() for f in files)

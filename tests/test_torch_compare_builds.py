@@ -1,6 +1,6 @@
 """The build comparison tool's parsers (ptxas's and cuobjdump's output, as
-the CUDA 12.8 toolkit prints them) and the loss inputs it and chip_smoke.py
-share, on the CPU. The tool itself needs a card and nvcc."""
+the CUDA 12.8 toolkit prints them) and the loss inputs it and the card
+tests share, on the CPU. The tool itself needs a card and nvcc."""
 
 import pytest
 import torch

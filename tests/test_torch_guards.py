@@ -63,6 +63,35 @@ def test_imports_without_jax_or_the_jax_package():
     assert int(out.stdout.split()[-1]) >= 56  # every module was imported
 
 
+_COLLECT_CARD_TESTS = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "svbrdf_tpu", "PIL"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import pytest
+sys.exit(pytest.main(["--noconftest", "--collect-only", "-q",
+                      "-p", "no:cacheprovider", "tests/test_torch_card.py"]))
+"""
+
+
+def test_card_tests_collect_without_jax():
+    """The card suite, as a card machine without JAX runs it (--noconftest,
+    the repo's conftest.py being the one that sets JAX up): every test
+    collects with JAX, the JAX package and Pillow unimportable."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", _COLLECT_CARD_TESTS],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "error" not in out.stdout.lower()
+    collected = [line for line in out.stdout.splitlines()
+                 if line.startswith("tests/test_torch_card.py::")]
+    assert len(collected) >= 141
+    for test in ("test_paths_launch_every_counter[single_mixed_bf16]",
+                 "test_kernels_on_the_paths_inputs[render_fwdgrad-bf16-far]",
+                 "test_pathtrace_kernels_match_plain[8-256-dtype1]"):
+        assert f"tests/test_torch_card.py::{test}" in collected
+
+
 def test_the_import_walk_reaches_the_tail_modules():
     import pkgutil
 

@@ -1,7 +1,7 @@
 """The port's reduced-precision Adam (svbrdf_tpu_torch/parallel/optimizer.py)
 against the JAX package's (svbrdf_tpu/parallel/optimizer.py), on the CPU,
 where AdamBf16SR runs its plain version (the card's kernel is held to that
-in tests/test_torch_card.py and chip_smoke.py).
+in tests/test_torch_card.py).
 
 Tolerances: the dither and the stochastic rounding are bit-equal to JAX's
 on the same flat arrays and salts (uint32 arithmetic, no rounding). An

@@ -2,7 +2,7 @@
 optax.adam(mu_dtype=bfloat16), the JAX package's choice for that mode
 (svbrdf_tpu/parallel/step.py make_optimizer), on the CPU, where AdamBf16SR
 runs its plain version (the card's kernel is held to that in
-tests/test_torch_card.py and chip_smoke.py).
+tests/test_torch_card.py).
 
 Tolerances: mu bit-equal to optax's at every step (optax rounds b1 to bf16,
 rounds the product b1 * mu to bf16 and adds (1 - b1) * g in f32, which the

@@ -10,7 +10,7 @@ per-tile sums differ from a float64 evaluation of the same loss by up to
 On inputs near convergence (pred within 1e-3 of gt) the loss is ~100x
 smaller and the same f32 rounding weighs more: see NEAR_PALLAS_RTOL.
 The kernels themselves are compared with the plain versions on the card,
-by tests/test_torch_card.py and by chip_smoke.py.
+by tests/test_torch_card.py.
 """
 
 import jax

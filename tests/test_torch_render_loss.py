@@ -7,8 +7,8 @@ Tolerances: value rtol 2e-5 against the Pallas kernels (their f32 per-tile
 sums, see tests/test_torch_render_fused.py) and 1e-5 against the port's
 composition; dpred and dgt rtol 2e-4, atol 1e-6, as tests/test_render_pallas.py
 holds the Pallas kernels to the jnp composition. The kernels themselves are
-compared with the plain versions on the card, by tests/test_torch_card.py
-and by chip_smoke.py.
+compared with the plain versions on the card, by
+tests/test_torch_card.py.
 """
 
 import jax

@@ -4,7 +4,7 @@ tables, salts, packed records), and the bucketed AdamBf16SR.step against
 the per-leaf loop it replaced (one adam_update_plain per leaf with the
 host's salts u32(count * 1000003 + i) and u32(master_salt + i)), bit for
 bit. The kernel itself is held to the plain version on the card
-(tests/test_torch_card.py, chip_smoke.py).
+(tests/test_torch_card.py).
 """
 
 import itertools
