@@ -25,19 +25,25 @@ raising (and so exiting non-zero) on a failure:
      - SR-Adam over every leaf of both full-width models in the bf16-SR
        dtypes, bit-exact, one launch a table;
      - the path tracer's two kernels at B=8, S=9, 256^2, spp (16, 8), for
-       an f32 and a bf16 SVBRDF (bench_setup.hold_pathtrace_kernels).
+       an f32 and a bf16 SVBRDF (bench_setup.hold_pathtrace_kernels);
+     - the styled conv tails of MaterialGAN's config-f generator at batch
+       8 (bench_setup.hold_styled_tail_kernels).
   3. paths: each of bench_setup.PATHS at full width, built by
      bench_setup.build_program, in two parts, 5 train steps, then an eval
      step and a predict: every launch counter zeroed just before a part
      and read just after it, each equal to the path's table (the loss or
      path tracer kernels, the block tails, sr_adam), every other 0; the
-     losses finite. Each part runs under torch.profiler.
+     losses finite. Each part runs under torch.profiler. Then
+     MaterialGAN's capture at the benchmark cell's shapes (config-f at
+     256^2, 8 materials, 7 photos each): 2 iterations, then 3 counted and
+     profiled, 13 + 13 styled_tail launches an iteration.
   4. the `kernels` line, one JSON record: for each path, part and
      kernel, its launches, its device time (ms, torch.profiler's CUPTI
      trace of that part) and its bound (ms: the larger of the bytes it
      must move over the memory rate and its operations over the peak
-     rates, bench_gpu/counts/bounds.py; the block tails and SR-Adam by
-     their bytes alone), and the bound's share of the device time.
+     rates, bench_gpu/counts/bounds.py; the block tails, the styled
+     conv tails and SR-Adam by their bytes alone), and the bound's share
+     of the device time.
 """
 
 import json
@@ -51,11 +57,13 @@ import torch
 
 from bench_gpu.counts.bounds import (card_rates, loss_bound_s,
                                      pathtrace_bound_s)
+from svbrdf_tpu_torch.data import pipeline
 from svbrdf_tpu_torch.utils import bench_setup
 
 BF16 = torch.bfloat16
 BATCH, SIZE, DEPTH, FILTERS, SCENES, SPP = 8, 256, 8, 64, 9, (16, 8)
 STEPS = 5
+PHOTOS, CAPTURE_ITERATIONS = 7, 3
 # The device function each launch counter (less its dtype suffix) runs.
 DEVICE_NAMES = {"mixed_fwdgrad": "mixed_fwdgrad_kernel",
                 "mixed_fwd": "value_loss_kernel",
@@ -66,7 +74,9 @@ DEVICE_NAMES = {"mixed_fwdgrad": "mixed_fwdgrad_kernel",
                 "pathtrace_shade_vjp": "shade_vjp_kernel",
                 "norm_merge_fwd": "norm_merge_fwd_kernel",
                 "norm_merge_bwd": "norm_merge_bwd_kernel",
-                "sr_adam": "sr_adam_kernel"}
+                "sr_adam": "sr_adam_kernel",
+                "styled_tail_fwd": "styled_tail_fwd_kernel",
+                "styled_tail_bwd": "styled_tail_bwd_kernel"}
 
 
 def log(msg: str) -> None:
@@ -171,6 +181,29 @@ def hold_pathtrace() -> None:
         out = bench_setup.hold_pathtrace_kernels(case)
         log(f"path tracer {dtype}: renders {out['render']['beyond_rtol']:.2e}"
             f" beyond rtol, VJP sums within their tolerance")
+
+
+def hold_styled_tails() -> None:
+    cases = bench_setup.styled_tail_cases(BATCH)
+    failed = {str(c): h for c in cases
+              if (h := bench_setup.hold_styled_tail_kernels(c))["failed"]}
+    if failed:
+        raise RuntimeError(f"styled_tail kernels off the plain version: "
+                           f"{failed}")
+    log(f"styled_tail: {len(cases)} styled conv tails of the config-f "
+        f"generator held to the plain version")
+
+
+def _styled_tail_bytes(case: tuple) -> tuple:
+    """(forward, backward, saved) bytes of a styled conv's tail, f32: what
+    the function must move, each value read or written once (forward t
+    in, out out, the noise map in; backward the cotangent and y, or about
+    as many values of t, in, t's gradient out, the noise map in and its
+    gradient out), and what the design adds beyond that, an up conv's
+    blurred y written by the forward for the backward."""
+    b, c, h, w, up = case
+    n, t, noise = b * c * h * w, b * c * (h + up) * (w + up), b * h * w
+    return 4 * (t + n + noise), 4 * (2 * n + t + 2 * noise), 4 * n * up
 
 
 def _tail_bytes(case: tuple, size: int) -> tuple:
@@ -318,6 +351,49 @@ def phase_path(path: str, rates: dict) -> dict:
     return out
 
 
+def phase_capture(rates: dict) -> dict:
+    """MaterialGAN's capture at the benchmark cell's shapes, the generator
+    seeded: its launches and the styled_tail kernels' device ms against
+    their bound."""
+    from svbrdf_tpu_torch.experiments import CaptureStep
+    from svbrdf_tpu_torch.models import build_model
+
+    start = time.perf_counter()
+    model = build_model("materialgan", device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    scenes = pipeline.generate_input_scenes(BATCH, PHOTOS, True,
+                                            generator=gen, device="cuda")
+    photos = torch.rand(BATCH, PHOTOS, SIZE, SIZE, 3, generator=gen,
+                        device="cuda")
+    step = CaptureStep(model, photos, scenes, generator=gen)
+    for _ in range(2):
+        step()
+    losses, counts, device_ms = _part(lambda: [
+        float(step()) for _ in range(CAPTURE_ITERATIONS)])
+    convs = CAPTURE_ITERATIONS * len(model.convs)
+    _expect(counts, {"styled_tail_fwd": convs, "styled_tail_bwd": convs},
+            "capture iterations")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"capture: losses {losses}")
+    cases = bench_setup.styled_tail_cases(BATCH)
+    fwd, bwd, saved = map(sum, zip(*map(_styled_tail_bytes, cases)))
+    bounds = {"styled_tail_fwd": fwd / len(cases) / rates["bytes"] * 1e3,
+              "styled_tail_bwd": bwd / len(cases) / rates["bytes"] * 1e3}
+    out = {"iterations": _record(counts, device_ms, bounds),
+           "saved_y_ms": CAPTURE_ITERATIONS * saved / rates["bytes"] * 1e3}
+    log(f"capture: losses {', '.join(f'{x:.5f}' for x in losses)}; "
+        f"launches as expected; {time.perf_counter() - start:.1f} s")
+    log(f"  the up convs' saved y, outside the forward's bound: "
+        f"{saved / 1e9:.3f} GB an iteration, {out['saved_y_ms']:.4f} ms "
+        f"at the memory rate over the {CAPTURE_ITERATIONS} iterations")
+    for name, r in out["iterations"].items():
+        ms = "not measured" if r["ms"] is None else f"{r['ms']:.4f} ms"
+        pct = "" if r["bound_pct"] is None else f", {r['bound_pct']:.1f} %"
+        log(f"  iterations {name}: {r['launches']} launches, {ms}, bound "
+            f"{r['bound_ms']:.4f} ms{pct}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it "
@@ -326,11 +402,12 @@ def main() -> None:
     card = phase_device()
     rates = card_rates(card)
     for hold in (hold_loss_kernels, hold_tails, hold_sr_adam,
-                 hold_pathtrace):
+                 hold_pathtrace, hold_styled_tails):
         start = time.perf_counter()
         hold()
         log(f"{hold.__name__}: {time.perf_counter() - start:.1f} s")
     kernels = {path: phase_path(path, rates) for path in bench_setup.PATHS}
+    kernels["materialgan_capture"] = phase_capture(rates)
     print(json.dumps({"card": card, "kernels": kernels}), flush=True)
     log(f"chip_smoke ok in {time.perf_counter() - t0:.1f} s")
 

@@ -55,8 +55,9 @@ from torch.nn import functional as F
 
 from svbrdf_tpu_torch.device import resolve_device
 from svbrdf_tpu_torch.models.single_view import decode_head
+from svbrdf_tpu_torch.ops.styled_tail import (SQRT2, blur, depthwise,
+                                              fir_kernel, styled_tail)
 
-SQRT2 = math.sqrt(2.0)
 LR_MULTIPLIER = 0.01
 RGB_CHANNELS = 9
 W_AVG_SAMPLES = 4096
@@ -64,30 +65,12 @@ _STRENGTH_STD = 0.1
 _TO_RGB_STD = 0.1
 
 
-def fir_kernel(device=None) -> torch.Tensor:
-    """The 4x4 FIR of [1, 3, 3, 1] (outer product), summing to 4: the gain
-    of a 2x up-sampling."""
-    k = torch.tensor([1.0, 3.0, 3.0, 1.0], device=device)
-    return torch.outer(k, k) / 16.0
-
-
-def _depthwise(kernel: torch.Tensor, channels: int) -> torch.Tensor:
-    return kernel[None, None].expand(channels, 1, *kernel.shape)
-
-
-def blur(x: torch.Tensor, fir: torch.Tensor) -> torch.Tensor:
-    """The FIR after a transposed conv of stride 2: (2H + 1)^2 -> (2H)^2,
-    padded by 1 (upfirdn2d with pad (1, 1))."""
-    c = x.shape[1]
-    return F.conv2d(x, _depthwise(fir, c), padding=1, groups=c)
-
-
 def upsample(x: torch.Tensor, fir: torch.Tensor) -> torch.Tensor:
     """2x FIR up-sampling of the toRGB skips (upfirdn2d with up 2, pad
     (2, 1)): zero insertion then the FIR is a transposed depthwise conv of
     stride 2 with padding 1 (the kernel is symmetric)."""
     c = x.shape[1]
-    return F.conv_transpose2d(x, _depthwise(fir, c), stride=2, padding=1,
+    return F.conv_transpose2d(x, depthwise(fir, c), stride=2, padding=1,
                               groups=c)
 
 
@@ -125,7 +108,9 @@ class ModulatedConv(nn.Module):
     style, so a call scales the input once and convolves with the weight
     as stored. It returns the convolution and, where it demodulates, the
     demodulation (B, Cout) for the caller to apply (StyledConv fuses it
-    with its bias); the FIR is per channel, so it may come first."""
+    with its bias); the FIR is per channel, so it may come first.
+    `convolve` gives the same before the FIR, which StyledConv's tail
+    applies."""
 
     def __init__(self, cin: int, cout: int, kernel: int, w_dim: int,
                  demodulate: bool = True, up: bool = False):
@@ -138,11 +123,15 @@ class ModulatedConv(nn.Module):
             self.register_buffer("fir", fir_kernel(), persistent=False)
 
     def forward(self, x: torch.Tensor, w: torch.Tensor) -> tuple:
+        y, d = self.convolve(x, w)
+        return (blur(y, self.fir) if self.up else y), d
+
+    def convolve(self, x: torch.Tensor, w: torch.Tensor) -> tuple:
+        """(the convolution before the FIR, the demodulation or None)."""
         styles = self.affine(w, gain=self.scale)
         x = x * styles[:, :, None, None]
         if self.up:
-            y = blur(F.conv_transpose2d(x, self.weight.transpose(0, 1),
-                                        stride=2), self.fir)
+            y = F.conv_transpose2d(x, self.weight.transpose(0, 1), stride=2)
         else:
             y = F.conv2d(x, self.weight, padding=self.weight.shape[-1] // 2)
         if not self.demodulate:
@@ -152,7 +141,9 @@ class ModulatedConv(nn.Module):
 
 class StyledConv(nn.Module):
     """ModulatedConv demodulated, + strength * noise, + bias, leaky ReLU
-    0.2 times sqrt 2."""
+    0.2 times sqrt 2: the conv, then its tail (the FIR where it up-samples
+    and the rest) as ops.styled_tail, one kernel a direction on the
+    card."""
 
     def __init__(self, cin: int, cout: int, w_dim: int, up: bool = False):
         super().__init__()
@@ -161,10 +152,9 @@ class StyledConv(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout))
 
     def forward(self, x, w, noise):
-        y, d = self.conv(x, w)
-        y = torch.addcmul(self.bias[:, None, None], y, d[:, :, None, None])
-        y = torch.addcmul(y, noise, self.noise_strength)
-        return F.leaky_relu(y, 0.2) * SQRT2
+        t, d = self.conv.convolve(x, w)
+        return styled_tail(t, d, self.bias, noise, self.noise_strength,
+                           self.conv.up)
 
 
 class ToRGB(nn.Module):

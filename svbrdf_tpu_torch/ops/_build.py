@@ -22,7 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("mixed_loss", "rendering_loss", "sr_adam", "pathtrace",
-           "norm_merge")
+           "norm_merge", "styled_tail")
 
 # No --use_fast_math and -fmad=false, for the gradient kernels: they are
 # bit-exact against their plain torch versions, which needs IEEE logf and
@@ -99,3 +99,26 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return _LOADED[name]
+
+
+def host_build(text: str, flags, stem: str) -> ctypes.CDLL:
+    """C++ source `text` compiled for the host with g++ and `flags` into
+    BUILD_DIR (lib<stem>-<hash of the text and flags>.so, once for each)
+    and loaded: the host emulations of the kernels (utils/host_*.py)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the host build needs it")
+    digest = hashlib.sha256((text + " ".join(flags)).encode()).hexdigest()
+    out = BUILD_DIR / f"lib{stem}-{digest[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = out.with_name(f"{out.stem}.{os.getpid()}.cpp")
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        src.write_text(text)
+        try:
+            subprocess.run([cxx, *flags, "-o", str(tmp), str(src)],
+                           check=True, capture_output=True, text=True)
+        finally:
+            src.unlink()
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

@@ -541,6 +541,121 @@ def hold_tail_kernels(case: tuple, seed: int = 0) -> dict:
     return out
 
 
+def styled_tail_cases(batch: int = 8, resolution: int = 256,
+                      max_channels: int = 512,
+                      channel_base: int = 32768) -> list:
+    """The styled convs' tails (ops.styled_tail calls) of one forward of
+    MaterialGAN's generator (config-f widths by default) on `batch`
+    materials, in order: (B, C, H, W, up), H x W the output, up whether the
+    conv up-samples (its t is (H + 1) x (W + 1))."""
+    from svbrdf_tpu_torch.models.stylegan2 import channels
+
+    res = [1 << i for i in range(2, resolution.bit_length())]
+    ch = [channels(r, max_channels, channel_base) for r in res]
+    cases = [(batch, ch[0], 4, 4, False)]
+    for r, c in zip(res[1:], ch[1:]):
+        cases += [(batch, c, r, r, True), (batch, c, r, r, False)]
+    return cases
+
+
+# Where the float64 pre-activation lies within this of leaky ReLU's kink,
+# styled_tail_inputs' cotangent is 0: f32 rounding (about 1e-6 there) may
+# put such a point on either side, and one point on the other side moves
+# grad_noise by its channel's 0.8 sqrt 2 g, beyond any summation-order
+# rule (a 8 x 512 x 64^2 tail holds about one such point a seed).
+STYLED_TAIL_KINK = 1e-4
+
+
+def styled_tail_inputs(case: tuple, seed: int = 0, device="cuda") -> dict:
+    """f32 inputs of a tail of styled_tail_cases' form, drawn on `device`
+    from `seed`: t, d (positive, as a demodulation), bias, the noise map,
+    the strength and the output's cotangent g, 0 within STYLED_TAIL_KINK of
+    the kink."""
+    from svbrdf_tpu_torch.ops import styled_tail as st
+
+    b, c, h, w, up = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    x = {"t": draw(b, c, h + up, w + up),
+         "d": 0.5 + torch.rand(b, c, generator=gen, device=device),
+         "bias": draw(c, scale=0.3), "noise": draw(b, 1, h, w),
+         "strength": draw(scale=0.1), "g": draw(b, c, h, w)}
+    x64 = {k: v.double() for k, v in x.items()}
+    y = (st.blur(x64["t"], st.fir_kernel(device, torch.float64)) if up
+         else x64["t"])
+    pre = (x64["bias"][:, None, None] + y * x64["d"][:, :, None, None]
+           + x64["noise"] * x64["strength"])
+    x["g"] = x["g"].masked_fill(pre.abs() < STYLED_TAIL_KINK, 0.0)
+    return x
+
+
+_STYLED_INPUTS = ("t", "d", "bias", "noise", "strength")
+_STYLED_RESULTS = ("out", "grad_t", "grad_d", "grad_bias", "grad_noise",
+                   "grad_strength")
+
+
+def styled_tail_kernels(x: dict, up: bool, forward=None,
+                        backward=None) -> dict:
+    """One forward launch (keeping y) and one backward launch of the
+    tail's kernels on the inputs `x` (the card's wrappers by default; the
+    host build's where given): out and each input's gradient."""
+    from svbrdf_tpu_torch.ops import styled_tail as st
+
+    forward = forward or st.styled_tail_fwd_cuda
+    backward = backward or st.styled_tail_bwd_cuda
+    args = [x[k] for k in _STYLED_INPUTS]
+    out, y = forward(*args, up, True)
+    grads = backward(x["g"], y, *args[1:], up)
+    return dict(zip(_STYLED_RESULTS, (out, *grads)))
+
+
+def styled_tail_reference(x: dict, up: bool, dtype=torch.float32) -> dict:
+    """The plain version (styled_tail_plain and its autograd) on `x` cast
+    to `dtype`: out and each input's gradient."""
+    from svbrdf_tpu_torch.ops import styled_tail as st
+
+    args = [x[k].detach().to(dtype).requires_grad_() for k in _STYLED_INPUTS]
+    out = st.styled_tail_plain(*args, up)
+    grads = torch.autograd.grad(out, args, x["g"].to(dtype))
+    return dict(zip(_STYLED_RESULTS, (out.detach(), *grads)))
+
+
+# A kernel's result within this (normwise) of float64 passes whatever the
+# plain version's distance: 17 f32 epsilons.
+STYLED_TAIL_FLOOR = 1e-6
+
+
+def hold_styled_tail_kernels(case: tuple, seed: int = 0, device="cuda",
+                             forward=None, backward=None) -> dict:
+    """The tail's kernels against the plain version on one case: out and
+    the gradients of t, d, the bias, the noise and the strength, each no
+    further (normwise) from the float64 plain version than twice the f32
+    plain version's own distance, or than STYLED_TAIL_FLOOR. The kernels
+    sum in another order than torch: the FIR's 16 taps as a row then a
+    column pass, grad_noise's channel sum (up to 512 terms), grad_d's
+    H x W sum (up to 65,536), grad_bias's B x H x W sum (up to 524,288)
+    and grad_strength's sum over every pixel of the noise times its
+    channel sum, in blocks, and they round the two addcmul's products
+    apart (no FMA). The inputs keep the cotangent off leaky ReLU's kink
+    (STYLED_TAIL_KINK), where the branch is a matter of rounding. Returns
+    each result's (kernel, plain) distances and `failed`, the results
+    that broke the rule."""
+    x = styled_tail_inputs(case, seed, device)
+    up = case[4]
+    got = styled_tail_kernels(x, up, forward, backward)
+    plain = styled_tail_reference(x, up)
+    ref = styled_tail_reference(x, up, torch.float64)
+    out = {"case": list(case), "failed": []}
+    for name, r in ref.items():
+        out[name] = (_normwise(got[name], r), _normwise(plain[name], r))
+        if not out[name][0] <= max(2 * out[name][1], STYLED_TAIL_FLOOR):
+            out["failed"].append(name)
+    return out
+
+
 @dataclass
 class MainProgram:
     """A training program, ready to drive: train_step(raw), eval_step(raw),
@@ -635,6 +750,7 @@ def zero_launch_counts() -> None:
     from svbrdf_tpu_torch.ops import pathtrace
     from svbrdf_tpu_torch.ops import render_fused as rf
     from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.ops import styled_tail as st
 
     for wrapper in (*rf.CUDA_WRAPPERS.values(),
                     *pathtrace.CUDA_WRAPPERS.values()):
@@ -642,19 +758,22 @@ def zero_launch_counts() -> None:
         for dtype in wrapper.launches_by_dtype:
             wrapper.launches_by_dtype[dtype] = 0
     for wrapper in (sr_adam.sr_adam_multi_cuda, nm.norm_merge_fwd_cuda,
-                    nm.norm_merge_bwd_cuda):
+                    nm.norm_merge_bwd_cuda, st.styled_tail_fwd_cuda,
+                    st.styled_tail_bwd_cuda):
         wrapper.launches = 0
 
 
 def launch_counts() -> dict:
     """Every launch counter: each loss kernel's by planes dtype and each
     path tracer kernel's by SVBRDF dtype (the bf16 instantiation as
-    <kernel>_bf16), sr_adam's, and the block tail's pair (norm_merge_fwd,
-    norm_merge_bwd; both dtypes)."""
+    <kernel>_bf16), sr_adam's, the block tail's pair (norm_merge_fwd,
+    norm_merge_bwd; both dtypes) and the styled conv tail's
+    (styled_tail_fwd, styled_tail_bwd)."""
     from svbrdf_tpu_torch.ops import norm_merge as nm
     from svbrdf_tpu_torch.ops import pathtrace
     from svbrdf_tpu_torch.ops import render_fused as rf
     from svbrdf_tpu_torch.ops import sr_adam
+    from svbrdf_tpu_torch.ops import styled_tail as st
 
     counts = {k + rf.PLANE_DTYPES[dtype]: n
               for k, w in rf.CUDA_WRAPPERS.items()
@@ -665,6 +784,8 @@ def launch_counts() -> dict:
     counts["sr_adam"] = sr_adam.sr_adam_multi_cuda.launches
     counts["norm_merge_fwd"] = nm.norm_merge_fwd_cuda.launches
     counts["norm_merge_bwd"] = nm.norm_merge_bwd_cuda.launches
+    counts["styled_tail_fwd"] = st.styled_tail_fwd_cuda.launches
+    counts["styled_tail_bwd"] = st.styled_tail_bwd_cuda.launches
     return counts
 
 

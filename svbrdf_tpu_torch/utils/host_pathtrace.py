@@ -28,10 +28,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
-import hashlib
 import json
-import shutil
-import subprocess
 
 import torch
 
@@ -205,21 +202,7 @@ def build(variant: str | None = None) -> ctypes.CDLL:
     text = SOURCE.read_text()
     if variant is not None:
         text = apply_variant(text, variant)
-    cpp = host_source(text)
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the host build needs it")
-    digest = hashlib.sha256((cpp + " ".join(CXX_FLAGS)).encode()).hexdigest()
-    lib = _build.BUILD_DIR / f"libhost_pathtrace-{digest[:16]}.so"
-    if not lib.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src = lib.with_suffix(".cpp")
-        src.write_text(cpp)
-        tmp = lib.with_name(lib.name + ".tmp")
-        subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
-                       check=True, capture_output=True, text=True)
-        tmp.replace(lib)
-    return ctypes.CDLL(str(lib))
+    return _build.host_build(host_source(text), CXX_FLAGS, "host_pathtrace")
 
 
 def _pointers(tensors) -> list:

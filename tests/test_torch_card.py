@@ -1834,6 +1834,148 @@ def test_norm_merge_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                 dtype=BF16))
 
 
+# The styled conv's tail (csrc/styled_tail.cu, ops/styled_tail.py):
+# bench_setup.hold_styled_tail_kernels' rule (each result within twice the
+# f32 plain version's normwise distance from float64, or 1e-6: the kernels
+# sum the FIR's taps, the channel sum of grad_noise and the H x W sum of
+# grad_d, up to 65,536 terms, in another order) at every styled conv of
+# the config-f generator at batch 8, and on ragged shapes; NaN, the sums
+# that cross blocks repeat to the bit, the launches of a capture.
+@pytest.mark.parametrize("case", bench_setup.styled_tail_cases(8), ids=str)
+def test_styled_tail_kernels_match_plain(cuda, case):
+    held = bench_setup.hold_styled_tail_kernels(case)
+    assert held["failed"] == [], held
+
+
+def test_styled_tail_kernels_on_ragged_shapes(cuda):
+    """Tiles cut at the edges, a tall narrow plane, one pixel, more channels
+    than a group holds."""
+    cases = [(3, 5, 33, 40, True), (2, 7, 5, 7, False), (1, 3, 100, 3, True),
+             (2, 70, 4, 4, False), (1, 1, 1, 1, True), (2, 40, 129, 17, True)]
+    held = map(bench_setup.hold_styled_tail_kernels, cases)
+    assert {str(h["case"]): h for h in held if h["failed"]} == {}
+
+
+@pytest.mark.parametrize("case", [(2, 128, 256, 256, True),
+                                  (2, 512, 16, 16, False)], ids=str)
+def test_styled_tail_propagates_nan(cuda, case):
+    """A NaN in t or in the cotangent: every result NaN exactly where the
+    plain version's is."""
+    for where in ("t", "g"):
+        x = bench_setup.styled_tail_inputs(case, 3)
+        x[where][1, 7, 5, 9] = float("nan")
+        got = bench_setup.styled_tail_kernels(x, case[4])
+        want = bench_setup.styled_tail_reference(x, case[4])
+        for name, r in want.items():
+            assert torch.equal(torch.isnan(got[name]), torch.isnan(r)), name
+
+
+def test_styled_tail_repeats_to_the_bit(cuda):
+    """The partials of grad_d, grad_bias, grad_noise and grad_strength meet
+    in a fixed order: two backward launches agree to the bit."""
+    from svbrdf_tpu_torch.ops import styled_tail as st
+
+    for case in ((8, 128, 256, 256, True), (8, 512, 32, 32, False)):
+        x = bench_setup.styled_tail_inputs(case, 5)
+        args = [x[k] for k in ("t", "d", "bias", "noise", "strength")]
+        _, y = st.styled_tail_fwd_cuda(*args, case[4], True)
+        first = st.styled_tail_bwd_cuda(x["g"], y, *args[1:], case[4])
+        again = st.styled_tail_bwd_cuda(x["g"], y, *args[1:], case[4])
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _capture(dev, batch=2, photos=3, seed=0, **sizes):
+    """A CaptureStep on `dev` over a seeded generator of `sizes` (the
+    generator built on the CPU and copied, so both devices hold the same
+    weights) and seeded photos and scenes."""
+    from svbrdf_tpu_torch.experiments import CaptureStep
+    from svbrdf_tpu_torch.models import build_model
+
+    model = build_model("materialgan", device="cpu", seed=seed, **sizes)
+    gen = torch.Generator().manual_seed(seed + 1)
+    res = model.noise_sizes[-1]
+    scenes = pipeline.generate_input_scenes(batch, photos, True,
+                                            generator=gen)
+    shots = torch.rand(batch, photos, res, res, 3, generator=gen)
+    noises = model.make_noises(batch, gen)
+    return CaptureStep(model.to(dev), shots.to(dev),
+                       scenes.to(dev),
+                       noises=[n.to(dev) for n in noises])
+
+
+CAPTURE_SMALL = dict(w_dim=32, mapping_layers=2, max_channels=32)
+
+
+def test_styled_tail_launches_once_a_conv(cuda):
+    """A capture iteration launches the forward and the backward kernel once
+    for each of the 256^2 generator's 13 styled convs; a forward without
+    gradients the forward alone. A generator whose bias and strengths take
+    gradients launches the same pair, which gives them."""
+    step = _capture(cuda, **CAPTURE_SMALL)
+    _, counts = _counted(step)
+    _expect_launches(counts, {"styled_tail_fwd": 13, "styled_tail_bwd": 13})
+    with torch.no_grad():
+        _, counts = _counted(step.maps)
+    _expect_launches(counts, {"styled_tail_fwd": 13})
+    model = step.model.requires_grad_(True)
+    _, counts = _counted(lambda: step.maps().square().mean().backward())
+    _expect_launches(counts, {"styled_tail_fwd": 13, "styled_tail_bwd": 13})
+    assert all(c.bias.grad is not None and c.noise_strength.grad is not None
+               for c in model.convs)
+
+
+def test_styled_conv_parameter_gradients_card_match_cpu(cuda):
+    """A generator that trains its styled convs' biases and noise strengths
+    (every parameter wanting a gradient) at 32^2 (channels 32): those
+    gradients from the card's kernels against the CPU's plain version, TF32
+    off, within 1e-4 normwise (each kind stacked over the 7 convs; f32
+    summation orders through 7 convs, as the capture's W+ gradients)."""
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        step = _capture(dev, resolution=32, **CAPTURE_SMALL)
+        model = step.model.requires_grad_(True)
+        step.maps().square().mean().backward()
+        grads.append([torch.cat([c.bias.grad.cpu() for c in model.convs]),
+                      torch.stack([c.noise_strength.grad.cpu()
+                                   for c in model.convs])])
+    for a, b in zip(*grads):
+        assert _normwise(a, b) <= 1e-4
+
+
+def test_capture_step_card_matches_cpu(cuda):
+    """One capture iteration at 32^2 (channels 32) on the card, through the
+    kernels, against the same on the CPU through the plain version, TF32
+    off: the loss within 1e-5, W+'s and the noise maps' gradients and
+    updates within 1e-4 normwise (f32 summation orders through 7 convs)."""
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        step = _capture(dev, resolution=32, **CAPTURE_SMALL)
+        loss = float(step())
+        runs.append([loss, step.wplus.grad, step.wplus.detach()]
+                    + [n.grad for n in step.noises])
+    (card_loss, *card), (cpu_loss, *cpu) = runs
+    assert abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    for a, b in zip(card, cpu):
+        assert _normwise(a.cpu(), b) <= 1e-4
+
+
+def test_styled_tail_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from svbrdf_tpu_torch.ops import styled_tail as st
+
+    x = bench_setup.styled_tail_inputs((2, 3, 4, 4, False), 0)
+    args = [x[k] for k in ("t", "d", "bias", "noise", "strength")]
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        st.styled_tail_fwd_cuda(*(a.cpu() for a in args), False)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        st.styled_tail_fwd_cuda(args[0].transpose(2, 3), *args[1:], False)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        st.styled_tail_fwd_cuda(args[0].double(), *args[1:], False)
+    with pytest.raises(ValueError, match="shapes"):
+        st.styled_tail_fwd_cuda(*args, True)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        st.styled_tail(args[0], args[1].bfloat16(), *args[2:])
+
+
 # The inference API and the tools on the card, on a toy corpus made there:
 # TOY_STRIPS train and as many test strips of 10 photos at 32^2, the train
 # directory filled with symlinks up to CLI_SAMPLES files.

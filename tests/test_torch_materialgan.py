@@ -18,10 +18,12 @@ the gradients, the updates), above every limit.
 
 import contextlib
 import io
+import math
 
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 
 from bench_gpu.reference import maps as ref_maps
 from bench_gpu.reference import stylegan2 as ref
@@ -192,6 +194,80 @@ def test_the_two_modulation_forms_agree(kernel, demodulate, up):
     assert got.shape == want.shape == (3, 5) + ((14, 14) if up else (7, 7))
     # f32 rounding of 54-term sums in two orders.
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _styled_conv(up, seed):
+    """A StyledConv with seeded parameters, its inputs, and what its output
+    is held against: the literal op chain it ran as before its tail became
+    one op (the conv, the blur for an up conv, addcmul with the bias and
+    the demodulation, addcmul with the noise times the strength, leaky
+    ReLU, times sqrt 2)."""
+    gen = torch.Generator().manual_seed(seed)
+    layer = stylegan2.StyledConv(6, 5, 8, up=up)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    side = 14 if up else 7
+    inputs = [torch.randn(3, 6, 7, 7, generator=gen),
+              torch.randn(3, 8, generator=gen),
+              torch.randn(3, 1, side, side, generator=gen)]
+
+    def chain(x, w, noise):
+        conv = layer.conv
+        styles = conv.affine(w, gain=conv.scale)
+        xs = x * styles[:, :, None, None]
+        if up:
+            y = F.conv_transpose2d(xs, conv.weight.transpose(0, 1), stride=2)
+            c = y.shape[1]
+            y = F.conv2d(y, conv.fir[None, None].expand(c, 1, 4, 4),
+                         padding=1, groups=c)
+        else:
+            y = F.conv2d(xs, conv.weight, padding=1)
+        d = torch.rsqrt(styles.square() @ conv.weight.square().sum(
+            (2, 3)).t() + 1e-8)
+        y = torch.addcmul(layer.bias[:, None, None], y, d[:, :, None, None])
+        y = torch.addcmul(y, noise, layer.noise_strength)
+        return F.leaky_relu(y, 0.2) * math.sqrt(2.0)
+
+    return layer, inputs, chain
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_styled_conv_on_the_cpu_is_the_op_chain_to_the_bit(up):
+    """On CPU tensors the tail takes its plain version: the values and every
+    gradient (the inputs', W's, the noise's and each parameter's) equal the
+    literal op chain's to the bit."""
+    layer, inputs, chain = _styled_conv(up, 11 + up)
+    runs = []
+    for fn in (layer, chain):
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        layer.zero_grad(set_to_none=True)
+        out = fn(*leaves)
+        out.backward(torch.linspace(-1, 1, out.numel()).reshape(out.shape))
+        runs.append([out.detach()] + [x.grad for x in leaves]
+                    + [p.grad.clone() for p in layer.parameters()])
+    assert runs[0][0].shape == (3, 5) + ((14, 14) if up else (7, 7))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_styled_conv_takes_the_demodulation_from_the_module(monkeypatch):
+    """StyledConv looks demodulation up through the module's global, where
+    the benchmark's control plants its fault: patched to ones, the output
+    is the chain without demodulation."""
+    layer, inputs, chain = _styled_conv(True, 13)
+    with torch.no_grad():
+        before = layer(*inputs)
+        monkeypatch.setattr(stylegan2, "demodulation",
+                            lambda weight, styles: styles.new_ones(
+                                styles.shape[0], weight.shape[0]))
+        after = layer(*inputs)
+        conv = layer.conv
+        y = conv.forward(inputs[0], inputs[1])[0]
+        want = F.leaky_relu(
+            y + layer.bias[:, None, None]
+            + inputs[2] * layer.noise_strength, 0.2) * math.sqrt(2.0)
+    assert not torch.allclose(before, after)
+    torch.testing.assert_close(after, want, rtol=1e-6, atol=1e-6)
 
 
 def _upfirdn_direct(x: np.ndarray, up: int, pad: tuple) -> np.ndarray:
