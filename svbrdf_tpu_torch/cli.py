@@ -57,8 +57,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-dir", "-m", dest="model_dir", required=True,
                    help="Directory for checkpoints and logs.")
     p.add_argument("--model-type", dest="model_type",
-                   choices=["single", "multi"], default="single",
-                   help="Single-view or multi-view model.")
+                   choices=["single", "multi", "diffusion"], default="single",
+                   help="Single-view or multi-view model, or 'diffusion': "
+                        "Ho et al.'s DDPM U-Net conditioned on the photo, "
+                        "at its published widths (--model-depth and "
+                        "--num-filters do not apply), trained on the "
+                        "eps-MSE with a global-norm clip of 1 and an EMA "
+                        "of 0.9999 "
+                        "(Ho et al.'s rate is --learning-rate 2e-5), "
+                        "predicting by 50 DDIM steps from the EMA.")
     p.add_argument("--gpu-id", "-g", dest="gpu_id", type=int, default=0,
                    help="CUDA device index (cuda:N); < 0 runs on the CPU.")
     p.add_argument("--save-frequency", dest="save_frequency", type=int,

@@ -8,6 +8,9 @@ Counterpart of svbrdf_tpu/estimator.py:
 
 The model runs on the device it was made on: the card unless the caller
 passes device="cpu" (device.resolve_device; without a card that raises).
+A diffusion checkpoint (--model-type diffusion) predicts from its EMA
+weights by deterministic DDIM, 50 steps (parallel/step.make_predict_fn),
+from x_T drawn by a generator seeded with predict's `seed` (default 0).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from svbrdf_tpu_torch.data import strips
 from svbrdf_tpu_torch.device import resolve_device
-from svbrdf_tpu_torch.models import build_model
+from svbrdf_tpu_torch.models import DDPMUNet, build_model
 from svbrdf_tpu_torch.ops import codecs
 from svbrdf_tpu_torch.parallel.step import make_predict_fn
 from svbrdf_tpu_torch.training.checkpoint import Checkpoint
@@ -33,6 +36,7 @@ class SvbrdfEstimator:
         self.model = model
         self.device = next(model.parameters()).device
         self._predict = make_predict_fn(model)
+        self.iterative = isinstance(model, DDPMUNet)
 
     @classmethod
     def from_checkpoint(cls, model_dir, dtype=torch.float32,
@@ -55,17 +59,21 @@ class SvbrdfEstimator:
         model = build_model(spec.model_type, use_coords=spec.use_coords,
                             depth=spec.model_depth,
                             num_filters=spec.num_filters, device=dev,
-                            dtype=dtype)
+                            dtype=dtype,
+                            **getattr(spec, "diffusion_sizes", {}))
         ck.restore_params(model)
+        ck.restore_ema_params(model)
         return cls(model)
 
-    def predict(self, images) -> np.ndarray:
+    def predict(self, images, seed: int = 0) -> np.ndarray:
         """images: (B, H, W, 3) or (B, N, H, W, 3) linear RGB in [0, 1],
-        numpy or a tensor -> (B, H, W, 12) packed SVBRDF, f32 numpy."""
+        numpy or a tensor -> (B, H, W, 12) packed SVBRDF, f32 numpy. A
+        diffusion model draws x_T from `seed`."""
         x = (images if isinstance(images, torch.Tensor)
              else torch.from_numpy(np.asarray(images, np.float32)))
         x = x.to(self.device, torch.float32)
-        return self._predict(x).float().cpu().numpy()
+        out = self._predict(x, seed) if self.iterative else self._predict(x)
+        return out.float().cpu().numpy()
 
     @staticmethod
     def _read_photos(paths: Sequence[str],

@@ -69,6 +69,22 @@ def decode_svbrdf(svbrdf9: torch.Tensor) -> torch.Tensor:
     return pack_svbrdf(normals / norm, diffuse, roughness, specular)
 
 
+def encode_svbrdf(svbrdf: torch.Tensor) -> torch.Tensor:
+    """Packed (..., 12) SVBRDF in output ranges -> the 9 channels in
+    [-1, 1] that models/single_view.decode_head maps back: normal (x, y)
+    over 3 z (z clamped at 1e-3), the roughness channels' mean, and
+    diffuse, roughness and specular remapped [0, 1] -> [-1, 1]; every
+    channel clamped to [-1, 1] (the normal to tilts within atan 3)."""
+    maps = unpack_svbrdf(svbrdf)
+    n = maps.normals
+    nxy = n[..., :2] / torch.clamp(3.0 * n[..., 2:3], min=1e-3)
+    rough = maps.roughness.mean(dim=-1, keepdim=True)
+    x9 = torch.cat([nxy, decode_from_unit_interval(maps.diffuse),
+                    decode_from_unit_interval(rough),
+                    decode_from_unit_interval(maps.specular)], dim=-1)
+    return torch.clamp(x9, -1.0, 1.0)
+
+
 def encode_as_unit_interval(x: torch.Tensor) -> torch.Tensor:
     """[-1, 1] -> [0, 1]."""
     return (x + 1.0) / 2.0

@@ -9,7 +9,9 @@ of the device. On one device that is TrainStep; on a rank of a data group
 on the same global batch, the order of the gradient reduction aside.
 A step's phases are host spans (utils/profiling.span): step.prepare,
 step.forward, step.loss, step.backward (with the reduction) and
-step.optimizer.
+step.optimizer. DiffusionTrainStep trains the DDPM U-Net
+(models/ddpm_unet) on the same prepared batches: it adds the spans
+diffusion.noise and diffusion.ema.
 
 Precision, as in the JAX package: a model computing in bf16 (its
 `compute_dtype`) gets its prepared inputs and its f32 maps cast to bf16 at
@@ -31,6 +33,9 @@ import torch.distributed as dist
 
 from svbrdf_tpu_torch import losses
 from svbrdf_tpu_torch.data import pipeline
+from svbrdf_tpu_torch.models import ddpm_unet
+from svbrdf_tpu_torch.models.single_view import decode_head
+from svbrdf_tpu_torch.ops import codecs
 from svbrdf_tpu_torch.ops.pathtrace import RenderSamples, Samples
 from svbrdf_tpu_torch.parallel import mesh
 from svbrdf_tpu_torch.parallel.optimizer import AdamBf16SR
@@ -412,6 +417,177 @@ def make_train_step(model, optimizer, loss_fn: Callable, prep: PrepConfig,
                                  group, seed)
 
 
+def diffusion_draws(span: tuple, height: int, width: int,
+                    generator: torch.Generator, device) -> tuple:
+    """(t, eps) of the rows span[0]:span[1] of a global batch of span[2]
+    items: t ~ U{0, ..., T - 1} (span[2],) and then eps ~ N(0, I)
+    (span[2], 9, height, width), drawn for the whole global batch from
+    `generator`, so a rank's rows are one device's and a step's draws
+    repeat from the generator's seed."""
+    lo, hi, total = span
+    t = torch.randint(0, ddpm_unet.TIMESTEPS, (total,), generator=generator,
+                      device=device)
+    eps = torch.randn((total, ddpm_unet.OUT_CHANNELS, height, width),
+                      generator=generator, device=device)
+    return t[lo:hi], eps[lo:hi]
+
+
+class DiffusionTrainStep(TrainStep):
+    """A train step of the DDPM U-Net (models/ddpm_unet) on the batches
+    TrainStep prepares (prepare_rows: the maps, mixed, and the synthesized
+    flash photo): the maps' 9-channel encoding x0 (codecs.encode_svbrdf),
+    the draws of diffusion_draws after preparation's, x_t = sqrt(abar_t)
+    x0 + sqrt(1 - abar_t) eps (abar accumulated in float64 and cast once),
+    the model's eps on [x_t | photo], the loss mean((eps_hat - eps)^2),
+    the backward, the gradients clipped to a global norm of 1, the
+    optimizer (SR-Adam's master salt as TrainStep's), and an f32 EMA of
+    the masters, ema <- ema + (1 - 0.9999) (p - ema): Ho et al.'s
+    settings (models/ddpm_unet's constants).
+
+    With a data group (parallel/mesh.DataGroup) it is a rank's step of
+    the global batch, as DataParallelTrainStep is: rank 0's state
+    broadcast at construction, the gradients and the loss averaged over
+    the group after the backward, so the clip, the update and the EMA are
+    every rank's alike.
+
+    On the card, the model's training forward and backward are captured
+    as CUDA graphs at the shape of the first batch it trains on
+    (torch.cuda.make_graphed_callables, with the model's own hooks set
+    aside for the capture) and replayed at that shape: some 4,000
+    launches a step become two replays, so the step is paced by the card
+    and not by the host's issue. A batch of another shape, and the model
+    in eval mode, run eagerly.
+
+    Spans: step.prepare, diffusion.noise (the encoding, the draws, x_t),
+    step.forward, step.loss, step.backward, step.optimizer (the clip, the
+    update and, inside it, diffusion.ema)."""
+
+    def __init__(self, model, optimizer, prep: PrepConfig,
+                 generator: torch.Generator, seed: int = 0, group=None):
+        super().__init__(model, optimizer, None, prep, generator, seed)
+        self.params = list(model.parameters())
+        device = self.params[0].device
+        abar = ddpm_unet.alphas_cumprod()
+        self.sqrt_abar = abar.sqrt().float().to(device)
+        self.sqrt_one_minus_abar = (1.0 - abar).sqrt().float().to(device)
+        if group is not None:
+            self.group = group
+            replicate_training_state(model, optimizer, group)
+            seed_dropout(seed, group.rank)
+        self.ema = [p.detach().float().clone() for p in self.params]
+        self.graph_shape = None
+
+    def train_forward(self, inputs: torch.Tensor,
+                      t: torch.Tensor) -> torch.Tensor:
+        """The model's training forward, on the card a CUDA graph's replay
+        where `inputs` has the first training batch's shape."""
+        if inputs.device.type != "cuda":
+            return self.model(inputs, t)
+        if self.graph_shape is None:
+            self.graph_shape = inputs.shape
+            with _hooks_set_aside(self.model):
+                torch.cuda.make_graphed_callables(
+                    self.model, (torch.zeros_like(inputs),
+                                 torch.zeros_like(t)))
+        if inputs.shape == self.graph_shape:
+            return self.model(inputs, t)
+        graphed = self.model.__dict__.pop("forward")
+        try:
+            return self.model(inputs, t)
+        finally:
+            self.model.forward = graphed
+
+    def noise_prediction(self, batch: dict, span: tuple,
+                         forward: Optional[Callable] = None) -> tuple:
+        """(eps_hat in the compute dtype, eps f32) of prepared rows, by
+        `forward` (the model's own call unless given)."""
+        with profiling.span("diffusion.noise"):
+            x0 = codecs.encode_svbrdf(batch["svbrdf"]).permute(
+                0, 3, 1, 2).contiguous()
+            t, eps = diffusion_draws(span, x0.shape[2], x0.shape[3],
+                                     self.generator, x0.device)
+            scale = lambda table: table[t].view(-1, 1, 1, 1)  # noqa: E731
+            x_t = scale(self.sqrt_abar) * x0 + scale(
+                self.sqrt_one_minus_abar) * eps
+            inputs = torch.cat([x_t, ddpm_unet.condition(batch["inputs"])],
+                               dim=1).to(self.dtype)
+        with profiling.span("step.forward"):
+            return (forward or self.model)(inputs, t), eps
+
+    def reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        if self.group is None:
+            return loss.detach()
+        return reduce_gradients(self.params, loss, self.group)
+
+    @torch.no_grad()
+    def update_ema(self) -> None:
+        torch._foreach_lerp_(self.ema, [p.float() for p in self.params],
+                             1.0 - ddpm_unet.EMA_DECAY)
+
+    def ema_state(self) -> dict:
+        """The EMA by parameter name (f32)."""
+        return {name: e for (name, _), e in zip(
+            self.model.named_parameters(), self.ema)}
+
+    @torch.no_grad()
+    def load_ema(self, state: dict) -> None:
+        for (name, _), e in zip(self.model.named_parameters(), self.ema):
+            e.copy_(state[name])
+
+    def update(self, batch: dict, scenes=None, step: Optional[int] = None,
+               samples=None, span: Optional[tuple] = None) -> torch.Tensor:
+        step = self.step_index + 1 if step is None else step
+        if span is None:
+            span = _span(batch["svbrdf"].shape[0], self.group)
+        pred, eps = self.noise_prediction(batch, span, self.train_forward)
+        with profiling.span("step.loss"):
+            loss = torch.mean(torch.square(pred.float() - eps))
+        with profiling.span("step.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            loss = self.reduce(loss)
+        with profiling.span("step.optimizer"):
+            torch.nn.utils.clip_grad_norm_(self.params, ddpm_unet.CLIP_NORM,
+                                           foreach=True)
+            self.apply_gradients(step)
+            with profiling.span("diffusion.ema"):
+                self.update_ema()
+        self.step_index = step
+        return loss
+
+
+def make_diffusion_eval_step(train_step: DiffusionTrainStep, group=None):
+    """Validation step of a DiffusionTrainStep: eval(raw_batch) -> the same
+    eps-MSE under no_grad with the model's current weights, drawn as the
+    train step draws (prepare_rows, diffusion_draws); with a data group the
+    raw batch is this rank's rows and the loss their mean."""
+
+    def eval_step(raw_batch: dict, scenes=None) -> torch.Tensor:
+        with torch.no_grad(), _eval_mode(train_step.model):
+            batch, span = prepare_rows(raw_batch, train_step.prep,
+                                       train_step.generator, group)
+            pred, eps = train_step.noise_prediction(batch, span)
+            return torch.mean(torch.square(pred.float() - eps))
+
+    return eval_step
+
+
+@contextmanager
+def _hooks_set_aside(module):
+    """The module's own hooks off for the duration (a CUDA graph's capture
+    takes none, and its warm-up runs are no training steps), restored
+    after."""
+    names = ("_forward_pre_hooks", "_forward_hooks", "_backward_hooks")
+    kept = [getattr(module, name) for name in names]
+    for name in names:
+        setattr(module, name, type(getattr(module, name))())
+    try:
+        yield
+    finally:
+        for name, hooks in zip(names, kept):
+            setattr(module, name, hooks)
+
+
 @contextmanager
 def _eval_mode(model):
     """Dropout off for the duration; every submodule's mode restored after."""
@@ -449,7 +625,21 @@ def make_eval_step(model, loss_fn: Callable, prep: PrepConfig,
 
 def make_predict_fn(model):
     """Inference: images (B, [N,] H, W, 3) -> SVBRDF maps (B, H, W, 12),
-    f32 whatever the compute dtype."""
+    f32 whatever the compute dtype. For the DDPM U-Net, predict(images,
+    seed=0): deterministic DDIM over 50 steps
+    (ddpm_unet.ddim_sample) from x_T drawn by a generator seeded with
+    `seed`, the maps decode_head(x0 clamped to [-1, 1])."""
+    if isinstance(model, ddpm_unet.DDPMUNet):
+        abar = ddpm_unet.alphas_cumprod()
+
+        def sample(images: torch.Tensor, seed: int = 0) -> torch.Tensor:
+            with torch.no_grad(), _eval_mode(model):
+                gen = torch.Generator(device=images.device).manual_seed(seed)
+                x0 = ddpm_unet.ddim_sample(model, images, abar,
+                                           ddpm_unet.SAMPLE_STEPS, gen)
+                return decode_head(x0.clamp(-1.0, 1.0).permute(0, 2, 3, 1))
+
+        return sample
 
     def predict(images: torch.Tensor) -> torch.Tensor:
         with torch.no_grad(), _eval_mode(model):

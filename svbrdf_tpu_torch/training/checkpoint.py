@@ -5,8 +5,10 @@ Counterpart of svbrdf_tpu/training/checkpoint.py. One file,
 <model_dir>/checkpoint.tar, written with torch.save: the PyTorch reference's
 dict {model_type, use_coords, epoch, model_state_dict[,
 optimizer_state_dict]} plus model_depth, num_filters, the master-dtype
-policy the run trained with (master_dtype) and, from a spatial run, the
-decoder form the JAX package records (upconv 'fold'). The weights are written in f32
+policy the run trained with (master_dtype), from a spatial run the
+decoder form the JAX package records (upconv 'fold'), and of a diffusion
+model its widths (sizes) and the f32 EMA of its weights
+(ema_state_dict). The weights are written in f32
 whatever their storage dtype (bf16 masters upcast exactly), as the JAX
 package's exporter writes them and its reader (.numpy()) needs them. The
 model's state_dict keys are the reference's, so the JAX package's
@@ -38,7 +40,7 @@ from svbrdf_tpu_torch.parallel import mesh
 CHECKPOINT_FILE = "checkpoint.tar"
 LEGACY_FILE = "model.data"
 _META_KEYS = ("model_type", "use_coords", "epoch", "model_depth",
-              "num_filters", "master_dtype", "upconv")
+              "num_filters", "master_dtype", "upconv", "sizes")
 
 
 class Checkpoint:
@@ -46,10 +48,12 @@ class Checkpoint:
 
     def __init__(self, model_state: Optional[Dict] = None,
                  meta: Optional[Dict] = None,
-                 optimizer_state: Optional[Dict] = None):
+                 optimizer_state: Optional[Dict] = None,
+                 ema_state: Optional[Dict] = None):
         self._model_state = model_state
         self._meta = meta or {}
         self._optimizer_state = optimizer_state
+        self._ema_state = ema_state
 
     # -- loading --------------------------------------------------------
     @classmethod
@@ -80,10 +84,12 @@ class Checkpoint:
 
         blob = torch.load(p, map_location="cpu", weights_only=True)
         meta: Dict[str, Any] = {}
+        ema_state = None
         if isinstance(blob, dict) and "model_state_dict" in blob:
             meta = {k: blob[k] for k in _META_KEYS if k in blob}
             model_state = blob["model_state_dict"]
             optimizer_state = blob.get("optimizer_state_dict")
+            ema_state = blob.get("ema_state_dict")
         else:  # legacy: the file is the state dict
             model_state, optimizer_state = blob, None
             sidecar = p.parent / "state.json"
@@ -92,7 +98,7 @@ class Checkpoint:
                 print("Loaded legacy training state")
             print("Loaded legacy model state")
         print(f"Loaded checkpoint '{p}'")
-        return cls(model_state, meta, optimizer_state)
+        return cls(model_state, meta, optimizer_state, ema_state)
 
     # -- saving ---------------------------------------------------------
     @staticmethod
@@ -100,12 +106,15 @@ class Checkpoint:
              use_coords: bool, omit_optimizer_state: bool = False,
              model_depth: int = 8, num_filters: int = 64,
              master_dtype: Optional[str] = None,
-             group=None, upconv: Optional[str] = None) -> pathlib.Path:
+             group=None, upconv: Optional[str] = None,
+             sizes: Optional[Dict] = None,
+             ema: Optional[Dict] = None) -> pathlib.Path:
         """Write <model_dir>/checkpoint.tar, the weights in f32; returns
         its path. With a group (parallel/mesh.DataGroup) rank 0 writes it
         and every rank returns once it is written. `upconv`, where given,
         is recorded as the JAX package records it (a spatial run's
-        'fold')."""
+        'fold'); `sizes` (a diffusion model's widths) and `ema` (its EMA
+        by parameter name) where given."""
         d = pathlib.Path(model_dir)
         path = d / CHECKPOINT_FILE
         if group is not None and not group.is_main:
@@ -124,6 +133,10 @@ class Checkpoint:
             blob["master_dtype"] = master_dtype
         if upconv is not None:
             blob["upconv"] = upconv
+        if sizes is not None:
+            blob["sizes"] = dict(sizes)
+        if ema is not None:
+            blob["ema_state_dict"] = {k: v.float() for k, v in ema.items()}
         # Written beside and renamed, so a run killed mid-save keeps the
         # previous checkpoint.
         tmp = path.with_suffix(".tar.tmp")
@@ -140,6 +153,7 @@ class Checkpoint:
         """Drop the in-memory state."""
         self._model_state = None
         self._optimizer_state = None
+        self._ema_state = None
 
     def restore_args(self, args):
         """Architecture arguments in the checkpoint override the CLI."""
@@ -152,6 +166,8 @@ class Checkpoint:
         for extra in ("model_depth", "num_filters"):
             if extra in self._meta:
                 setattr(args, extra, self._meta[extra])
+        if "sizes" in self._meta:
+            args.diffusion_sizes = dict(self._meta["sizes"])
         # Unlike the architecture, an explicit CLI value beats the
         # checkpoint here (either policy restores from either); the
         # recorded value fills in a CLI value left at 'auto'. upconv is
@@ -181,6 +197,17 @@ class Checkpoint:
             return
         optimizer.load_state_dict(self._optimizer_state)
         print("Restored optimizer state")
+
+    def ema_state(self) -> Optional[Dict]:
+        """The stored EMA of a diffusion model's weights, or None."""
+        return self._ema_state
+
+    def restore_ema_params(self, model) -> None:
+        """Load the stored EMA, where there is one, into `model`'s
+        weights (a diffusion model predicts from its EMA)."""
+        if self._ema_state is not None:
+            model.load_state_dict(self._ema_state, strict=True)
+            print("Restored EMA weights")
 
     def restore_epoch(self, epoch: int) -> int:
         if "epoch" in self._meta:

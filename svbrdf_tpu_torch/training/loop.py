@@ -34,6 +34,15 @@ val_loss; in test mode rank 0 alone predicts.
 Spatial sharding (--shard-spatial N) is training/spatial_loop's run, to
 which run_training hands the group.
 
+--model-type diffusion trains Ho et al.'s DDPM U-Net
+(models/ddpm_unet) on the same batches through
+parallel/step.DiffusionTrainStep (the eps-MSE, a global-norm clip, the
+optimizer, an f32 EMA of the weights), validates by the same eps-MSE,
+saves its widths and EMA in the checkpoint and resumes them, and in
+test mode predicts from the EMA by DDIM. Its widths are Ho et al.'s at
+--image-size, or a checkpoint's recorded ones. --model-depth and
+--num-filters do not apply to it.
+
 Not ported: the lax.scan chunk programs (the port dispatches each step) and
 AOT compilation (TPU mechanisms).
 """
@@ -58,7 +67,7 @@ from svbrdf_tpu_torch.data.dataset import (SvbrdfDataset,
                                            split_train_validation)
 from svbrdf_tpu_torch.data.device_cache import DeviceDataCache
 from svbrdf_tpu_torch.device import precision_scope, resolve_device
-from svbrdf_tpu_torch.models import build_model
+from svbrdf_tpu_torch.models import build_model, ddpm_unet
 from svbrdf_tpu_torch.parallel import mesh as mesh_lib
 from svbrdf_tpu_torch.parallel import step as step_lib
 from svbrdf_tpu_torch.parallel.spatial import make_spatial_mesh
@@ -177,12 +186,26 @@ def _loss_kind(name: str) -> str:
     return {"mixed": "mixed", "l1": "l1", "render": "rendering"}[name]
 
 
-def setup(args, device):
+def model_sizes(args) -> dict:
+    """build_model's `sizes` of the run's model type: none for the
+    U-Nets; a diffusion model's widths from its checkpoint, else Ho et
+    al.'s at --image-size."""
+    if args.model_type != "diffusion":
+        return {}
+    restored = getattr(args, "diffusion_sizes", None)
+    if restored:
+        return dict(restored)
+    return {**ddpm_unet.PUBLISHED, "resolution": args.image_size}
+
+
+def setup(args, device, with_ema: bool = False):
     """Shared build: checkpoint -> args override -> master-dtype policy ->
     model / optimizer. In train mode the parameters are cast to the
-    policy's master dtypes.
+    policy's master dtypes; in test mode a diffusion model's weights are
+    its checkpoint's EMA.
 
-    Returns (args, model, optimizer, epoch_start).
+    Returns (args, model, optimizer, epoch_start), and with `with_ema`
+    the checkpoint's EMA (or None) after them.
     """
     checkpoint = Checkpoint(None)
     import_path = getattr(args, "import_torch_checkpoint", None)
@@ -204,9 +227,12 @@ def setup(args, device):
     dtype = resolve_dtype(args.dtype, device)
     model = build_model(args.model_type, args.use_coords,
                         depth=args.model_depth, num_filters=args.num_filters,
-                        device=device, seed=args.seed, dtype=dtype)
+                        device=device, seed=args.seed, dtype=dtype,
+                        **model_sizes(args))
     if checkpoint.is_valid():
         checkpoint.restore_params(model)
+        if args.mode == "test":
+            checkpoint.restore_ema_params(model)
     elif args.mode == "test":
         raise SystemExit("No model found in the model directory but it is "
                          "required for testing.")
@@ -216,7 +242,10 @@ def setup(args, device):
     if checkpoint.is_valid():
         checkpoint.restore_opt_state(optimizer)
     epoch_start = checkpoint.restore_epoch(0) if checkpoint.is_valid() else 0
+    ema = checkpoint.ema_state()
     checkpoint.purge()
+    if with_ema:
+        return args, model, optimizer, epoch_start, ema
     return args, model, optimizer, epoch_start
 
 
@@ -271,6 +300,8 @@ def run_training(args, device="cuda", group=None) -> TrainingRun:
     run on the group's device. With --shard-spatial N it is
     training/spatial_loop's run (the group's ranks split the height)."""
     if args.shard_spatial > 0:
+        if args.model_type == "diffusion":
+            raise ValueError("--shard-spatial trains the U-Nets only")
         from svbrdf_tpu_torch.training.spatial_loop import \
             run_training_spatial
 
@@ -298,15 +329,16 @@ def _run_training(args, device, group) -> TrainingRun:
               f"rank {group.rank} on {device}"
               + (f" ({group.process_count} processes)"
                  if group.process_count > 1 else ""))
-    args, model, optimizer, epoch_start = setup(args, device)
+    args, model, optimizer, epoch_start, ema = setup(args, device,
+                                                     with_ema=True)
     # The dataset's decode pool, if a prefetch started one, stops here.
     with _build_dataset(args, "train", group) as data:
         return _train(args, device, model, optimizer, epoch_start, data,
-                      group)
+                      group, ema)
 
 
 def _train(args, device, model, optimizer, epoch_start, data,
-           group) -> TrainingRun:
+           group, ema=None) -> TrainingRun:
     pc = group.process_count if group is not None else 1
     is_main = group is None or group.is_main
     device_cache = None
@@ -334,11 +366,21 @@ def _train(args, device, model, optimizer, epoch_start, data,
                       mix_materials=data.mix_materials)
     loss_fn = losses_lib.make_loss_fn(_loss_kind(args.loss), args.renderer)
     generator = torch.Generator(device=device)
-    train_step = make_train_step(model, optimizer, loss_fn, prep, generator,
-                                 seed=args.seed, group=group)
-    eval_step = make_eval_step(model, loss_fn, prep, generator)
-    eval_rows = (make_eval_step(model, loss_fn, prep, generator, group)
-                 if rows is not None else None)
+    diffusion = args.model_type == "diffusion"
+    if diffusion:
+        train_step = step_lib.DiffusionTrainStep(
+            model, optimizer, prep, generator, seed=args.seed, group=group)
+        if ema is not None:
+            train_step.load_ema(ema)
+        eval_step = step_lib.make_diffusion_eval_step(train_step)
+        eval_rows = (step_lib.make_diffusion_eval_step(train_step, group)
+                     if rows is not None else None)
+    else:
+        train_step = make_train_step(model, optimizer, loss_fn, prep,
+                                     generator, seed=args.seed, group=group)
+        eval_step = make_eval_step(model, loss_fn, prep, generator)
+        eval_rows = (make_eval_step(model, loss_fn, prep, generator, group)
+                     if rows is not None else None)
     print(f"Using renderer '{args.renderer}' on {device}")
 
     checkpoint_dir = pathlib.Path(args.model_dir)
@@ -368,7 +410,9 @@ def _train(args, device, model, optimizer, epoch_start, data,
                         model_depth=args.model_depth,
                         num_filters=args.num_filters,
                         master_dtype=step_lib.master_dtype_policy(),
-                        group=group)
+                        group=group,
+                        sizes=model.sizes if diffusion else None,
+                        ema=train_step.ema_state() if diffusion else None)
 
     print(f"Training from epoch {epoch_start} to {args.epochs}")
     sync = torch.cuda.synchronize if device.type == "cuda" else None

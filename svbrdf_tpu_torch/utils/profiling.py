@@ -14,7 +14,12 @@ data.decode (data/dataset.SvbrdfDataset); a prediction call's
 predict.decode, predict.forward and predict.encode
 (estimator.SvbrdfEstimator.predict_to_files); a latent capture
 iteration's capture.synthesis, capture.loss, capture.backward and
-capture.optimizer (experiments/map_recovery.CaptureStep).
+capture.optimizer (experiments/map_recovery.CaptureStep); a diffusion
+train step's diffusion.noise (the maps' encoding, the draws of t and
+eps, x_t) between step.prepare and step.forward, and diffusion.ema
+inside step.optimizer (parallel/step.DiffusionTrainStep); and one
+diffusion.sample a DDIM step of a diffusion model's prediction
+(models/ddpm_unet.ddim_sample).
 """
 
 from __future__ import annotations
